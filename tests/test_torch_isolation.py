@@ -1,0 +1,77 @@
+"""The port stands alone: it imports torch, never jax, and nothing of the
+JAX package — and its entry points never fall back to the CPU.
+
+Runs in a fresh interpreter with `sys.modules["jax"] = None` (any jax
+import raises), imports every module of throttlecrab_tpu_torch, and
+checks that no module named `throttlecrab_tpu` or `throttlecrab_tpu.*`
+got loaded (`throttlecrab_tpu_torch` shares the prefix, so the check is
+exact).  Then the device contract: without a card, asking for `cuda` —
+explicitly or by default — raises instead of running on the CPU.
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+
+_CODE = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+import throttlecrab_tpu_torch as pkg
+names = [pkg.__name__]
+for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    names.append(info.name)
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(
+    m for m in sys.modules
+    if m == "throttlecrab_tpu" or m.startswith("throttlecrab_tpu.")
+)
+assert not leaked, leaked
+assert sys.modules.get("jax") is None
+print("imported", len(names))
+
+import torch
+from throttlecrab_tpu_torch.tpu.limiter import TorchRateLimiter
+from throttlecrab_tpu_torch.tpu.table import BucketTable
+from throttlecrab_tpu_torch.server.config import Config
+from throttlecrab_tpu_torch.server.store import create_limiter
+if torch.cuda.is_available():
+    print("card present: cuda entry points build")
+    assert TorchRateLimiter(capacity=64).table.state.is_cuda
+else:
+    for make in (
+        lambda: TorchRateLimiter(capacity=64),
+        lambda: BucketTable(64, device="cuda"),
+        lambda: create_limiter(Config(http=True, store_capacity=64)),
+    ):
+        try:
+            make()
+        except RuntimeError as e:
+            assert "cuda" in str(e)
+        else:
+            raise AssertionError("cuda requested without a card must raise")
+    print("no card: cuda entry points raise")
+try:
+    TorchRateLimiter(capacity=64, device="cpu", keymap="native")
+except NotImplementedError as e:
+    assert "ROADMAP" in str(e)
+else:
+    raise AssertionError("the native keymap is not ported")
+print("ok")
+"""
+
+
+def test_port_imports_without_jax_and_never_falls_back():
+    env = {
+        k: v for k, v in os.environ.items() if not k.startswith("PYTEST")
+    }
+    env["PYTHONPATH"] = str(REPO)
+    r = subprocess.run(
+        [sys.executable, "-c", _CODE], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert r.returncode == 0, r.stdout + r.stderr[-3000:]
+    assert r.stdout.strip().endswith("ok"), r.stdout

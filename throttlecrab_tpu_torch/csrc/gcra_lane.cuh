@@ -1,0 +1,311 @@
+// Per-lane body of the GCRA decision window, shared by the CUDA kernel
+// (fused_window.cu, compiled by nvcc for sm_90a) and the host shim
+// (lane_host.cpp, compiled by g++ so the arithmetic is checked on a
+// machine without a card).
+//
+// One lane = one request of one sub-batch.  Lanes are independent: the
+// duplicate-key closed forms (main prefix + degenerate three-view orbit,
+// see throttlecrab_tpu_torch/tpu/kernel.py) need no communication
+// between positions, so the device runs one thread per lane.
+//
+// Integer semantics are those of throttlecrab_tpu/tpu/sat.py, bit for
+// bit, on native 64-bit integers.  Signed overflow is undefined in C++,
+// so every deliberately wrapping step (the wrap inside sat_add/sat_sub
+// before the clamp, burst_limit = now + tol, the plain products of the
+// certified path, the cur*2+allowed word, the deny-counter add) runs on
+// uint64_t and is cast back.  Division clamps the divisor to >= 1 and
+// truncates toward zero, which is C's `/`.
+#pragma once
+
+#include <stdint.h>
+
+#ifdef __CUDACC__
+#define TC_HD __host__ __device__ __forceinline__
+#else
+#define TC_HD inline
+#endif
+
+namespace tc {
+
+constexpr int PACK_WIDTH = 9;
+constexpr int32_t FLAG_IS_LAST = 1;
+constexpr int32_t FLAG_VALID = 2;
+constexpr int64_t I64_MAX = INT64_MAX;
+constexpr int64_t I64_MIN = INT64_MIN;
+constexpr int64_t EMPTY_EXPIRY = INT64_MIN;
+constexpr int64_t NS_PER_SEC = 1000000000LL;
+constexpr int64_t I32_MAX = 2147483647LL;
+
+// Output tiers (the `compact` argument of the Python wrappers).
+constexpr int TIER_NS = 0;     // False:  i64[K, 4, B] ns planes
+constexpr int TIER_WIRE = 1;   // True:   i32[K, 4, B] whole-second planes
+constexpr int TIER_CUR = 2;    // "cur":  i64[K, B] cur*2 + allowed
+constexpr int TIER_W32 = 3;    // "w32":  i32[K, B] bit-packed wire word
+
+TC_HD int64_t wadd(int64_t a, int64_t b) {
+  return (int64_t)((uint64_t)a + (uint64_t)b);
+}
+TC_HD int64_t wsub(int64_t a, int64_t b) {
+  return (int64_t)((uint64_t)a - (uint64_t)b);
+}
+TC_HD int64_t wmul(int64_t a, int64_t b) {
+  return (int64_t)((uint64_t)a * (uint64_t)b);
+}
+TC_HD int64_t imax(int64_t a, int64_t b) { return a > b ? a : b; }
+TC_HD int64_t imin(int64_t a, int64_t b) { return a < b ? a : b; }
+
+TC_HD int64_t sat_add(int64_t a, int64_t b) {
+  int64_t s = wadd(a, b);
+  if (a > 0 && b > 0 && s < 0) return I64_MAX;
+  if (a < 0 && b < 0 && s >= 0) return I64_MIN;
+  return s;
+}
+TC_HD int64_t sat_sub(int64_t a, int64_t b) {
+  int64_t d = wsub(a, b);
+  if (a >= 0 && b < 0 && d < 0) return I64_MAX;
+  if (a < 0 && b > 0 && d >= 0) return I64_MIN;
+  return d;
+}
+// b >= 0 forms of the certified path: one compare instead of the
+// general sign pattern.
+TC_HD int64_t sat_add_nn(int64_t a, int64_t b) {
+  int64_t s = wadd(a, b);
+  return s < a ? I64_MAX : s;
+}
+TC_HD int64_t sat_sub_nn(int64_t a, int64_t b) {
+  int64_t d = wsub(a, b);
+  return d > a ? I64_MIN : d;
+}
+TC_HD int64_t sat_mul_nonneg(int64_t a, int64_t b) {
+  int64_t safe_b = b > 1 ? b : 1;
+  bool overflow = b > 0 && a > I64_MAX / safe_b;
+  return overflow ? I64_MAX : wmul(a, b);
+}
+TC_HD int64_t div_trunc(int64_t a, int64_t b) { return a / (b > 1 ? b : 1); }
+
+TC_HD int64_t join(int32_t lo, int32_t hi) {
+  return (int64_t)(((uint64_t)(uint32_t)hi << 32) | (uint64_t)(uint32_t)lo);
+}
+TC_HD int32_t lo32(int64_t x) { return (int32_t)(uint32_t)(uint64_t)x; }
+TC_HD int32_t hi32(int64_t x) { return (int32_t)(uint32_t)((uint64_t)x >> 32); }
+
+// The saturating op set: general on the exact path, nonneg forms and
+// wrapping products on the host-certified path (limiter.has_degenerate).
+template <bool DEGEN>
+struct Ops;
+template <>
+struct Ops<true> {
+  TC_HD static int64_t add(int64_t a, int64_t b) { return sat_add(a, b); }
+  TC_HD static int64_t sub(int64_t a, int64_t b) { return sat_sub(a, b); }
+  TC_HD static int64_t mul(int64_t a, int64_t b) {
+    return sat_mul_nonneg(a, b);
+  }
+};
+template <>
+struct Ops<false> {
+  TC_HD static int64_t add(int64_t a, int64_t b) { return sat_add_nn(a, b); }
+  TC_HD static int64_t sub(int64_t a, int64_t b) { return sat_sub_nn(a, b); }
+  TC_HD static int64_t mul(int64_t a, int64_t b) { return wmul(a, b); }
+};
+
+struct ReqOut {
+  bool allowed;
+  int64_t remaining, reset, retry, new_tat, ttl;
+};
+
+// One GCRA check from view t (kernel._request_outputs): always the
+// general saturating ops.
+TC_HD ReqOut request_outputs(int64_t t, int64_t inc, int64_t em, int64_t tol,
+                             int64_t now) {
+  ReqOut o;
+  o.new_tat = sat_add(t, inc);
+  int64_t allow_at = sat_sub(o.new_tat, tol);
+  o.allowed = now >= allow_at;
+  int64_t cur = o.allowed ? o.new_tat : t;
+  int64_t room = sat_sub(wadd(now, tol), cur);
+  o.remaining = em > 0 ? imax(div_trunc(room, em), 0) : 0;
+  o.reset = imax(sat_add(sat_sub(cur, now), tol), 0);
+  o.retry = o.allowed ? 0 : imax(sat_sub(allow_at, now), 0);
+  o.ttl = sat_add(sat_sub(o.new_tat, now), tol);
+  return o;
+}
+
+TC_HD int64_t view_next(int64_t t, const ReqOut& o, int64_t em, int64_t tol,
+                        int64_t now) {
+  if (!o.allowed) return t;
+  if (o.ttl == 0) return sat_sub(now, em);  // dead write: fresh-miss view
+  return imax(o.new_tat, sat_sub(now, tol));
+}
+
+// Decide lane i of one sub-batch.
+//   state:    i32[N, W] table (read only here: the gather)
+//   packed:   i32[B, PACK_WIDTH] this sub-batch's request rows
+//   rows_out: i32[B, W] the row each lane hands to the scatter
+//   out:      this sub-batch's output slice, laid out per TIER
+// Returns whether the lane is an expired hit (kernel._gcra_body n_exp).
+template <int W, bool DEGEN, int TIER>
+TC_HD bool decide_lane(int i, int B, int64_t N, const int32_t* state,
+                       const int32_t* packed, int64_t now, int32_t* rows_out,
+                       void* out) {
+  typedef Ops<DEGEN> S;
+  const int32_t* p = packed + (int64_t)i * PACK_WIDTH;
+  const int64_t slot = p[0];
+  const int64_t rank = p[1];
+  const bool is_last = (p[2] & FLAG_IS_LAST) != 0;
+  const bool v = (p[2] & FLAG_VALID) != 0;
+  const int64_t em = join(p[3], p[4]);
+  const int64_t tol = join(p[5], p[6]);
+  const int64_t q = join(p[7], p[8]);
+  const int64_t g = slot < 0 ? 0 : (slot > N - 1 ? N - 1 : slot);
+  const int32_t* row = state + g * W;
+  const int64_t stored_tat = join(row[0], row[1]);
+  const int64_t stored_exp = join(row[2], row[3]);
+  const bool live = v && stored_exp > now;
+
+  const int64_t inc = S::mul(em, q);
+  const int64_t t0 =
+      live ? imax(stored_tat, S::sub(now, tol)) : S::sub(now, em);
+
+  // ---- main case: prefix closed form ----
+  const int64_t num = sat_sub(S::add(now, tol), t0);
+  const int64_t m_raw = imax(div_trunc(num, inc), 0);
+  const bool allowed_main = rank < m_raw;
+  const int64_t seg_n = rank + 1;
+  const int64_t new_tat_r = S::add(t0, S::mul(seg_n, inc));
+  const int64_t tat_denied = S::add(t0, S::mul(m_raw, inc));
+  const int64_t cur_main = allowed_main ? new_tat_r : tat_denied;
+  const int64_t tat_fin_main = S::add(t0, S::mul(imin(m_raw, seg_n), inc));
+  const int64_t burst_limit = wadd(now, tol);  // wrapping, as the reference
+  const int64_t room_main = sat_sub(burst_limit, cur_main);
+  const int64_t remaining_main =
+      em > 0 ? imax(div_trunc(room_main, em), 0) : 0;
+  const int64_t reset_main = imax(S::add(S::sub(cur_main, now), tol), 0);
+  const int64_t retry_main =
+      allowed_main ? 0
+                   : imax(S::sub(S::sub(S::add(cur_main, inc), tol), now), 0);
+  const bool exp_hit_base = v && rank == 0 && stored_exp != EMPTY_EXPIRY &&
+                            stored_exp <= now;
+
+  bool allowed, wrote, exp_hit;
+  int64_t remaining, reset, retry, tat_fin, denied_seg, cur = 0;
+  if (!DEGEN) {
+    allowed = allowed_main && v;
+    remaining = remaining_main;
+    reset = reset_main;
+    retry = retry_main;
+    wrote = m_raw >= 1 && v && is_last;
+    tat_fin = tat_fin_main;
+    cur = cur_main;
+    denied_seg = seg_n - imin(m_raw, seg_n);
+    exp_hit = exp_hit_base && allowed_main;
+  } else {
+    // ---- degenerate case: three-view orbit, picked by rank parity ----
+    const bool degen = inc == 0 || tol == 0;
+    const ReqOut o0 = request_outputs(t0, inc, em, tol, now);
+    const int64_t v1 = view_next(t0, o0, em, tol, now);
+    const ReqOut o1 = request_outputs(v1, inc, em, tol, now);
+    const int64_t v2 = view_next(v1, o1, em, tol, now);
+    const ReqOut o2 = request_outputs(v2, inc, em, tol, now);
+    const bool a0 = o0.allowed, a1 = o1.allowed, a2 = o2.allowed;
+    // (rank - 1) even; for rank 0 both this and the floor-mod form of
+    // the reference say "odd", and only rank >= 2 reads it anyway.
+    const bool alt_even = ((rank - 1) & 1) == 0;
+    // Which view a lane reads: 0, 1 or 2 (kernel.py `pick`).
+    int view;
+    if (!a0) {
+      view = 0;
+    } else if (!a1) {
+      view = rank == 0 ? 0 : 1;
+    } else if (rank == 0) {
+      view = 0;
+    } else if (rank == 1) {
+      view = 1;
+    } else {
+      view = a2 ? (alt_even ? 1 : 2) : 2;
+    }
+    // Fields are selected by value: a reference to one of the three
+    // views would keep them all in local memory.
+    const bool allowed_d = view == 0 ? a0 : (view == 1 ? (a0 && a1)
+                                                       : (a0 && a1 && a2));
+    allowed = (degen ? allowed_d : allowed_main) && v;
+    remaining = !degen ? remaining_main
+                       : (view == 0 ? o0.remaining
+                                    : (view == 1 ? o1.remaining
+                                                 : o2.remaining));
+    reset = !degen ? reset_main
+                   : (view == 0 ? o0.reset
+                                : (view == 1 ? o1.reset : o2.reset));
+    retry = !degen ? retry_main
+                   : (view == 0 ? o0.retry
+                                : (view == 1 ? o1.retry : o2.retry));
+
+    const int64_t alt_last = alt_even ? o1.new_tat : o2.new_tat;
+    const int64_t tat_fin_degen =
+        (rank == 0 || !a1) ? o0.new_tat
+                           : ((!a2 || rank == 1) ? o1.new_tat : alt_last);
+    wrote = (degen ? a0 : m_raw >= 1) && v && is_last;
+    tat_fin = degen ? tat_fin_degen : tat_fin_main;
+    const int64_t allowed_cnt_degen =
+        !a0 ? 0 : (!a1 ? 1 : (!a2 ? imin(seg_n, 2) : seg_n));
+    denied_seg =
+        seg_n - (degen ? allowed_cnt_degen : imin(m_raw, seg_n));
+    exp_hit = exp_hit_base && allowed;
+  }
+
+  // ---- write-back row (kernel._finish) ----
+  // A lane whose GCRA write is suppressed hands its gathered row back
+  // verbatim, so the scatter addresses never depend on decision data.
+  const int64_t ttl_fin = S::add(S::sub(tat_fin, now), tol);
+  const int64_t expiry_fin = ttl_fin < 0 ? I64_MAX : S::add(tat_fin, tol);
+  const int64_t tat_w = wrote ? tat_fin : stored_tat;
+  const int64_t exp_w = wrote ? expiry_fin : stored_exp;
+  int32_t* ro = rows_out + (int64_t)i * W;
+  ro[0] = lo32(tat_w);
+  ro[1] = hi32(tat_w);
+  ro[2] = lo32(exp_w);
+  ro[3] = hi32(exp_w);
+  if (W > 4) {
+    const int64_t deny = wadd(join(row[4], row[5]), denied_seg);
+    ro[4] = lo32(deny);
+    ro[5] = hi32(deny);
+  }
+
+  // ---- output tier ----
+  if (TIER == TIER_NS) {
+    int64_t* o = (int64_t*)out;
+    o[i] = allowed ? 1 : 0;
+    o[B + i] = remaining;
+    o[2 * B + i] = reset;
+    o[3 * B + i] = retry;
+  } else if (TIER == TIER_WIRE) {
+    int32_t* o = (int32_t*)out;
+    o[i] = allowed ? 1 : 0;
+    o[B + i] = (int32_t)imin(remaining, I32_MAX);
+    o[2 * B + i] = (int32_t)imin(reset / NS_PER_SEC, I32_MAX);
+    o[3 * B + i] = (int32_t)imin(retry / NS_PER_SEC, I32_MAX);
+  } else if (TIER == TIER_CUR) {
+    ((int64_t*)out)[i] = wadd(wmul(cur, 2), allowed ? 1 : 0);
+  } else {
+    // allowed(1) | remaining(10) | reset_s(11) | retry_s(10), each field
+    // the low 32 bits of its value, shifted and OR-ed in 32 bits.
+    uint32_t w = (allowed ? 1u : 0u) | ((uint32_t)(uint64_t)remaining << 1) |
+                 ((uint32_t)(uint64_t)(reset / NS_PER_SEC) << 11) |
+                 ((uint32_t)(uint64_t)(retry / NS_PER_SEC) << 22);
+    ((int32_t*)out)[i] = (int32_t)w;
+  }
+  return exp_hit;
+}
+
+// The scatter target of lane i: its gathered slot when it is the valid
+// is_last lane of its segment (one per slot, so indices are unique),
+// else its own scratch row N - B + i.
+TC_HD int64_t scatter_index(int i, int B, int64_t N, const int32_t* packed) {
+  const int32_t* p = packed + (int64_t)i * PACK_WIDTH;
+  if ((p[2] & FLAG_IS_LAST) && (p[2] & FLAG_VALID)) {
+    const int64_t slot = p[0];
+    return slot < 0 ? 0 : (slot > N - 1 ? N - 1 : slot);
+  }
+  return N - B + i;
+}
+
+}  // namespace tc

@@ -1,0 +1,170 @@
+"""Server configuration: CLI flags + THROTTLECRAB_* environment variables.
+
+The subset of `throttlecrab_tpu/server/config.py` this server serves,
+with the same precedence (CLI > env > default, `config.rs:356-361`):
+the HTTP transport, the store (which picks the cleanup policy) and its
+cleanup knobs, the micro-batching knobs, the keymap backend, and
+`--device` / THROTTLECRAB_DEVICE (default `cuda`; `cpu` runs the plain
+version).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+from dataclasses import dataclass
+from typing import List, Optional
+
+STORE_TYPES = ("periodic", "probabilistic", "adaptive")
+
+# (flag, env, default, type, help)
+_SPEC = [
+    ("http", "THROTTLECRAB_HTTP", False, bool, "Enable HTTP transport"),
+    ("http_host", "THROTTLECRAB_HTTP_HOST", "0.0.0.0", str, "HTTP host"),
+    ("http_port", "THROTTLECRAB_HTTP_PORT", 8080, int, "HTTP port"),
+    ("store", "THROTTLECRAB_STORE", "periodic", str,
+     "Store type: periodic, probabilistic, adaptive"),
+    ("store_capacity", "THROTTLECRAB_STORE_CAPACITY", 100_000, int,
+     "Initial store capacity"),
+    ("store_cleanup_interval", "THROTTLECRAB_STORE_CLEANUP_INTERVAL", 300,
+     int, "Cleanup interval for periodic store (seconds)"),
+    ("store_cleanup_probability", "THROTTLECRAB_STORE_CLEANUP_PROBABILITY",
+     10_000, int, "Cleanup probability for probabilistic store (1 in N)"),
+    ("store_min_interval", "THROTTLECRAB_STORE_MIN_INTERVAL", 5, int,
+     "Minimum cleanup interval for adaptive store (seconds)"),
+    ("store_max_interval", "THROTTLECRAB_STORE_MAX_INTERVAL", 300, int,
+     "Maximum cleanup interval for adaptive store (seconds)"),
+    ("store_max_operations", "THROTTLECRAB_STORE_MAX_OPERATIONS", 1_000_000,
+     int, "Maximum operations before cleanup for adaptive store"),
+    ("log_level", "THROTTLECRAB_LOG_LEVEL", "info", str,
+     "Log level: error, warn, info, debug, trace"),
+    ("batch_size", "THROTTLECRAB_BATCH_SIZE", 4096, int,
+     "Max requests coalesced into one device launch"),
+    ("max_linger_us", "THROTTLECRAB_MAX_LINGER_US", 200, int,
+     "Max microseconds a request waits for its batch to fill"),
+    ("max_scan_depth", "THROTTLECRAB_MAX_SCAN_DEPTH", 16, int,
+     "Max backlog sub-batches decided in one device launch"),
+    ("keymap", "THROTTLECRAB_KEYMAP", "auto", str,
+     "Host key->slot backend: auto or python (native is not ported)"),
+    ("device", "THROTTLECRAB_DEVICE", "cuda", str,
+     "Torch device of the bucket table: cuda (the CUDA kernel) or cpu "
+     "(the plain version)"),
+]
+
+
+@dataclass
+class Config:
+    http: bool = False
+    http_host: str = "0.0.0.0"
+    http_port: int = 8080
+    store: str = "periodic"
+    store_capacity: int = 100_000
+    store_cleanup_interval: int = 300
+    store_cleanup_probability: int = 10_000
+    store_min_interval: int = 5
+    store_max_interval: int = 300
+    store_max_operations: int = 1_000_000
+    log_level: str = "info"
+    batch_size: int = 4096
+    max_linger_us: int = 200
+    max_scan_depth: int = 16
+    keymap: str = "auto"
+    device: str = "cuda"
+
+    @classmethod
+    def from_env_and_args(cls, argv: Optional[List[str]] = None) -> "Config":
+        """CLI > env > default, as `config.rs:356-416`."""
+        parser = build_parser()
+        ns = parser.parse_args(argv)
+        if ns.list_env_vars:
+            print(list_env_vars_text())
+            sys.exit(0)
+        cfg = cls(**{name: getattr(ns, name) for name, *_ in _SPEC})
+        cfg.validate()
+        return cfg
+
+    def validate(self) -> None:
+        if not self.http:
+            raise ConfigError(
+                "At least one transport must be enabled. Use --http "
+                "(the only transport this server has)"
+            )
+        if self.store not in STORE_TYPES:
+            raise ConfigError(
+                f"Invalid store type: {self.store!r} "
+                f"(expected one of {', '.join(STORE_TYPES)})"
+            )
+        if self.batch_size <= 0:
+            raise ConfigError("batch_size must be positive")
+        if self.max_scan_depth <= 0:
+            raise ConfigError("max_scan_depth must be positive")
+        if self.keymap not in ("auto", "python", "native"):
+            raise ConfigError(
+                f"Invalid keymap backend: {self.keymap!r} "
+                "(expected auto, python, or native)"
+            )
+        if self.device.split(":")[0] not in ("cuda", "cpu"):
+            raise ConfigError(
+                f"Invalid device: {self.device!r} (expected cuda or cpu)"
+            )
+
+
+class ConfigError(ValueError):
+    pass
+
+
+def _env_bool(value: str) -> bool:
+    return value.lower() in ("1", "true", "yes", "on")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="throttlecrab-tpu-torch-server",
+        description=(
+            "A GCRA rate limiting server deciding on a CUDA card.\n\n"
+            "Environment variables with THROTTLECRAB_ prefix are supported. "
+            "CLI arguments take precedence over environment variables."
+        ),
+        formatter_class=argparse.RawDescriptionHelpFormatter,
+    )
+    for name, env, default, typ, help_ in _SPEC:
+        flag = "--" + name.replace("_", "-")
+        raw = os.environ.get(env)
+        if typ is bool:
+            env_default = _env_bool(raw) if raw is not None else default
+            parser.add_argument(
+                flag, action="store_true", default=env_default,
+                help=f"{help_} [env: {env}]",
+            )
+        else:
+            try:
+                env_default = typ(raw) if raw is not None else default
+            except ValueError as e:
+                raise ConfigError(
+                    f"invalid value for {env}: {raw!r} ({e})"
+                ) from e
+            parser.add_argument(
+                flag, type=typ, default=env_default, metavar=name.upper(),
+                help=f"{help_} (default: {default}) [env: {env}]",
+            )
+    parser.add_argument(
+        "--list-env-vars", action="store_true",
+        help="List all environment variables and exit",
+    )
+    return parser
+
+
+def list_env_vars_text() -> str:
+    """Self-documentation dump (config.rs:461-535)."""
+    lines = [
+        "Environment variables supported by throttlecrab-tpu-torch-server:",
+        "",
+    ]
+    for name, env, default, typ, help_ in _SPEC:
+        lines.append(f"  {env}")
+        lines.append(f"      {help_}")
+        lines.append(f"      Default: {default}")
+        lines.append("")
+    lines.append("CLI arguments take precedence over environment variables.")
+    return "\n".join(lines)

@@ -1,0 +1,436 @@
+"""Micro-batching engine: the reference actor's replacement.
+
+The counterpart of `throttlecrab_tpu/server/engine.py`.  The reference
+serializes every request through one channel into a single-threaded actor
+(`actor.rs:102-236`); here requests from the transports append to a
+pending queue with a future, and a flush (the batch filling, or a linger
+deadline) stamps each window with one server-side timestamp, decides it
+in one device launch, and completes every future.  `batch_size` and
+`max_linger_us` are the throughput/latency knob pair.
+
+Decisions run on a worker thread, one window at a time under
+`limiter_lock` (the actor's sequential-state guarantee), so the event
+loop keeps accepting requests while the device works; with
+`dispatch_many` the flush double-buffers: window N+1 is dispatched
+before window N's results are fetched.
+
+Cleanup runs between windows: the engine consults a `CleanupPolicy`
+(tpu/cleanup.py) and triggers the expiry sweep on the device.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import threading
+import time
+from collections import deque
+from typing import Optional
+
+from ..tpu.cleanup import CleanupPolicy, feed_expired_hits
+from ..tpu.limiter import (
+    STATUS_DEADLINE,
+    STATUS_INTERNAL,
+    STATUS_INVALID_PARAMS,
+    STATUS_NEGATIVE_QUANTITY,
+    STATUS_OK,
+)
+from .types import ThrottleRequest, ThrottleResponse
+
+__all__ = [
+    "BatchingEngine", "DeadlineError", "OverloadError", "ThrottleError",
+]
+
+STATUS_MESSAGES = {
+    STATUS_NEGATIVE_QUANTITY: "quantity cannot be negative",
+    STATUS_INVALID_PARAMS: "invalid rate limit parameters",
+    STATUS_INTERNAL: "internal error",
+    STATUS_DEADLINE: "deadline exceeded",
+}
+
+
+class ThrottleError(Exception):
+    """Per-request validation failure, mapped by each transport to its
+    protocol's error shape (the reference returns 500 JSON)."""
+
+
+class DeadlineError(ThrottleError):
+    """The request outlived its client deadline while queued: shed before
+    device dispatch (HTTP 504)."""
+
+
+class OverloadError(Exception):
+    """The server refuses new work (draining): HTTP 503."""
+
+    def __init__(self, message: str = "server overloaded") -> None:
+        super().__init__(message)
+
+
+class BatchingEngine:
+    """Coalesces transport requests into device windows."""
+
+    def __init__(
+        self,
+        limiter,
+        batch_size: int = 4096,
+        max_linger_us: int = 200,
+        cleanup_policy: Optional[CleanupPolicy] = None,
+        metrics=None,
+        now_fn=None,
+        max_scan_depth: int = 16,
+    ) -> None:
+        """`limiter` is a TorchRateLimiter (or any object with
+        rate_limit_batch + sweep).  `now_fn` injects time for tests (time
+        is an input, never ambient).  `max_scan_depth` caps the backlog
+        sub-batches decided per launch."""
+        import inspect
+
+        self.limiter = limiter
+        # Serializes device access across worker threads.
+        self.limiter_lock = threading.Lock()
+
+        def wire_kw(fn):
+            # Serving wants the wire fast path where the limiter has it.
+            try:
+                params = inspect.signature(fn).parameters
+            except (TypeError, ValueError):
+                return {}
+            return {"wire": True} if "wire" in params else {}
+
+        self._wire_kw = wire_kw(limiter.rate_limit_batch)
+        self._wire_many_kw = wire_kw(getattr(limiter, "rate_limit_many", None))
+        self.batch_size = batch_size
+        self.max_linger_s = max_linger_us / 1e6
+        self.cleanup_policy = cleanup_policy
+        self.metrics = metrics
+        self.now_fn = now_fn or time.time_ns
+        self.max_scan_depth = max_scan_depth
+        # The flush pops whole windows from the left while transports
+        # append on the right.
+        self._pending: deque = deque()
+        self._flush_handle: Optional[asyncio.TimerHandle] = None
+        self._flush_lock = asyncio.Lock()
+        self._closed = False
+        #: Draining (graceful shutdown): new requests shed with
+        #: OverloadError while queued ones still resolve.
+        self._draining = False
+        # Strong refs: the loop only weakly references tasks.
+        self._flush_tasks: set = set()
+
+    # ------------------------------------------------------------------ #
+
+    async def throttle(self, request: ThrottleRequest) -> ThrottleResponse:
+        """Decide one request; resolves when its window comes back."""
+        if self._closed:
+            raise ThrottleError("engine is shut down")
+        if self._draining:
+            if self.metrics is not None:
+                self.metrics.record_drain_shed()
+            raise OverloadError("server draining")
+        loop = asyncio.get_running_loop()
+        fut: asyncio.Future = loop.create_future()
+        self._pending.append((request, fut))
+        if len(self._pending) == self.batch_size:
+            # Threshold crossing: one flush task drains everything.
+            self._schedule_flush(loop)
+        elif self._flush_handle is None:
+            self._flush_handle = loop.call_later(
+                self.max_linger_s, self._linger_fired, loop
+            )
+        return await fut
+
+    def _linger_fired(self, loop) -> None:
+        self._flush_handle = None
+        if self._pending:
+            self._schedule_flush(loop)
+
+    def _schedule_flush(self, loop) -> None:
+        if self._flush_handle is not None:
+            self._flush_handle.cancel()
+            self._flush_handle = None
+        task = loop.create_task(self._flush())
+        self._flush_tasks.add(task)
+        task.add_done_callback(self._flush_tasks.discard)
+
+    @staticmethod
+    def _columns(window, now_ns):
+        """One sub-batch of a window as the limiter's batch tuple."""
+        return (
+            [r.key for r, _ in window],
+            [r.max_burst for r, _ in window],
+            [r.count_per_period for r, _ in window],
+            [r.period for r, _ in window],
+            [r.quantity for r, _ in window],
+            now_ns,
+        )
+
+    async def _flush(self) -> None:
+        """Decide everything pending, in arrival order.
+
+        A backlog deeper than one batch drains up to max_scan_depth
+        batches per launch.  With the limiter's dispatch/fetch split the
+        loop double-buffers: window N+1 is dispatched while the device
+        still runs window N, and only then are N's results fetched."""
+        can_scan = hasattr(self.limiter, "rate_limit_many")
+        can_async = hasattr(self.limiter, "dispatch_many")
+        async with self._flush_lock:
+            if not can_async:
+                while self._pending:
+                    windows = self._take_windows(can_scan)
+                    if len(windows) > 1:
+                        await self._decide_many(windows)
+                    elif windows:
+                        await self._decide(windows[0])
+                return
+
+            loop = asyncio.get_running_loop()
+            in_flight = None  # (windows, handle, now_ns)
+            while self._pending or in_flight is not None:
+                windows = self._take_windows(can_scan)
+                launched = None
+                if windows:
+                    now_ns = self.now_fn()
+
+                    def do_dispatch(ws=windows, t=now_ns):
+                        with self.limiter_lock:
+                            return self.limiter.dispatch_many(
+                                [self._columns(w, t) for w in ws],
+                                **self._wire_many_kw,
+                            )
+
+                    try:
+                        handle = await loop.run_in_executor(None, do_dispatch)
+                        launched = (windows, handle, now_ns)
+                    except Exception as exc:
+                        self._fail_windows(windows, exc)
+
+                if in_flight is not None:
+                    await self._fetch_complete(in_flight)
+                in_flight = launched
+
+    def _take_windows(self, can_scan: bool) -> list:
+        """Pop up to max_scan_depth x batch_size pending requests, chunked
+        into batch-sized windows (arrival order preserved).  Requests
+        whose client deadline already lapsed are shed HERE, before any
+        device dispatch, with DeadlineError."""
+        if not self._pending:
+            return []
+        n_batches = (
+            min(
+                max(len(self._pending) // self.batch_size, 1),
+                self.max_scan_depth,
+            )
+            if can_scan
+            else 1
+        )
+        take = min(n_batches * self.batch_size, len(self._pending))
+        flat = [self._pending.popleft() for _ in range(take)]
+        if any(r.deadline_ns is not None for r, _ in flat):
+            now_ns = self.now_fn()
+            live = []
+            shed = []
+            for r, fut in flat:
+                if r.deadline_ns is not None and r.deadline_ns <= now_ns:
+                    shed.append(fut)
+                else:
+                    live.append((r, fut))
+            if shed and self.metrics is not None:
+                self.metrics.record_deadline_shed(len(shed))
+            for fut in shed:
+                if not fut.done():
+                    fut.set_exception(
+                        DeadlineError(STATUS_MESSAGES[STATUS_DEADLINE])
+                    )
+            flat = live
+        return [
+            flat[i : i + self.batch_size]
+            for i in range(0, len(flat), self.batch_size)
+        ]
+
+    @staticmethod
+    def _fail_windows(windows, exc) -> None:
+        for window in windows:
+            for _, fut in window:
+                if not fut.done():
+                    fut.set_exception(ThrottleError(str(exc)))
+
+    async def _finish_windows(self, windows, results, now_ns) -> None:
+        """Resolve the futures of decided windows, then account."""
+        total = 0
+        for window, result in zip(windows, results):
+            total += len(window)
+            self._complete(window, result)
+        if self.metrics is not None:
+            self.metrics.record_launch(total)
+        await self._maybe_sweep(now_ns, total)
+
+    async def _fetch_complete(self, in_flight) -> None:
+        """Fetch an in-flight launch's results and resolve its futures."""
+        windows, handle, now_ns = in_flight
+        loop = asyncio.get_running_loop()
+        try:
+            results = await loop.run_in_executor(None, handle.fetch)
+        except Exception as exc:
+            self._fail_windows(windows, exc)
+            return
+        await self._finish_windows(windows, results, now_ns)
+
+    async def _decide_many(self, windows) -> None:
+        """Backlog path: K sub-batches, one launch, shared timestamp."""
+        now_ns = self.now_fn()
+        loop = asyncio.get_running_loop()
+
+        def launch():
+            with self.limiter_lock:
+                return self.limiter.rate_limit_many(
+                    [self._columns(w, now_ns) for w in windows],
+                    **self._wire_many_kw,
+                )
+
+        try:
+            results = await loop.run_in_executor(None, launch)
+        except Exception as exc:
+            self._fail_windows(windows, exc)
+            return
+        await self._finish_windows(windows, results, now_ns)
+
+    async def _decide(self, batch) -> None:
+        """One batch, one launch."""
+        now_ns = self.now_fn()
+        loop = asyncio.get_running_loop()
+
+        def launch():
+            with self.limiter_lock:
+                return self.limiter.rate_limit_batch(
+                    *self._columns(batch, now_ns), **self._wire_kw
+                )
+
+        try:
+            result = await loop.run_in_executor(None, launch)
+        except Exception as exc:  # internal failure fails the whole batch
+            self._fail_windows([batch], exc)
+            return
+        await self._finish_windows([batch], [result], now_ns)
+
+    @staticmethod
+    def _complete(batch, result) -> None:
+        """Resolve each request's future from its batch-result row."""
+        wire = hasattr(result, "reset_after_s")
+        for i, (_, fut) in enumerate(batch):
+            if fut.done():
+                continue
+            status = int(result.status[i])
+            if status == STATUS_DEADLINE:
+                fut.set_exception(
+                    DeadlineError(STATUS_MESSAGES[STATUS_DEADLINE])
+                )
+            elif status != STATUS_OK:
+                fut.set_exception(
+                    ThrottleError(
+                        STATUS_MESSAGES.get(status, "internal error")
+                    )
+                )
+            elif wire:
+                # The wire tiers are already whole seconds.
+                fut.set_result(
+                    ThrottleResponse(
+                        allowed=bool(result.allowed[i]),
+                        limit=int(result.limit[i]),
+                        remaining=int(result.remaining[i]),
+                        reset_after=int(result.reset_after_s[i]),
+                        retry_after=int(result.retry_after_s[i]),
+                    )
+                )
+            else:
+                fut.set_result(
+                    ThrottleResponse.from_ns(
+                        allowed=bool(result.allowed[i]),
+                        limit=int(result.limit[i]),
+                        remaining=int(result.remaining[i]),
+                        reset_after_ns=int(result.reset_after_ns[i]),
+                        retry_after_ns=int(result.retry_after_ns[i]),
+                    )
+                )
+
+    # ------------------------------------------------------------------ #
+
+    async def _maybe_sweep(self, now_ns: int, n_ops: int) -> None:
+        policy = self.cleanup_policy
+        if policy is None:
+            return
+        # All policy state moves under limiter_lock.  The expired-hit
+        # drain is a blocking device->host fetch (throttled to ~1/s):
+        # when one is due it runs on the executor, never on the loop.
+        with self.limiter_lock:
+            policy.record_ops(n_ops)
+            fetch_due = getattr(policy, "uses_expired_signal", False) and (
+                getattr(self.limiter, "expired_hits_fetch_due", None)
+                is not None
+                and self.limiter.expired_hits_fetch_due(now_ns)
+            )
+            n_hits = 0
+            if not fetch_due:
+                n_hits = feed_expired_hits(policy, self.limiter, now_ns)
+            live = len(self.limiter)
+            capacity = getattr(self.limiter, "total_capacity", 1 << 62)
+            should = fetch_due or policy.should_clean(now_ns, live, capacity)
+        if n_hits and self.metrics is not None:
+            self.metrics.record_expired_hits(n_hits)
+        if not should:
+            return
+        loop = asyncio.get_running_loop()
+
+        def locked_policy_step():
+            drained = 0
+            with self.limiter_lock:
+                live_now = live
+                if fetch_due:
+                    drained += feed_expired_hits(policy, self.limiter, now_ns)
+                    live_now = len(self.limiter)
+                    if not policy.should_clean(now_ns, live_now, capacity):
+                        return None, drained
+                else:
+                    # Attribute hits already counted on-device to the
+                    # window this sweep closes.
+                    drained += feed_expired_hits(
+                        policy, self.limiter, now_ns, force=True
+                    )
+                freed = self.limiter.sweep(now_ns)
+                policy.after_sweep(now_ns, freed, live_now)
+                return freed, drained
+
+        freed, drained = await loop.run_in_executor(None, locked_policy_step)
+        if self.metrics is not None:
+            if drained:
+                self.metrics.record_expired_hits(drained)
+            if freed is not None:
+                self.metrics.record_sweep(freed)
+
+    def health_state(self) -> str:
+        """The state for GET /health: "ok", "draining" or "shutdown"."""
+        if self._closed:
+            return "shutdown"
+        if self._draining:
+            return "draining"
+        return "ok"
+
+    def begin_drain(self) -> None:
+        """New requests shed with OverloadError, /health says "draining",
+        queued requests keep resolving with real decisions."""
+        self._draining = True
+
+    async def drain(self) -> None:
+        """Graceful half of shutdown: stop taking requests, then flush
+        everything already queued with real decisions."""
+        self.begin_drain()
+        if self._flush_handle is not None:
+            self._flush_handle.cancel()
+            self._flush_handle = None
+        await self._flush()
+
+    async def shutdown(self) -> None:
+        """Flush outstanding requests and refuse new ones."""
+        self._closed = True
+        if self._flush_handle is not None:
+            self._flush_handle.cancel()
+            self._flush_handle = None
+        await self._flush()

@@ -1,0 +1,214 @@
+"""The decision window as one hand-written CUDA kernel (sm_90a).
+
+The port of `throttlecrab_tpu/tpu/pallas_fused.py:fused_window`: for each
+of a window's K sub-batches, in order, gather the slots' state rows,
+evaluate the GCRA closed forms, write the outputs of the requested tier
+and the expired-hit count, and scatter the surviving rows back at unique
+indices.  The source is `csrc/fused_window.cu` over the lane body in
+`csrc/gcra_lane.cuh`; it is compiled with nvcc into a plain-C shared
+library at first use (into `throttlecrab_tpu_torch/build/`, keyed by a
+hash of the sources) and bound with ctypes.
+
+Each wrapper takes the kernel's plain version (`kernel.decide_window`)
+only for tensors that lie on the CPU; for a CUDA tensor it launches the
+kernel or raises.  `LAUNCHES` counts kernel windows launched (each window
+is 2K CUDA launches: decide, then scatter, per sub-batch).
+
+The table is updated in place (the JAX package donates it instead).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+from . import kernel
+from .kernel import INS_WIDTH, PACK_FLAG_VALID, PACK_WIDTH
+
+#: Kernel windows launched through tc_fused_window since import.
+LAUNCHES = 0
+
+MAX_BATCH = 1 << 16  # the table's scratch tail bounds a sub-batch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "build"
+SOURCES = ("fused_window.cu", "gcra_lane.cuh")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_TIERS = {"cur": 2, "w32": 3}
+_lib = None
+
+
+def _tier(compact) -> int:
+    """The C tier code of a `compact` argument (False/True/"cur"/"w32")."""
+    if isinstance(compact, str):
+        if compact not in _TIERS:
+            raise ValueError(f"unknown output tier {compact!r}")
+        return _TIERS[compact]
+    return 1 if compact else 0
+
+
+def library_path() -> Path:
+    """Where the build of the current sources lives."""
+    h = hashlib.sha256()
+    for name in SOURCES:
+        h.update((CSRC / name).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libtc_fused_{h.hexdigest()[:16]}.so"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernel cannot be built")
+
+
+def build() -> Path:
+    """Compile the kernel library unless this source revision is built;
+    returns its path.  The output is renamed into place, so concurrent
+    builders never load a half-written file.  nvcc's report (ptxas
+    registers, stack and spills per kernel) is kept beside it as
+    `<library>.log`."""
+    path = library_path()
+    if path.exists():
+        return path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [
+        _nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+        str(CSRC / "fused_window.cu"),
+    ]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
+        )
+    path.with_suffix(".log").write_text(res.stdout + res.stderr)
+    os.replace(tmp, path)
+    return path
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        fn = lib.tc_fused_window
+        p = ctypes.c_void_p
+        fn.argtypes = [
+            p, ctypes.c_longlong, ctypes.c_int, p, p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, p, p, p, p,
+        ]
+        fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _check(state, packed, now, with_degen, tier):
+    if state.device.type != "cuda":
+        raise ValueError(
+            f"fused_window runs on cuda or cpu tensors, got {state.device}"
+        )
+    for name, t, dtype in (
+        ("state", state, torch.int32),
+        ("packed", packed, torch.int32),
+        ("now", now, torch.int64),
+    ):
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if t.device != state.device:
+            raise ValueError(f"{name} is on {t.device}, state on {state.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if state.dim() != 2 or state.shape[1] not in (4, INS_WIDTH):
+        raise ValueError(f"state must be i32[N, 4|6], got {tuple(state.shape)}")
+    if packed.dim() != 3 or packed.shape[2] != PACK_WIDTH:
+        raise ValueError(
+            f"packed must be i32[K, B, {PACK_WIDTH}], got {tuple(packed.shape)}"
+        )
+    K, B = packed.shape[0], packed.shape[1]
+    if now.shape != (K,):
+        raise ValueError(f"now must be i64[{K}], got {tuple(now.shape)}")
+    if not 1 <= B <= min(MAX_BATCH, state.shape[0]):
+        raise ValueError(f"batch width {B} outside [1, {MAX_BATCH}]")
+    if tier >= 2 and with_degen:
+        raise ValueError('compact="cur"/"w32" require with_degen=False')
+
+
+def fused_window(state, packed, now, *, with_degen=True, compact=False):
+    """Decide one K-deep window, updating `state` (i32[N, W], W in {4, 6})
+    in place.  `packed` is i32[K, B, PACK_WIDTH], `now` i64[K], on the
+    state's device.  Returns (out, n_exp i64[K]) with `out` per tier:
+    False i64[K, 4, B], True i32[K, 4, B], "cur" i64[K, B], "w32"
+    i32[K, B].  Invalid lanes' outputs are don't-care.  The launches are
+    queued on the current stream; nothing synchronises."""
+    global LAUNCHES
+    if state.device.type == "cpu":
+        return kernel.decide_window(
+            state, packed, now, with_degen=with_degen, compact=compact
+        )
+    tier = _tier(compact)
+    _check(state, packed, now, with_degen, tier)
+    K, B = packed.shape[0], packed.shape[1]
+    N, W = state.shape
+    dev = state.device
+    if tier in (0, 1):
+        out = torch.empty(
+            (K, 4, B), dtype=torch.int64 if tier == 0 else torch.int32,
+            device=dev,
+        )
+    else:
+        out = torch.empty(
+            (K, B), dtype=torch.int64 if tier == 2 else torch.int32,
+            device=dev,
+        )
+    n_exp = torch.zeros(K, dtype=torch.int64, device=dev)
+    rows_out = torch.empty((B, W), dtype=torch.int32, device=dev)
+    rc = _load().tc_fused_window(
+        state.data_ptr(), N, W, packed.data_ptr(), now.data_ptr(), K, B,
+        int(bool(with_degen)), tier, out.data_ptr(), n_exp.data_ptr(),
+        rows_out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"tc_fused_window failed: error {rc}")
+    LAUNCHES += 1
+    return out, n_exp
+
+
+def gcra_scan_packed_fused_acc(
+    state, exp_acc, packed, now, *, with_degen=True, compact=False
+):
+    """Kernel twin of kernel.gcra_scan_packed_acc: (state, exp_acc, out),
+    with `state` updated in place."""
+    out, n_exp = fused_window(
+        state, packed, now, with_degen=with_degen, compact=compact
+    )
+    return state, exp_acc + n_exp.sum(), out
+
+
+def gcra_scan_packed_fused_ins(
+    state, exp_acc, ins_counts, packed, now, *, with_degen=True,
+    compact=False,
+):
+    """Kernel twin of kernel.gcra_scan_packed_ins (INS_WIDTH rows); the
+    [allowed, denied] totals advance from the outputs with torch ops."""
+    out, n_exp = fused_window(
+        state, packed, now, with_degen=with_degen, compact=compact
+    )
+    ins_counts = kernel._insight_totals(
+        ins_counts, (packed[..., 2] & PACK_FLAG_VALID) != 0, out, compact
+    )
+    return state, exp_acc + n_exp.sum(), ins_counts, out

@@ -1,0 +1,596 @@
+"""Batched GCRA decision: row layout, host certificates and the plain decide.
+
+The counterpart of `throttlecrab_tpu/tpu/kernel.py`, limited to what the
+serving path reaches.  A decision window is K sub-batches of B requests
+against a table of packed int32 state rows; each sub-batch gathers its
+slots' rows, evaluates the GCRA closed forms, and writes the surviving
+state back at unique indices.  The sub-batches run strictly in order:
+a slot may recur in sub-batch k+1 and must see k's write.
+
+Intra-batch duplicate keys
+==========================
+
+The host keymap emits the segment structure of each sub-batch: per
+request its key's occurrence number `rank` and whether it is the key's
+final occurrence `is_last`.  With per-segment uniform parameters the
+sequential fold per key has a closed form, so every lane is decided
+independently:
+
+- **Main case** (`inc > 0 and tol > 0`): the allowed set is a prefix of
+  the segment of length `m_raw = floor((now + tol - t0) / inc)`; rank r
+  is allowed iff `r < m_raw` and the write-back at the `is_last` lane
+  uses segment size `rank + 1`.
+- **Degenerate case** (`inc == 0 or tol == 0`: quantity-0 probes,
+  burst 1, zero emission): each request is a transition on the view v
+  (the TAT it observes).  The view orbit has pre-period <= 1 and period
+  <= 2, so three views v0, v1 = f(v0), v2 = f(v1) describe the segment
+  and every lane picks among them by rank parity.
+
+The functions below are the plain version of the decision window: plain
+torch ops, one sub-batch at a time.  On CUDA tensors the serving path
+runs the hand-written kernel in `fused.py` instead; this module is what
+the CPU path runs and what the kernel is held against.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .sat import (
+    I64_MAX,
+    div_trunc,
+    sat_add,
+    sat_add_nn,
+    sat_mul_nonneg,
+    sat_sub,
+    sat_sub_nn,
+)
+
+EMPTY_EXPIRY = -(1 << 63)  # expiry sentinel: always in the past
+
+_U32 = (1 << 32) - 1
+
+# Packed request row: one i32[PACK_WIDTH] word group per request, so a
+# whole window travels host->device as ONE buffer.
+#   w0 slot | w1 rank | w2 flags(bit0 is_last, bit1 valid)
+#   w3/w4 emission lo/hi | w5/w6 tolerance lo/hi | w7/w8 quantity lo/hi
+PACK_WIDTH = 9
+PACK_FLAG_IS_LAST = 1
+PACK_FLAG_VALID = 2
+
+# Insight-widened row: [tat_lo, tat_hi, exp_lo, exp_hi, deny_lo, deny_hi]
+# — the per-slot denied-hit counter rides the same row gather/scatter.
+INS_WIDTH = 6
+
+_I32_MAX = (1 << 31) - 1
+_NS_PER_SEC = 1_000_000_000
+
+
+def _to_i32(x):
+    """Low 32 bits of an int64 tensor as int32 (two's-complement wrap,
+    written out so no narrowing cast of an out-of-range value occurs)."""
+    return (((x & _U32) ^ (1 << 31)) - (1 << 31)).to(torch.int32)
+
+
+def _join(lo, hi):
+    """int32 lo/hi halves -> int64."""
+    return (hi.to(torch.int64) << 32) | (lo.to(torch.int64) & _U32)
+
+
+def _split_cols(x):
+    """i64[...] -> i32[..., 2] lo/hi column pair."""
+    return torch.stack([_to_i32(x), (x >> 32).to(torch.int32)], dim=-1)
+
+
+def pack_state(tat, expiry):
+    """(i64[N], i64[N]) -> i32[N, 4] rows [tat_lo, tat_hi, exp_lo, exp_hi]."""
+    return torch.cat([_split_cols(tat), _split_cols(expiry)], dim=-1)
+
+
+def unpack_state(state):
+    """i32[..., W] rows -> (tat i64[...], expiry i64[...]); extra columns
+    (the insight-widened layout) are ignored."""
+    return (
+        _join(state[..., 0], state[..., 1]),
+        _join(state[..., 2], state[..., 3]),
+    )
+
+
+def unpack_deny(state):
+    """Denied-hit counter column of insight-widened rows (i64[...])."""
+    return _join(state[..., 4], state[..., 5])
+
+
+def pack_requests(slots, rank, is_last, emission, tolerance, quantity, valid):
+    """Host-side packing: [...]-shaped request arrays -> i32[..., PACK_WIDTH]
+    (numpy)."""
+    out = np.empty(np.shape(slots) + (PACK_WIDTH,), np.int32)
+    out[..., 0] = slots
+    out[..., 1] = rank
+    out[..., 2] = np.asarray(is_last, np.int32) * PACK_FLAG_IS_LAST + (
+        np.asarray(valid, np.int32) * PACK_FLAG_VALID
+    )
+    for base, arr in ((3, emission), (5, tolerance), (7, quantity)):
+        a = np.asarray(arr, np.int64)
+        out[..., base] = (a & _U32).astype(np.uint32).view(np.int32)
+        out[..., base + 1] = (a >> 32).astype(np.int32)
+    return out
+
+
+# ---- host certificates for the compact output tiers (numpy) ------------ #
+
+
+def fits_cur_wire(tolerance, now_ns) -> bool:
+    """Certificate for the compact="cur" output mode (8 B/request).
+
+    The mode transmits one i64 per request, `cur * 2 + allowed`; the shift
+    never overflows while `now < 2**61 and tol < 2**61` (then cur < 2**62).
+    """
+    return bool(now_ns < (1 << 61)) and bool(
+        np.max(tolerance, initial=0) < (1 << 61)
+    )
+
+
+# compact="w32" field widths: allowed(1) + remaining(10) + reset_s(11)
+# + retry_s(10) = 32.
+W32_REM_MAX = (1 << 10) - 1
+W32_RESET_MAX = (1 << 11) - 1
+W32_RETRY_MAX = (1 << 10) - 1
+
+
+def fits_w32_wire(
+    valid, emission, tolerance, quantity, now_ns, tol_hwm, now_hwm=0
+) -> bool:
+    """Certificate for the compact="w32" output mode (4 B/request).
+
+    Every valid lane's wire values must fit the packed field widths.  From
+    cur in [now - max(em, tol), now + max(tol, hwm)], with `tol_hwm` the
+    table's high-water mark of valid tolerances ever launched:
+
+      remaining <= (tol + max(em, tol)) // em   <= W32_REM_MAX
+      reset_s   <= (tol + hwm) // 1e9           <= W32_RESET_MAX
+      retry_s   <= (inc + max(hwm - tol, 0)) // 1e9 <= W32_RETRY_MAX
+
+    The stored-TAT bound also needs `now_ns >= now_hwm` (no clock
+    regression against any prior launch).  Callers must ALSO hold the
+    with_degen=False certificate (has_degenerate) and now_ns >= 0.
+    """
+    v = np.asarray(valid, bool)
+    if not bool(np.any(v)):
+        return True
+    if not 0 <= now_ns < (1 << 61):
+        return False
+    if now_ns < int(now_hwm):
+        return False
+    hwm = int(tol_hwm)
+    if hwm >= (1 << 61):
+        return False
+    em = np.where(v, np.asarray(emission, np.int64), 1)
+    tol = np.where(v, np.asarray(tolerance, np.int64), 0)
+    q = np.where(v, np.asarray(quantity, np.int64), 0)
+    if int(tol.max(initial=0)) >= (1 << 61):
+        # A legal big-tolerance lane would wrap the int64 bound sums
+        # below and falsely certify w32: refuse before any arithmetic.
+        return False
+    hwm = max(hwm, int(tol.max(initial=0)))
+    em_safe = np.maximum(em, 1)
+    inc = em * q
+    rem_bound = (tol + np.maximum(em, tol)) // em_safe
+    reset_bound = (tol + hwm) // _NS_PER_SEC
+    retry_bound = (inc + np.maximum(hwm - tol, 0)) // _NS_PER_SEC
+    return bool(
+        (np.where(v, rem_bound, 0) <= W32_REM_MAX).all()
+        and (np.where(v, reset_bound, 0) <= W32_RESET_MAX).all()
+        and (np.where(v, retry_bound, 0) <= W32_RETRY_MAX).all()
+    )
+
+
+def fits_w32_wire_agg(
+    max_tol, min_tol, max_inc, rem_bound, now_ns, tol_hwm, now_hwm=0
+) -> bool:
+    """fits_w32_wire from precomputed valid-lane aggregates (O(1))."""
+    if not 0 <= now_ns < (1 << 61) or now_ns < int(now_hwm):
+        return False
+    hwm = int(tol_hwm)
+    if hwm >= (1 << 61):
+        return False
+    hwm = max(hwm, int(max_tol))
+    if int(rem_bound) > W32_REM_MAX:
+        return False
+    if (int(max_tol) + hwm) // _NS_PER_SEC > W32_RESET_MAX:
+        return False
+    retry_bound = int(max_inc) + max(hwm - int(min_tol), 0)
+    return retry_bound // _NS_PER_SEC <= W32_RETRY_MAX
+
+
+def finish_w32(words):
+    """Host-side unpack of the compact="w32" output: i32 words ->
+    (allowed, remaining, reset_after_secs, retry_after_secs), all i32."""
+    u = np.ascontiguousarray(words, np.int32).view(np.uint32)
+    return (
+        (u & 1).astype(np.int32),
+        ((u >> 1) & np.uint32(W32_REM_MAX)).astype(np.int32),
+        ((u >> 11) & np.uint32(W32_RESET_MAX)).astype(np.int32),
+        ((u >> 22) & np.uint32(W32_RETRY_MAX)).astype(np.int32),
+    )
+
+
+def cur_wire_safe(valid, tolerance, now_ns) -> bool:
+    """Valid-lane-masked fits_cur_wire: a rejected request's garbage
+    tolerance neither forfeits the launch's cur output nor poisons the
+    table's cross-launch `cur_safe` flag."""
+    return bool(now_ns < (1 << 61)) and not bool(
+        np.any(np.asarray(valid) & (np.asarray(tolerance) >= (1 << 61)))
+    )
+
+
+def finish_cur(cur2, emission, tolerance, quantity, now_ns):
+    """Host-side completion of the compact="cur" output (numpy): the exact
+    4-plane wire values (allowed, remaining, reset_after_secs,
+    retry_after_secs), all i32, from one `cur*2 + allowed` i64 per
+    request.  Exact on every VALID lane under the fits_cur_wire +
+    with_degen=False certificate."""
+    cur2 = np.asarray(cur2, np.int64)
+    allowed = (cur2 & 1) != 0
+    cur = cur2 >> 1  # arithmetic shift: exact for negative cur too
+    em = np.asarray(emission, np.int64)
+    tol = np.asarray(tolerance, np.int64)
+    inc = em * np.asarray(quantity, np.int64)
+    room = now_ns + tol - cur
+    remaining = np.maximum(
+        np.where(em > 0, room // np.where(em > 0, em, 1), 0), 0
+    )
+    reset = np.maximum(cur - now_ns + tol, 0)
+    retry = np.where(allowed, 0, np.maximum(cur + inc - tol - now_ns, 0))
+    i32max = _I32_MAX
+    return (
+        allowed.astype(np.int32),
+        np.minimum(remaining, i32max).astype(np.int32),
+        np.minimum(reset // 1_000_000_000, i32max).astype(np.int32),
+        np.minimum(retry // 1_000_000_000, i32max).astype(np.int32),
+    )
+
+
+# ---- the plain decide (torch) ------------------------------------------ #
+
+
+def _unpack_requests(packed, now):
+    """i32[B, PACK_WIDTH] -> the _gcra_body batch tuple."""
+    flags = packed[..., 2]
+    return (
+        packed[..., 0],
+        packed[..., 1].to(torch.int64),
+        (flags & PACK_FLAG_IS_LAST) != 0,
+        _join(packed[..., 3], packed[..., 4]),
+        _join(packed[..., 5], packed[..., 6]),
+        _join(packed[..., 7], packed[..., 8]),
+        (flags & PACK_FLAG_VALID) != 0,
+        now,
+    )
+
+
+def _request_outputs(t, inc, emission, tol, now):
+    """Outcome of one GCRA check from state `t` (all i64, vectorized):
+    (allowed, remaining, reset_after, retry_after, new_tat, ttl)."""
+    new_tat = sat_add(t, inc)
+    allow_at = sat_sub(new_tat, tol)
+    allowed = now >= allow_at
+    cur = torch.where(allowed, new_tat, t)
+    # WRAPPING add: the reference's burst_limit wraps on i64 overflow.
+    burst_limit = now + tol
+    room = sat_sub(burst_limit, cur)
+    remaining = torch.where(
+        emission > 0, torch.clamp(div_trunc(room, emission), min=0), 0
+    )
+    reset_after = torch.clamp(sat_add(sat_sub(cur, now), tol), min=0)
+    retry_after = torch.where(
+        allowed, 0, torch.clamp(sat_sub(allow_at, now), min=0)
+    )
+    ttl = sat_add(sat_sub(new_tat, now), tol)
+    return allowed, remaining, reset_after, retry_after, new_tat, ttl
+
+
+def _gcra_body(state, batch, *, with_degen=True, compact=False):
+    """Decide one sub-batch; updates `state` (i32[N, W]) in place and
+    returns (out, n_exp).
+
+    with_degen=False drops the degenerate-case machinery — legal only
+    when the host certifies no quantity-0, burst-1, zero-emission or
+    wrapped-negative-tolerance request, a bounded increment, and now >= 0
+    (limiter.has_degenerate) — and uses the 2-op nonneg saturating forms
+    and plain multiplies the certificate licenses.
+
+    compact: False -> i64[4, B] ns planes; True -> i32[4, B] wire planes
+    (whole seconds, saturated at i32::MAX); "cur" -> i64[B] words
+    `cur*2 + allowed`; "w32" -> i32[B] bit-packed wire words.  The last
+    two need with_degen=False.
+    """
+    (slots, rank, is_last, emission, tolerance, quantity, valid, now) = batch
+    N = state.shape[0]
+    ins = state.shape[-1] > 4
+
+    s = torch.clamp(slots.to(torch.int64), 0, N - 1)
+    rows_g = state.index_select(0, s)
+    stored_tat, stored_exp = unpack_state(rows_g)
+    stored_deny = unpack_deny(rows_g) if ins else None
+    v = valid
+    live = v & (stored_exp > now)
+    em = emission
+    tol = tolerance
+
+    if with_degen:
+        s_add, s_sub, s_mul = sat_add, sat_sub, sat_mul_nonneg
+    else:
+        s_add, s_sub = sat_add_nn, sat_sub_nn
+
+        def s_mul(a, b):
+            return a * b
+
+    inc = s_mul(em, quantity)
+    t0 = torch.where(
+        live, torch.maximum(stored_tat, s_sub(now, tol)), s_sub(now, em)
+    )
+
+    # ---- main case: prefix closed form ---------------------------------
+    num = sat_sub(s_add(now, tol), t0)
+    m_raw = torch.clamp(div_trunc(num, inc), min=0)
+    allowed_main = rank < m_raw
+    new_tat_r = s_add(t0, s_mul(rank + 1, inc))
+    tat_denied = s_add(t0, s_mul(m_raw, inc))
+    cur_main = torch.where(allowed_main, new_tat_r, tat_denied)
+    tat_fin_main = s_add(t0, s_mul(torch.minimum(m_raw, rank + 1), inc))
+    burst_limit = now + tol  # wrapping, as the reference
+    room_main = sat_sub(burst_limit, cur_main)
+    remaining_main = torch.where(
+        em > 0, torch.clamp(div_trunc(room_main, em), min=0), 0
+    )
+    reset_main = torch.clamp(s_add(s_sub(cur_main, now), tol), min=0)
+    retry_main = torch.where(
+        allowed_main,
+        0,
+        torch.clamp(s_sub(s_sub(s_add(cur_main, inc), tol), now), min=0),
+    )
+    # Expired hits: rank-0 valid lane, real stored expiry <= now, allowed.
+    exp_hit_base = (
+        v & (rank == 0) & (stored_exp != EMPTY_EXPIRY) & (stored_exp <= now)
+    )
+    seg_n = rank + 1
+
+    if not with_degen:
+        allowed_out = allowed_main & v
+        remaining_out, reset_out, retry_out = (
+            remaining_main, reset_main, retry_main,
+        )
+        wrote = (m_raw >= 1) & v & is_last
+        tat_fin = tat_fin_main
+        cur_out = cur_main
+        denied_seg = seg_n - torch.minimum(m_raw, seg_n)
+        n_exp_mask = exp_hit_base & allowed_main
+        f_add, f_sub = s_add, s_sub
+    else:
+        # ---- degenerate case: three-view closed form -------------------
+        degen = (inc == 0) | (tol == 0)
+
+        def view_step(t):
+            outs = _request_outputs(t, inc, em, tol, now)
+            allowed_t, _, _, _, new_t, ttl_t = outs
+            dead = allowed_t & (ttl_t == 0)
+            t_next = torch.where(
+                ~allowed_t,
+                t,
+                torch.where(
+                    dead,
+                    sat_sub(now, em),
+                    torch.maximum(new_t, sat_sub(now, tol)),
+                ),
+            )
+            return outs, t_next
+
+        outs0, v1 = view_step(t0)
+        outs1, v2 = view_step(v1)
+        outs2, _ = view_step(v2)
+        a0, a1, a2 = outs0[0], outs1[0], outs2[0]
+        alt_even = torch.remainder(rank - 1, 2) == 0
+
+        def pick(main, o0, o1, o2):
+            alternating = torch.where(alt_even, o1, o2)
+            tail = torch.where(rank == 1, o1, torch.where(a2, alternating, o2))
+            degen_out = torch.where(
+                ~a0,
+                o0,
+                torch.where(
+                    ~a1,
+                    torch.where(rank == 0, o0, o1),
+                    torch.where(rank == 0, o0, tail),
+                ),
+            )
+            return torch.where(degen, degen_out, main)
+
+        allowed_out = pick(allowed_main, a0, a0 & a1, a0 & a1 & a2) & v
+        remaining_out = pick(remaining_main, outs0[1], outs1[1], outs2[1])
+        reset_out = pick(reset_main, outs0[2], outs1[2], outs2[2])
+        retry_out = pick(retry_main, outs0[3], outs1[3], outs2[3])
+
+        new0_t, new1_t, new2_t = outs0[4], outs1[4], outs2[4]
+        alt_last = torch.where(alt_even, new1_t, new2_t)
+        tat_fin_degen = torch.where(
+            (rank == 0) | ~a1,
+            new0_t,
+            torch.where(~a2 | (rank == 1), new1_t, alt_last),
+        )
+        wrote = torch.where(degen, a0, m_raw >= 1) & v & is_last
+        tat_fin = torch.where(degen, tat_fin_degen, tat_fin_main)
+        cur_out = None
+        allowed_cnt_degen = torch.where(
+            ~a0,
+            0,
+            torch.where(
+                ~a1, 1, torch.where(~a2, torch.clamp(seg_n, max=2), seg_n)
+            ),
+        )
+        denied_seg = seg_n - torch.where(
+            degen, allowed_cnt_degen, torch.minimum(m_raw, seg_n)
+        )
+        n_exp_mask = exp_hit_base & allowed_out
+        f_add, f_sub = sat_add, sat_sub
+
+    out = _finish(
+        state, s, N, now, tol, allowed_out, remaining_out, reset_out,
+        retry_out, wrote, tat_fin, compact, f_add, f_sub, cur=cur_out,
+        ins_row=(stored_tat, stored_exp, stored_deny, denied_seg,
+                 v & is_last) if ins else None,
+    )
+    return out, n_exp_mask.to(torch.int64).sum()
+
+
+def _finish(
+    state, s, N, now, tol, allowed, remaining, reset_after, retry_after,
+    wrote, tat_fin, compact, s_add, s_sub, cur=None, ins_row=None,
+):
+    """Write back the surviving state (one row scatter, in place) and
+    stack the outputs of the `compact` tier."""
+    ttl_fin = s_add(s_sub(tat_fin, now), tol)
+    # ttl < 0 wraps to a ~584-year duration in the reference: "never".
+    expiry_fin = torch.where(ttl_fin < 0, I64_MAX, s_add(tat_fin, tol))
+    # Suppressed writes land in the scratch tail (the last B rows) at
+    # distinct indices, keeping every scatter index unique.
+    B = s.shape[0]
+    scratch = N - B + torch.arange(B, dtype=torch.int64, device=s.device)
+    if ins_row is None:
+        scatter_idx = torch.where(wrote, s, scratch)
+        rows = pack_state(tat_fin, expiry_fin)
+    else:
+        stored_tat, stored_exp, stored_deny, denied_seg, touch = ins_row
+        rows = torch.cat(
+            [
+                pack_state(
+                    torch.where(wrote, tat_fin, stored_tat),
+                    torch.where(wrote, expiry_fin, stored_exp),
+                ),
+                _split_cols(stored_deny + denied_seg),
+            ],
+            dim=-1,
+        )
+        scatter_idx = torch.where(touch, s, scratch)
+    state.index_copy_(0, scatter_idx, rows)
+
+    if compact == "cur":
+        if cur is None:
+            raise ValueError('compact="cur" requires with_degen=False')
+        return cur * 2 + allowed.to(torch.int64)
+    if compact == "w32":
+        if cur is None:
+            raise ValueError('compact="w32" requires with_degen=False')
+        word = (
+            allowed.to(torch.int64)
+            | ((remaining & _U32) << 1)
+            | ((torch.div(reset_after, _NS_PER_SEC, rounding_mode="floor")
+                & _U32) << 11)
+            | ((torch.div(retry_after, _NS_PER_SEC, rounding_mode="floor")
+                & _U32) << 22)
+        )
+        return _to_i32(word)
+    if compact:
+        return torch.stack(
+            [
+                allowed.to(torch.int32),
+                torch.clamp(remaining, max=_I32_MAX).to(torch.int32),
+                torch.clamp(
+                    torch.div(reset_after, _NS_PER_SEC, rounding_mode="floor"),
+                    max=_I32_MAX,
+                ).to(torch.int32),
+                torch.clamp(
+                    torch.div(retry_after, _NS_PER_SEC, rounding_mode="floor"),
+                    max=_I32_MAX,
+                ).to(torch.int32),
+            ]
+        )
+    return torch.stack(
+        [allowed.to(torch.int64), remaining, reset_after, retry_after]
+    )
+
+
+def decide_window(state, packed, now, *, with_degen=True, compact=False):
+    """The plain decision window: K sub-batches in order, `state` updated
+    in place.  `packed` is i32[K, B, PACK_WIDTH], `now` i64[K], both on
+    the state's device.  Returns (out, n_exp i64[K]) with `out` stacked
+    over K per the `compact` tier."""
+    outs, n_exp = [], []
+    for k in range(packed.shape[0]):
+        out, n = _gcra_body(
+            state, _unpack_requests(packed[k], now[k]),
+            with_degen=with_degen, compact=compact,
+        )
+        outs.append(out)
+        n_exp.append(n)
+    return torch.stack(outs), torch.stack(n_exp)
+
+
+def _lanes_allowed(out, compact):
+    """The valid-masked allowed bit of any output tier, [..., B]."""
+    if compact in ("cur", "w32"):
+        return (out & 1) != 0
+    return out[..., 0, :] != 0
+
+
+def _insight_totals(ins_counts, valid, out, compact):
+    """Advance the [allowed, denied] totals from one window's outputs
+    (allowed planes are already masked with `valid`)."""
+    allowed = _lanes_allowed(out, compact)
+    denied = valid & ~allowed
+    return ins_counts + torch.stack(
+        [allowed.to(torch.int64).sum(), denied.to(torch.int64).sum()]
+    )
+
+
+def gcra_scan_packed_acc(
+    state, exp_acc, packed, now, *, with_degen=True, compact=False
+):
+    """Plain decision window + expired-hit accumulation; returns
+    (state, exp_acc, out) with `state` updated in place."""
+    out, n_exp = decide_window(
+        state, packed, now, with_degen=with_degen, compact=compact
+    )
+    return state, exp_acc + n_exp.sum(), out
+
+
+def gcra_scan_packed_ins(
+    state, exp_acc, ins_counts, packed, now, *, with_degen=True,
+    compact=False,
+):
+    """gcra_scan_packed_acc + insight accumulation (INS_WIDTH rows)."""
+    out, n_exp = decide_window(
+        state, packed, now, with_degen=with_degen, compact=compact
+    )
+    ins_counts = _insight_totals(
+        ins_counts, (packed[..., 2] & PACK_FLAG_VALID) != 0, out, compact
+    )
+    return state, exp_acc + n_exp.sum(), ins_counts, out
+
+
+def _empty_rows(state):
+    """Vacated rows of the state's width: TAT 0, expiry EMPTY_EXPIRY,
+    every extra column zero (a recycled slot inherits no deny count)."""
+    n = state.shape[0]
+    rows = pack_state(
+        torch.zeros(n, dtype=torch.int64, device=state.device),
+        torch.full((n,), EMPTY_EXPIRY, dtype=torch.int64, device=state.device),
+    )
+    if state.shape[-1] > 4:
+        pad = torch.zeros(
+            (n, state.shape[-1] - 4), dtype=torch.int32, device=state.device
+        )
+        rows = torch.cat([rows, pad], dim=-1)
+    return rows
+
+
+def sweep_expired(now, state, capacity):
+    """Cleanup-as-compaction: vacate every expired slot in place; returns
+    the expired mask of the first `capacity` rows (the rest is scratch).
+    Serves both row widths (the JAX package's sweep_expired and
+    sweep_expired_ins): a vacated insight row's deny count dies with it."""
+    _, expiry = unpack_state(state)
+    expired = expiry <= now
+    state.copy_(torch.where(expired[:, None], _empty_rows(state), state))
+    return expired[:capacity]

@@ -1,0 +1,269 @@
+"""Bucket table on the card: one packed int32 row per slot.
+
+The counterpart of `throttlecrab_tpu/tpu/table.py`.  String keys are
+resolved to dense slot indices on the host (keymap.py); the device only
+sees integer slots.  Each slot's (TAT, expiry) pair is one i32[4] row
+(i32[6] with the insight deny counter), plus a scratch tail of
+`SCRATCH` rows that absorbs suppressed writes at unique indices.
+
+Every decision window goes through `fused.gcra_scan_packed_fused_*`:
+on `cuda` that is the hand-written kernel, on `cpu` the plain version.
+The state is updated in place; outputs are returned as device tensors so
+the caller decides when to fetch.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import fused
+from .kernel import (
+    EMPTY_EXPIRY,
+    INS_WIDTH,
+    pack_requests,
+    pack_state,
+    sweep_expired,
+    unpack_state,
+)
+from .sat import I64_MAX
+
+
+def resolve_device(device) -> torch.device:
+    """The table's device: `cuda` unless the caller asks otherwise.
+    Asking for a device that is not there raises; nothing falls back."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device 'cuda' requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' to run the plain version"
+        )
+    return dev
+
+
+def track_cur_safety(table, compact, params_cur_safe) -> None:
+    """Cross-launch half of the compact="cur" certificate: the table's
+    sticky `cur_safe` flag survives a launch iff its params are certified
+    (compact "cur"/"w32" certify by contract)."""
+    if compact not in ("cur", "w32") and not params_cur_safe:
+        table.cur_safe = False
+
+
+def _host_max_now(now_ns):
+    """Max launch timestamp (host values only; a tensor reports unknown)."""
+    if isinstance(now_ns, torch.Tensor):
+        return None
+    a = np.asarray(now_ns, np.int64)
+    return int(a.max(initial=0)) if a.ndim else int(a)
+
+
+def _host_max_tol(valid, tolerance):
+    """Masked max tolerance (host arrays only; a tensor reports unknown)."""
+    if isinstance(tolerance, torch.Tensor) or isinstance(valid, torch.Tensor):
+        return None
+    v = np.asarray(valid, bool)
+    return int(np.where(v, np.asarray(tolerance, np.int64), 0).max(initial=0))
+
+
+class BucketTable:
+    """Per-slot GCRA state on one device."""
+
+    SCRATCH = 1 << 16  # max batch size; scratch rows for suppressed writes
+
+    def __init__(self, capacity: int, device=None, insight: bool = False):
+        self.capacity = capacity
+        self.device = resolve_device(device)
+        self.state = self._alloc(capacity + self.SCRATCH)
+        self.insight = False
+        self.ins_counts = None
+        if insight:
+            self.enable_insight()
+        # True while every stored TAT provably sits in [0, 2^62), the
+        # cross-launch precondition of the compact="cur" tier.
+        self.cur_safe = True
+        # Expired-hit accumulator, read only on demand (adaptive cleanup).
+        self.exp_acc = torch.zeros((), dtype=torch.int64, device=self.device)
+        # High-water marks of the compact="w32" certificate: every stored
+        # TAT is <= its writing launch's now + tol <= now_hwm + tol_hwm.
+        self.tol_hwm = 0
+        self.now_hwm = 0
+
+    def note_max_tolerance(self, max_tol) -> None:
+        """Record a launch's max valid-lane tolerance (None = unknown:
+        the mark saturates, so w32 stays off)."""
+        if max_tol is None:
+            self.tol_hwm = I64_MAX
+        else:
+            self.tol_hwm = max(self.tol_hwm, int(max_tol))
+
+    def note_launch_now(self, now_ns) -> None:
+        """Record a launch's max timestamp (None = unknown: saturates)."""
+        if now_ns is None:
+            self.now_hwm = I64_MAX
+        else:
+            self.now_hwm = max(self.now_hwm, int(now_ns))
+
+    def _alloc(self, rows: int) -> torch.Tensor:
+        return pack_state(
+            torch.zeros(rows, dtype=torch.int64, device=self.device),
+            torch.full(
+                (rows,), EMPTY_EXPIRY, dtype=torch.int64, device=self.device
+            ),
+        )
+
+    def expired_hits(self) -> int:
+        """Total expired-hit count since construction (one scalar fetch)."""
+        return int(self.exp_acc)
+
+    def enable_insight(self) -> None:
+        """Widen the rows to INS_WIDTH (zeroed deny-counter columns) and
+        allocate the [allowed, denied] totals.  Idempotent."""
+        if self.insight:
+            return
+        pad = torch.zeros(
+            (self.state.shape[0], INS_WIDTH - 4), dtype=torch.int32,
+            device=self.device,
+        )
+        self.state = torch.cat([self.state, pad], dim=-1)
+        self.ins_counts = torch.zeros(2, dtype=torch.int64, device=self.device)
+        self.insight = True
+
+    def insight_counts(self) -> tuple:
+        """(allowed_total, denied_total) since construction."""
+        if not self.insight:
+            return (0, 0)
+        counts = self.ins_counts.cpu().numpy()
+        return int(counts[0]), int(counts[1])
+
+    def load_numpy(
+        self, state, exp_acc=0, ins_counts=None, tol_hwm=0, now_hwm=0,
+        cur_safe=True,
+    ) -> None:
+        """Adopt a table held as numpy: `state` is i32[capacity + SCRATCH,
+        W] rows (W 4, or 6 for the insight layout), e.g. the JAX package's
+        `np.asarray(BucketTable.state)`; the accumulators, high-water
+        marks and `cur_safe` flag come with it."""
+        state = np.ascontiguousarray(state, np.int32)
+        if state.ndim != 2 or state.shape[1] not in (4, INS_WIDTH):
+            raise ValueError(f"state must be i32[N, 4|6], got {state.shape}")
+        if state.shape[0] <= self.SCRATCH:
+            raise ValueError("state must hold real rows before the scratch tail")
+        self.capacity = state.shape[0] - self.SCRATCH
+        self.state = torch.from_numpy(state.copy()).to(self.device)
+        self.insight = state.shape[1] == INS_WIDTH
+        self.ins_counts = (
+            torch.tensor(
+                list(ins_counts) if ins_counts is not None else [0, 0],
+                dtype=torch.int64, device=self.device,
+            )
+            if self.insight
+            else None
+        )
+        self.exp_acc = torch.tensor(
+            int(exp_acc), dtype=torch.int64, device=self.device
+        )
+        self.tol_hwm = int(tol_hwm)
+        self.now_hwm = int(now_hwm)
+        self.cur_safe = bool(cur_safe)
+
+    @property
+    def tat(self) -> torch.Tensor:
+        """i64 TAT column (excludes scratch)."""
+        return unpack_state(self.state)[0][: self.capacity]
+
+    @property
+    def expiry(self) -> torch.Tensor:
+        """i64 expiry column (excludes scratch)."""
+        return unpack_state(self.state)[1][: self.capacity]
+
+    def check_batch(
+        self, slots, rank, is_last, emission, tolerance, quantity, valid,
+        now_ns: int, with_degen: bool = True, compact=False,
+        params_cur_safe: bool = False,
+    ) -> torch.Tensor:
+        """One sub-batch ([B] arrays, one timestamp); returns the device
+        output of the `compact` tier for that sub-batch."""
+        packed = pack_requests(
+            slots, rank, is_last, emission, tolerance, quantity, valid
+        )[None]
+        return self.check_many_packed(
+            packed, np.array([now_ns], np.int64), with_degen=with_degen,
+            compact=compact, params_cur_safe=params_cur_safe,
+            max_tolerance=_host_max_tol(valid, tolerance),
+        )[0]
+
+    def check_many(
+        self, slots, rank, is_last, emission, tolerance, quantity, valid,
+        now_ns, with_degen: bool = True, compact=False,
+        params_cur_safe: bool = False,
+    ) -> torch.Tensor:
+        """K stacked sub-batches ([K, B] arrays, i64[K] timestamps) in one
+        window; returns the stacked device output."""
+        packed = pack_requests(
+            slots, rank, is_last, emission, tolerance, quantity, valid
+        )
+        return self.check_many_packed(
+            packed, now_ns, with_degen=with_degen, compact=compact,
+            params_cur_safe=params_cur_safe,
+            max_tolerance=_host_max_tol(valid, tolerance),
+        )
+
+    def check_many_packed(
+        self, packed, now_ns, with_degen: bool = True, compact=False,
+        params_cur_safe: bool = False, max_tolerance=None,
+    ) -> torch.Tensor:
+        """K stacked sub-batches from ONE packed i32[K, B, PACK_WIDTH]
+        buffer (numpy or a tensor); `now_ns` is i64[K].  Returns the
+        device output untouched, so a pipelined caller can defer the
+        fetch.  `max_tolerance` is the caller's masked max tolerance
+        (None saturates the w32 mark)."""
+        if packed.shape[1] > self.SCRATCH:
+            raise ValueError("batch exceeds scratch region")
+        track_cur_safety(self, compact, params_cur_safe)
+        self.note_max_tolerance(max_tolerance)
+        self.note_launch_now(_host_max_now(now_ns))
+        packed_t = torch.as_tensor(packed, dtype=torch.int32).to(self.device)
+        now_t = torch.as_tensor(now_ns, dtype=torch.int64).to(self.device)
+        if self.insight:
+            self.state, self.exp_acc, self.ins_counts, out = (
+                fused.gcra_scan_packed_fused_ins(
+                    self.state, self.exp_acc, self.ins_counts, packed_t,
+                    now_t, with_degen=with_degen, compact=compact,
+                )
+            )
+        else:
+            self.state, self.exp_acc, out = fused.gcra_scan_packed_fused_acc(
+                self.state, self.exp_acc, packed_t, now_t,
+                with_degen=with_degen, compact=compact,
+            )
+        return out
+
+    def sweep(self, now_ns: int) -> np.ndarray:
+        """Vacate expired slots (a vacated slot's deny count dies with
+        it); returns the boolean expired mask (host)."""
+        return sweep_expired(now_ns, self.state, self.capacity).cpu().numpy()
+
+    def grow(self, new_capacity: int) -> None:
+        """Reallocate with `new_capacity` real rows (scratch kept last)."""
+        if new_capacity <= self.capacity:
+            return
+        extra = self._alloc(new_capacity - self.capacity)
+        if self.insight:
+            extra = torch.cat(
+                [
+                    extra,
+                    torch.zeros(
+                        (extra.shape[0], INS_WIDTH - 4), dtype=torch.int32,
+                        device=self.device,
+                    ),
+                ],
+                dim=-1,
+            )
+        self.state = torch.cat(
+            [self.state[: self.capacity], extra, self.state[self.capacity:]]
+        )
+        self.capacity = new_capacity
+
+    def live_count(self, now_ns: int) -> int:
+        """Number of live (non-expired) entries; diagnostic only."""
+        return int((self.expiry > now_ns).sum())
