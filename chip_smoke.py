@@ -3,22 +3,23 @@
 
     python3 chip_smoke.py
 
-Five phases, each printing its results; any failure raises and the script
+Eight phases, each printing its results; any failure raises and the script
 exits nonzero without its last line:
 
-1. card: the card's name and power limit (nvidia-smi), and the build of
-   the decision-window kernel from csrc/ (nvcc, timed);
-2. kernel vs plain: the CUDA kernel (tpu/fused.py) against its plain
-   torch version (tpu/kernel.py) on the card, at the serving shape
+1. card: the card's name and power limit (nvidia-smi), and the builds of
+   the kernel libraries from csrc/ (one nvcc per source, started
+   together, timed), with ptxas's registers/stack/spills per kernel;
+2. kernel vs plain: the decision-window kernel (tpu/fused.py) against its
+   plain torch version (tpu/kernel.py) on the card, at the serving shape
    (N = 2^20 + 2^16 rows, K = 16 sub-batches of B = 4096) on hostile
    windows — duplicates, degenerate lanes, invalid lanes, edge-valued
    tolerances — over two consecutive windows, for all five output tiers
    x row widths 4 and 6.  Tolerance: exact equality (integer math) on
    valid-lane outputs, real-slot state, expired-hit counts and insight
    totals;
-3. main path at full size: TorchRateLimiter(capacity=2^20) on cuda under
-   BASELINE config 3 traffic (1M keys, Zipf-1.1, batch 4096, per-key
-   heterogeneous params) through dispatch_many(wire=True), K = 16
+3. serving path at full size: TorchRateLimiter(capacity=2^20) on cuda
+   under BASELINE config 3 traffic (1M keys, Zipf-1.1, batch 4096,
+   per-key heterogeneous params) through dispatch_many(wire=True), K = 16
    batches per window, plus a window with quantity-0 probes (the exact
    path), then a sweep; the same traffic replayed on device="cpu" must
    give identical results and state, and the kernel's launch counter,
@@ -27,9 +28,26 @@ exits nonzero without its last line:
    answers 5 POST /throttle for one key (burst 3, 1 per hour) as
    allowed x3 (remaining 2, 1, 0) then denied x2, answers /health and
    /metrics, and exits 0 on SIGTERM;
-5. times, beside the card's name and power limit: the kernel's and the
-   plain version's time per window at K=16, B=4096, W=4 and W=6 in the
-   w32 tier (CUDA events), and phase 3's end-to-end decisions/s.
+5. row kernels vs plain: row_gather / row_scatter (tpu/row_ops.py)
+   against index_select / index_copy_ at N = 2^21 + 2^16, B = 4096,
+   W = 4 and 6, rows 0 and N-1 included.  Tolerance: exact equality;
+6. by-id launch path at bench.py's shape: TorchRateLimiter(capacity=2^21,
+   keymap="native") on cuda, 1M interned keys with config-3 per-key
+   params, every key populated once, then Zipf-1.1 windows of K = 64 x
+   B = 4096 through check_many_byid (host words + finish_ids),
+   check_many_ids (finish_raw) and check_many_ids20 (w32 + finish_w32);
+   the row kernels' counters, zeroed just before, must count 2K launches
+   per window, and the same traffic on device="cpu" must give identical
+   wire values and real-slot state;
+7. dispatch_wire_window: phase 3's traffic as native wire frames through
+   TorchRateLimiter(keymap="native") on cuda, against its device="cpu"
+   replay; the decision-window kernel's counter, zeroed just before, must
+   have moved;
+8. times, beside the card's name and power limit: the decision-window
+   kernel's and its plain version's time per window at K=16, B=4096,
+   W=4 and W=6 in the w32 tier, and each row kernel's, its plain
+   version's and the library call's time per launch at B=4096 (CUDA
+   events); phases 3, 6 and 7's decisions/s come from the host clock.
 
 The line before the last is the {"kernels": [...]} record; the last line
 is {"ok": true, "device": {...}}.
@@ -42,6 +60,7 @@ import signal
 import socket
 import subprocess
 import sys
+import threading
 import time
 import urllib.request
 
@@ -51,6 +70,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, NVIDIA data sheet
 SECTOR = 32  # bytes the memory system moves for one scattered row
 K, B = 16, 4096  # the serving window: max_scan_depth x batch_size
 CAPACITY = 1 << 20
+BYID_K = 64  # bench.py's by-id depth off the TPU
+BYID_CAPACITY = 1 << 21
+N_KEYS = 1_000_000
 TIERS = [(False, True), (True, True), (True, False), ("cur", False),
          ("w32", False)]
 
@@ -66,12 +88,12 @@ def ptxas_summary(log: str) -> list:
         if m:
             mangled = m.group(1)
             d = re.search(r"decide_kernelILi(\d)ELb(\d)ELi(\d)E", mangled)
-            s = re.search(r"scatter_kernelILi(\d)E", mangled)
+            s = re.search(r"(scatter|gather)_kernelILi(\d)E", mangled)
             tier = ("False", "True", "cur", "w32")
             name = (
                 f"decide W={d.group(1)} with_degen={d.group(2) == '1'} "
                 f"tier={tier[int(d.group(3))]}" if d
-                else f"scatter W={s.group(1)}" if s else mangled
+                else f"{s.group(1)} W={s.group(2)}" if s else mangled
             )
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
                       line)
@@ -397,7 +419,7 @@ def check_server(extra_env=None):
             proc.wait()
 
 
-# ---- timing (phase 5) ---------------------------------------------------- #
+# ---- timing (phase 8) ---------------------------------------------------- #
 
 
 def time_windows(fn, n_warm, n_timed):
@@ -414,6 +436,37 @@ def time_windows(fn, n_warm, n_timed):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n_timed
+
+
+def profile_device(fn, n=1):
+    """(wall ms, device ms, {kernel name: device ms}, kernels) per call of
+    fn() over `n` calls, from torch.profiler's CUDA kernel records (every
+    kernel the calls launched, ctypes-launched ones included); device ms
+    is None when the profiler records no kernel on this machine."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3 / n
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        return wall, None, {}, 0
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
+    return (
+        wall,
+        sum(by_name.values()) / n / 1e3,
+        {k: v / n / 1e3 for k, v in by_name.items()},
+        len(kernels) / n,
+    )
 
 
 def bound_ms(k, b, width_out_bytes):
@@ -458,8 +511,9 @@ def timing_window(device, width, rng):
 
 
 def time_kernel(device, rng, rounds=3):
-    """{width: (kernel ms, plain ms)} per w32 window, the medians of
-    `rounds` rounds that alternate the widths."""
+    """{width: (kernel ms, plain ms, kernel device ms, plain device ms)}
+    per w32 window: CUDA-event medians of `rounds` rounds that alternate
+    the widths, then the profiler's device time."""
     import numpy as np
 
     from throttlecrab_tpu_torch.tpu import fused, kernel
@@ -480,13 +534,344 @@ def time_kernel(device, rng, rounds=3):
     for w, (k_ms, p_ms) in samples.items():
         print(f"  W={w} rounds: kernel {[round(x, 4) for x in k_ms]} ms, "
               f"plain {[round(x, 2) for x in p_ms]} ms")
+    device = {}
+    for w, (state, packed, now) in inputs.items():
+        device[w] = tuple(profile_device(
+            lambda fn=fn, st=state, p=packed, n=now: fn(
+                st, p, n, with_degen=False, compact="w32"), reps)[1]
+            for fn, reps in ((fused.fused_window, 20),
+                             (kernel.decide_window, 2)))
     return {
-        w: (float(np.median(k_ms)), float(np.median(p_ms)))
+        w: (float(np.median(k_ms)), float(np.median(p_ms))) + device[w]
         for w, (k_ms, p_ms) in samples.items()
     }
 
 
+def time_row_kernels(device, rng, rounds=3):
+    """{(name, W): {"kernel"|"plain"|"library": ms}} per launch at B=4096
+    over the by-id table (N = 2^21 + 2^16 rows): medians of `rounds`
+    rounds that alternate kernel, plain version and library call.  Each
+    call takes the next of 8 index sets, so consecutive launches do not
+    find each other's rows in L2."""
+    import itertools
+
+    import numpy as np
+
+    from throttlecrab_tpu_torch.tpu import row_ops
+
+    n = BYID_CAPACITY + (1 << 16)
+    samples = {}
+    for w in (4, 6):
+        table, _, rows = row_case(rng, n, B, w, device)
+        idxs = [row_case_idx(rng, n, B, device) for _ in range(8)]
+        longs = [i.long() for i in idxs]
+        nxt = itertools.cycle(range(8)).__next__
+        fns = {
+            ("row_gather", "kernel"): lambda: row_ops.row_gather(
+                table, idxs[nxt()]),
+            ("row_gather", "plain"): lambda: row_ops.row_gather_plain(
+                table, idxs[nxt()]),
+            ("row_gather", "library"): lambda: table.index_select(
+                0, longs[nxt()]),
+            ("row_scatter", "kernel"): lambda: row_ops.row_scatter(
+                table, idxs[nxt()], rows),
+            ("row_scatter", "plain"): lambda: row_ops.row_scatter_plain(
+                table, idxs[nxt()], rows),
+            ("row_scatter", "library"): lambda: table.index_copy_(
+                0, longs[nxt()], rows),
+        }
+        for _ in range(rounds):
+            for (name, side), fn in fns.items():
+                samples.setdefault((name, w), {}).setdefault(
+                    side, []).append(time_windows(fn, 10, 200))
+        for (name, side), fn in fns.items():
+            samples[(name, w)].setdefault(
+                "device_" + side, []).append(profile_device(fn, 100)[1])
+    for (name, w), by_side in samples.items():
+        print(f"  {name} W={w} rounds (ms per launch): " + ", ".join(
+            f"{side} {[x if x is None else round(x, 5) for x in v]}"
+            for side, v in
+            by_side.items()))
+    return {
+        key: {side: None if None in v else float(np.median(v))
+              for side, v in by_side.items()}
+        for key, by_side in samples.items()
+    }
+
+
+def row_bound_ms(b, w):
+    """The least time for one row launch: per row one 32-byte table
+    sector, the 4-byte index and the 4W-byte row on the dense side, at
+    the HBM rate (the same for gather and scatter)."""
+    return b * (SECTOR + 4 + 4 * w) / HBM_BYTES_PER_S * 1e3
+
+
+# ---- row kernels vs plain (phase 5) --------------------------------------- #
+
+
+def row_case_idx(rng, n, b, device):
+    """`b` unique row indices in [0, n), rows 0 and n-1 among them."""
+    import numpy as np
+    import torch
+
+    idx = rng.choice(n, b, replace=False).astype(np.int32)
+    if 0 not in idx:
+        idx[0] = 0
+    if n - 1 not in idx:
+        idx[1] = n - 1
+    return torch.from_numpy(idx).to(device)
+
+
+def row_case(rng, n, b, w, device):
+    """(table i32[n, w], idx i32[b] unique, rows i32[b, w]) on `device`."""
+    import numpy as np
+    import torch
+
+    i32 = (-(1 << 31), (1 << 31) - 1)
+    table = torch.from_numpy(
+        rng.integers(*i32, (n, w)).astype(np.int32)).to(device)
+    rows = torch.from_numpy(
+        rng.integers(*i32, (b, w)).astype(np.int32)).to(device)
+    return table, row_case_idx(rng, n, b, device), rows
+
+
+def compare_row_kernels(device, rng):
+    """Phase 5; returns {name: largest difference} over both widths."""
+    import torch
+
+    from throttlecrab_tpu_torch.tpu import row_ops
+
+    n = BYID_CAPACITY + (1 << 16)
+    worst = {"row_gather": 0, "row_scatter": 0}
+    for w in (4, 6):
+        table, idx, rows = row_case(rng, n, B, w, device)
+        got = row_ops.row_gather(table, idx)
+        want = row_ops.row_gather_plain(table, idx)
+        t_kernel, t_plain = table.clone(), table.clone()
+        row_ops.row_scatter(t_kernel, idx, rows)
+        row_ops.row_scatter_plain(t_plain, idx, rows)
+        torch.cuda.synchronize()
+        errs = {
+            "row_gather": max_abs_err(got.cpu().numpy(),
+                                      want.cpu().numpy(), True),
+            "row_scatter": max_abs_err(t_kernel.cpu().numpy(),
+                                       t_plain.cpu().numpy(), True),
+        }
+        for name, err in errs.items():
+            worst[name] = max(worst[name], err)
+            if err:
+                raise AssertionError(f"{name} W={w}: max_abs_err={err}")
+        print(f"  identical: W={w} N={n} B={B} (gather rows, scattered "
+              "table)")
+    return worst
+
+
+# ---- by-id launch path (phase 6) ------------------------------------------ #
+
+
+def config3_params(n_keys):
+    """(keys as bytes, em i64, tol i64): bench.py's key names and config 3's
+    per-key (burst, count, period) derived from the key id."""
+    import numpy as np
+
+    from throttlecrab_tpu_torch.tpu.limiter import derive_params
+
+    kid = np.arange(n_keys, dtype=np.int64)
+    em, tol, invalid = derive_params(5 + kid % 60, 50 + kid % 1000,
+                                     30 + kid % 120)
+    assert not invalid.any()
+    return [b"bench:key:%d" % i for i in range(n_keys)], em, tol
+
+
+def byid_plan(rng, n_keys, per_variant=3):
+    """[(variant, ids i32[K*B])]: every key once ("populate", -1 padded),
+    then `per_variant` Zipf-1.1 windows for each of byid, ids, ids20."""
+    import numpy as np
+
+    per = BYID_K * B
+    plan = []
+    order = rng.permutation(n_keys).astype(np.int32)
+    for start in range(0, n_keys, per):
+        ids = np.full(per, -1, np.int32)
+        chunk = order[start:start + per]
+        ids[: len(chunk)] = chunk
+        plan.append(("populate", ids))
+    p = np.arange(1, n_keys + 1, dtype=np.float64) ** -1.1
+    cdf = np.cumsum(p / p.sum())
+    for variant in ("byid", "ids", "ids20"):
+        for _ in range(per_variant):
+            ids = np.minimum(np.searchsorted(cdf, rng.random(per)),
+                             n_keys - 1).astype(np.int32)
+            plan.append((variant, ids))
+    return plan
+
+
+def run_byid(device, keys, em, tol, plan):
+    """Drive the plan through a native-keymap limiter on `device`: intern
+    and resolve every key, upload the id rows, then per window dispatch,
+    fetch and finish.  Returns (limiter, wire i32[K*B, 4] per window,
+    valid lanes per window, seconds per window)."""
+    import numpy as np
+
+    from throttlecrab_tpu_torch.tpu.kernel import (
+        finish_w32,
+        fits_w32_wire,
+        pack_ids20,
+    )
+    from throttlecrab_tpu_torch.tpu.limiter import TorchRateLimiter
+
+    lim = TorchRateLimiter(capacity=BYID_CAPACITY, keymap="native",
+                           device=device)
+    km, table = lim.keymap, lim.table
+    km.intern(keys)
+    rows = table.upload_id_rows(km.resolve_all(strict=True), em, tol,
+                                keymap=km)
+    if not fits_w32_wire(np.ones(len(em), bool), em, tol,
+                         np.ones(len(em), np.int64), T0, table.tol_hwm,
+                         table.now_hwm):
+        raise AssertionError("config 3 params do not fit the w32 tier")
+    cert = dict(quantity=1, with_degen=False)
+    wires, valids, seconds = [], [], []
+    now = T0
+    for variant, ids in plan:
+        nows = np.full(BYID_K, now, np.int64)
+        t = time.perf_counter()
+        if variant == "byid":
+            words, n_bad = km.assemble_ids(ids, B)
+            if n_bad:
+                raise AssertionError(f"assemble_ids: {n_bad} bad ids")
+            out = table.check_many_byid(rows, words.reshape(BYID_K, B),
+                                        nows, compact="cur", **cert)
+            wire = km.finish_ids(words, em, tol, 1, out.cpu().numpy(), now)
+        elif variant == "ids20":
+            out = table.check_many_ids20(
+                rows, pack_ids20(ids.reshape(BYID_K, B)), nows,
+                compact="w32", **cert)
+            wire = np.stack(finish_w32(out.cpu().numpy().reshape(-1)), 1)
+        else:
+            out = table.check_many_ids(rows, ids.reshape(BYID_K, B), nows,
+                                       compact="cur", **cert)
+            wire = km.finish_raw(ids, em, tol, 1, out.cpu().numpy(), now)
+        seconds.append(time.perf_counter() - t)
+        wires.append(wire)
+        valids.append(ids >= 0)
+        now += int(2e6)
+    return lim, wires, valids, seconds
+
+
+def summarize_profile(wall, device, by_name, n_kernels):
+    """A profile_device result as a record: wall and device ms, the
+    device's idle share of the wall time, and the row kernels' share of
+    the device time."""
+    if device is None:
+        return {"wall_ms": wall, "device_ms": "not measured"}
+    rows = sum(v for k, v in by_name.items()
+               if "gather_kernel" in k or "scatter_kernel" in k)
+    return {
+        "wall_ms": round(wall, 3),
+        "device_ms": round(device, 3),
+        "idle_share": round(1 - device / wall, 4),
+        "kernels": int(n_kernels),
+        "row_kernels_ms": round(rows, 4),
+    }
+
+
+def profile_byid_window(lim, keys, em, tol):
+    """One more Zipf window through check_many_ids (phase 6's limiter,
+    after its comparison) under the profiler."""
+    import numpy as np
+
+    km, table = lim.keymap, lim.table
+    rows = table.upload_id_rows(km.resolve_all(strict=True), em, tol)
+    ids = byid_plan(np.random.default_rng(66), len(keys), 1)[-2][1]
+    now = np.full(BYID_K, T0 + 10 * NS, np.int64)
+
+    def window():
+        out = table.check_many_ids(rows, ids.reshape(BYID_K, B), now,
+                                   quantity=1, with_degen=False,
+                                   compact="cur")
+        km.finish_raw(ids, em, tol, 1, out.cpu().numpy(), int(now[0]))
+
+    return summarize_profile(*profile_device(window))
+
+
+def byid_rates(plan, seconds):
+    """{variant: decisions/s} over each variant's windows after its first
+    (host clock: dispatch, device, fetch and finish)."""
+    per_variant = {}
+    for (variant, ids), sec in zip(plan, seconds):
+        per_variant.setdefault(variant, []).append((int((ids >= 0).sum()),
+                                                    sec))
+    return {
+        v: sum(n for n, _ in runs[1:]) / sum(s for _, s in runs[1:])
+        for v, runs in per_variant.items() if len(runs) > 1
+    }
+
+
+# ---- dispatch_wire_window (phase 7) -------------------------------------- #
+
+
+def wire_frames(windows):
+    """Phase 3's windows as native wire frames: [(frames, now_ns)], each
+    frame (key_blob, offsets i64[n+1], params i64[n, 4]) and one
+    timestamp per window (the window's last)."""
+    import numpy as np
+
+    out = []
+    for batches in windows:
+        frames = []
+        for keys, burst, count, period, q, _now in batches:
+            kb = [k.encode() for k in keys]
+            offsets = np.zeros(len(kb) + 1, np.int64)
+            np.cumsum([len(k) for k in kb], out=offsets[1:])
+            params = np.stack([burst, count, period, q], 1).astype(np.int64)
+            frames.append((b"".join(kb), offsets, params))
+        out.append((frames, batches[-1][-1]))
+    return out
+
+
+def run_wire(limiter, frame_windows):
+    """dispatch_wire_window + fetch per window; (results, seconds)."""
+    results, seconds, tiers = [], [], []
+    for frames, now in frame_windows:
+        t = time.perf_counter()
+        handle = limiter.dispatch_wire_window(frames, now)
+        if handle is None:
+            raise AssertionError("dispatch_wire_window fell back")
+        results.append(handle.fetch())
+        seconds.append(time.perf_counter() - t)
+        tiers.append("w32" if handle._w32 else
+                     "cur" if handle._finish is not None else "planes")
+    print(f"  output tiers by window: {tiers}")
+    return results, seconds
+
+
 # ---- main ---------------------------------------------------------------- #
+
+
+def build_kernels():
+    """Phase 1's builds: one nvcc per kernel source, all started together
+    (threads wait on the compilers); {library: (path, seconds)}."""
+    from throttlecrab_tpu_torch.tpu import fused, row_ops
+
+    built, errors = {}, []
+
+    def run(name, build):
+        t = time.perf_counter()
+        try:
+            built[name] = (build(), time.perf_counter() - t)
+        except Exception as e:  # re-raised in the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=a) for a in (
+        ("fused_window", fused.build), ("row_ops", row_ops.build))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return built
 
 
 def main() -> int:
@@ -498,28 +883,27 @@ def main() -> int:
         return 2
     import numpy as np
 
-    from throttlecrab_tpu_torch.tpu import fused
+    from throttlecrab_tpu_torch.tpu import fused, row_ops
     from throttlecrab_tpu_torch.tpu.limiter import TorchRateLimiter
 
     device = torch.device("cuda")
     card = card_line()
     print(f"[1] card: {card}")
-    t = time.perf_counter()
-    lib = fused.build()
-    print(f"[1] built {lib.name} in {time.perf_counter() - t:.1f} s "
-          "(0 when this checkout had built it already)")
-    for line in ptxas_summary(lib.with_suffix(".log").read_text()):
-        print(f"  ptxas: {line}")
+    for name, (lib, sec) in build_kernels().items():
+        print(f"[1] built {lib.name} in {sec:.1f} s (0 when this checkout "
+              "had built it already)")
+        for line in ptxas_summary(lib.with_suffix(".log").read_text()):
+            print(f"  ptxas {name}: {line}")
 
     print(f"[2] kernel vs plain on the card: K={K} B={B} "
           f"N={CAPACITY + (1 << 16)}")
     worst = compare_kernel_plain(device, K, B, CAPACITY)
 
-    print("[3] main path: TorchRateLimiter(capacity=2^20) on cuda, "
+    print("[3] serving path: TorchRateLimiter(capacity=2^20) on cuda, "
           "BASELINE config 3 traffic")
     rng = np.random.default_rng(3)
     n_windows, probe_window = 10, 9
-    windows = config3_windows(rng, 1_000_000, n_windows, K, B, probe_window)
+    windows = config3_windows(rng, N_KEYS, n_windows, K, B, probe_window)
     limiter = TorchRateLimiter(capacity=CAPACITY)
     fused.LAUNCHES = 0
     got, seconds = run_main_path(limiter, windows)
@@ -527,13 +911,12 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = fused.LAUNCHES
     if launches == 0:
-        raise AssertionError("the main path never launched the kernel")
+        raise AssertionError("the serving path never launched the kernel")
     if not limiter.table.state.is_cuda:
         raise AssertionError("the table left the card")
     decisions = sum(len(b[0]) for w in windows for b in w)
     steady = seconds[1:probe_window]
-    steady_decisions = K * B * len(steady)
-    rate = steady_decisions / sum(steady)
+    rate = K * B * len(steady) / sum(steady)
     lat = np.percentile(np.asarray(steady) * 1e3, [50, 99])
     print(f"  {decisions} decisions in {n_windows} windows, "
           f"{launches} kernel windows launched, sweep freed {freed}")
@@ -549,18 +932,100 @@ def main() -> int:
                        ref.table.state[:CAPACITY]):
         raise AssertionError("table state differs from the cpu replay")
     print("  identical to the device='cpu' replay (results, sweep, state)")
+    del limiter, ref
 
     print("[4] server on cuda")
     check_server()
 
-    print(f"[5] times per window, K={K} B={B} w32 tier ({card})")
+    print("[5] row kernels vs plain on the card: "
+          f"N={BYID_CAPACITY + (1 << 16)} B={B} W=4,6")
+    row_worst = compare_row_kernels(device, np.random.default_rng(4))
+
+    print(f"[6] by-id path: TorchRateLimiter(capacity=2^21, keymap='native')"
+          f" on cuda, {N_KEYS} keys, config 3 params, K={BYID_K} B={B}")
+    keys, em, tol = config3_params(N_KEYS)
+    plan = byid_plan(np.random.default_rng(6), N_KEYS)
+    row_ops.GATHER_LAUNCHES = row_ops.SCATTER_LAUNCHES = 0
+    lim_g, wires_g, valids, sec_g = run_byid(device, keys, em, tol, plan)
+    torch.cuda.synchronize()
+    row_launches = {"row_gather": row_ops.GATHER_LAUNCHES,
+                    "row_scatter": row_ops.SCATTER_LAUNCHES}
+    expect = BYID_K * len(plan)
+    if set(row_launches.values()) != {expect}:
+        raise AssertionError(f"row kernel launches {row_launches}, "
+                             f"expected {expect} each (2K per window)")
+    if not lim_g.table.state.is_cuda:
+        raise AssertionError("the by-id table left the card")
+    print(f"  {len(plan)} windows ({[v for v, _ in plan]}), row launches "
+          f"{row_launches}")
+    print("  seconds per window: " + ", ".join(f"{x:.3f}" for x in sec_g))
+    lim_c, wires_c, _, sec_c = run_byid("cpu", keys, em, tol, plan)
+    for w, (a, b, v) in enumerate(zip(wires_g, wires_c, valids)):
+        if not np.array_equal(a[v], b[v]):
+            raise AssertionError(f"by-id window {w} ({plan[w][0]}) differs "
+                                 "from the cpu replay")
+    if not torch.equal(lim_g.table.state[:BYID_CAPACITY].cpu(),
+                       lim_c.table.state[:BYID_CAPACITY]):
+        raise AssertionError("by-id table state differs from the cpu replay")
+    if lim_g.table.expired_hits() != lim_c.table.expired_hits():
+        raise AssertionError("by-id expired-hit counts differ")
+    byid_rate = byid_rates(plan, sec_g)
+    print("  identical to the device='cpu' replay (wire values, state, "
+          "expired hits)")
+    byid_profile = profile_byid_window(lim_g, keys, em, tol)
+    print(f"  one more ids window under the profiler: {byid_profile}")
+    print("  decisions/s (host clock, windows after each variant's first): "
+          + ", ".join(f"{v} {r:.0f}" for v, r in byid_rate.items())
+          + f" on cuda; cpu replay " + ", ".join(
+              f"{v} {r:.0f}" for v, r in byid_rates(plan, sec_c).items())
+          + f" ({card})")
+    del lim_g, lim_c
+
+    print("[7] dispatch_wire_window: phase 3's traffic as native frames")
+    frame_windows = wire_frames(windows)
+    wire_lim = TorchRateLimiter(capacity=CAPACITY, keymap="native")
+    fused.LAUNCHES = 0
+    wire_got, wire_sec = run_wire(wire_lim, frame_windows)
+    torch.cuda.synchronize()
+    wire_launches = fused.LAUNCHES
+    if wire_launches == 0:
+        raise AssertionError("dispatch_wire_window never launched the kernel")
+    wire_steady = wire_sec[1:probe_window]
+    wire_rate = K * B * len(wire_steady) / sum(wire_steady)
+    wire_ref = TorchRateLimiter(capacity=CAPACITY, keymap="native",
+                                device="cpu")
+    wire_want, _ = run_wire(wire_ref, frame_windows)
+    assert_same_results(wire_got, wire_want)
+    if not torch.equal(wire_lim.table.state[:CAPACITY].cpu(),
+                       wire_ref.table.state[:CAPACITY]):
+        raise AssertionError("wire-window state differs from the cpu replay")
+    print(f"  identical to the device='cpu' replay; {wire_launches} kernel "
+          f"windows; {wire_rate:.0f} decisions/s over {len(wire_steady)} "
+          f"steady windows vs dispatch_many {rate:.0f} (phase 3) ({card})")
+    _frames, now = frame_windows[1]
+    wire_profile = summarize_profile(*profile_device(
+        lambda: wire_lim.dispatch_wire_window(_frames, now + NS).fetch()))
+    print(f"  one more window under the profiler: {wire_profile}")
+    del wire_lim, wire_ref
+
+    print(f"[8] times ({card})")
     times = time_kernel(device, np.random.default_rng(5))
-    for width, (k_ms, p_ms) in times.items():
-        print(f"  W={width}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-              f"bound {bound_ms(K, B, 4):.4f} ms (medians)")
+    for width, (k_ms, p_ms, k_dev, p_dev) in times.items():
+        print(f"  fused_window W={width}: kernel {k_ms:.4f} ms, plain "
+              f"{p_ms:.4f} ms, bound {bound_ms(K, B, 4):.4f} ms per K={K} "
+              f"w32 window (medians); device time (profiler) kernel "
+              f"{k_dev} ms, plain {p_dev} ms")
+    row_times = time_row_kernels(device, np.random.default_rng(8))
+    for (name, w), t in row_times.items():
+        print(f"  {name} W={w}: kernel {t['kernel']:.5f} ms, plain "
+              f"{t['plain']:.5f} ms, library {t['library']:.5f} ms, bound "
+              f"{row_bound_ms(B, w):.6f} ms per launch at B={B} (medians); "
+              f"device time (profiler) kernel {t['device_kernel']} ms, "
+              f"plain {t['device_plain']} ms, library "
+              f"{t['device_library']} ms")
 
     print(f"card: {card_line()}")
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "fused_window",
         "route": "cuda",
         "source": "throttlecrab_tpu_torch/csrc/fused_window.cu",
@@ -576,9 +1041,45 @@ def main() -> int:
         "shape": f"K={K} B={B} W=4 w32",
         "w6_ms": times[6][0],
         "w6_plain_ms": times[6][1],
+        "device_ms": times[4][2],
+        "plain_device_ms": times[4][3],
         "main_path_decisions_per_s": rate,
+        "wire_window_launches": wire_launches,
+        "wire_window_decisions_per_s": wire_rate,
+        "wire_window_profile": wire_profile,
         "card": card,
-    }]}))
+    }]
+    for name, replaces in (("row_gather", "pallas_ops.py:128"),
+                           ("row_scatter", "pallas_ops.py:162")):
+        t4, t6 = row_times[(name, 4)], row_times[(name, 6)]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "throttlecrab_tpu_torch/csrc/row_ops.cu",
+            "replaces": f"throttlecrab_tpu/tpu/{replaces}",
+            "launches": row_launches[name],
+            "max_abs_err": row_worst[name],
+            "ms": t4["kernel"],
+            "plain_ms": t4["plain"],
+            "bound_ms": row_bound_ms(B, 4),
+            "bound_by": "bytes",
+            "library_ms": t4["library"],
+            "identical": row_worst[name] == 0,
+            "shape": f"B={B} W=4 N={BYID_CAPACITY + (1 << 16)} per launch",
+            "w6_ms": t6["kernel"],
+            "w6_plain_ms": t6["plain"],
+            "w6_library_ms": t6["library"],
+            "w6_bound_ms": row_bound_ms(B, 6),
+            "device_ms": t4["device_kernel"],
+            "plain_device_ms": t4["device_plain"],
+            "library_device_ms": t4["device_library"],
+            "w6_device_ms": t6["device_kernel"],
+            "launches_per_window": BYID_K,
+            "byid_window_profile": byid_profile,
+            "byid_decisions_per_s": byid_rate,
+            "card": card,
+        })
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

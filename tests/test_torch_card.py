@@ -1,4 +1,6 @@
-"""The CUDA decision-window kernel against its plain version, on the card.
+"""The CUDA kernels against their plain versions, on the card: the
+decision-window kernel (fused.py) and the row gather/scatter (row_ops.py,
+also through a by-id scan).
 
 Needs a CUDA card: the tests carry the `cuda` marker and skip elsewhere
 (decided in a fixture when they run).  The file imports nothing of jax,
@@ -7,15 +9,15 @@ so it runs where only the port is installed:
     python -m pytest tests/test_torch_card.py --noconftest -q
 
 Tolerance: exact equality (integer arithmetic) on valid-lane outputs,
-real-slot state and the expired-hit counts.
+real-slot state, gathered and scattered rows, and the expired-hit counts.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from throttlecrab_tpu_torch.tpu import fused, kernel
-from torch_windows import TIERS, fresh_state, out_mask, rand_window
+from throttlecrab_tpu_torch.tpu import fused, kernel, row_ops
+from torch_windows import NS, TIERS, fresh_state, out_mask, rand_window
 
 
 @pytest.fixture
@@ -78,3 +80,84 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     fused.fused_window(torch.from_numpy(fresh_state(24, 4)).to(cuda_device),
                        p, n)
     assert fused.LAUNCHES == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", row_ops.WIDTHS)
+def test_row_kernels_match_index_select_and_copy(cuda_device, W):
+    """Gather and scatter against index_select / index_copy_, rows 0 and
+    N-1 included, at the by-id path's batch of 4096."""
+    rng = np.random.default_rng(W)
+    N, B = (1 << 16) + 5, 4096
+    base = torch.from_numpy(
+        rng.integers(-(2**31), 2**31 - 1, (N, W)).astype(np.int32)
+    ).to(cuda_device)
+    idx_np = np.concatenate(
+        [[0, N - 1], 1 + rng.choice(N - 2, B - 2, replace=False)]
+    ).astype(np.int32)
+    idx = torch.from_numpy(idx_np).to(cuda_device)
+    rows = torch.from_numpy(
+        rng.integers(-(2**31), 2**31 - 1, (B, W)).astype(np.int32)
+    ).to(cuda_device)
+    g0, s0 = row_ops.GATHER_LAUNCHES, row_ops.SCATTER_LAUNCHES
+    got = row_ops.row_gather(base, idx)
+    table = base.clone()
+    row_ops.row_scatter(table, idx, rows)
+    torch.cuda.synchronize()
+    assert (row_ops.GATHER_LAUNCHES, row_ops.SCATTER_LAUNCHES) == (
+        g0 + 1, s0 + 1)
+    assert torch.equal(got, base.index_select(0, idx))
+    want = base.clone()
+    want.index_copy_(0, idx.long(), rows)
+    assert torch.equal(table, want)
+
+
+@pytest.mark.cuda
+def test_row_kernels_reject_what_they_do_not_take(cuda_device):
+    table = torch.zeros((64, 4), dtype=torch.int32, device=cuda_device)
+    idx = torch.arange(8, dtype=torch.int32, device=cuda_device)
+    before = (row_ops.GATHER_LAUNCHES, row_ops.SCATTER_LAUNCHES)
+    with pytest.raises(ValueError):
+        row_ops.row_gather(table, idx.cpu())
+    with pytest.raises(ValueError):  # a 4-wide view 4 bytes off alignment
+        row_ops.row_gather(table.view(-1)[1:253].view(63, 4), idx)
+    with pytest.raises(TypeError):
+        row_ops.row_scatter(table, idx, torch.zeros(
+            (8, 4), dtype=torch.int64, device=cuda_device))
+    assert (row_ops.GATHER_LAUNCHES, row_ops.SCATTER_LAUNCHES) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["ids", "ids20"])
+@pytest.mark.parametrize("W", row_ops.WIDTHS)
+def test_byid_scan_on_card_matches_cpu(cuda_device, W, variant):
+    """gcra_scan_ids_acc / _ids20_acc on the card (rows through the
+    kernels) decide as on the CPU (plain rows), 2K row launches per
+    window."""
+    rng = np.random.default_rng(11 + W)
+    n_ids, cap, K, B = 300, 512, 4, 256
+    slots = rng.choice(cap, n_ids, replace=False).astype(np.int32)
+    em = rng.choice([1000, NS, 7 * NS], n_ids).astype(np.int64)
+    rows = torch.from_numpy(kernel.pack_id_rows(slots, em, em * 5))
+    ids = rng.integers(-1, n_ids, (K, B)).astype(np.int32)
+    stream, scan = torch.from_numpy(ids), kernel.gcra_scan_ids_acc
+    if variant == "ids20":
+        stream = torch.from_numpy(kernel.pack_ids20(ids))
+        scan = kernel.gcra_scan_ids20_acc
+    now = torch.from_numpy(1_753_700_000 * NS + np.arange(K) * NS)
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        st = torch.from_numpy(fresh_state(cap + B, W)).to(dev)
+        g0 = row_ops.GATHER_LAUNCHES
+        st, acc, out = scan(
+            st, torch.zeros((), dtype=torch.int64, device=dev),
+            rows.to(dev), stream.to(dev), now.to(dev), 1,
+            with_degen=False, compact="w32",
+        )
+        outs[str(dev)] = (st[:cap].cpu(), int(acc), out.cpu(),
+                          row_ops.GATHER_LAUNCHES - g0)
+    (st_c, acc_c, out_c, n_c), (st_g, acc_g, out_g, n_g) = outs.values()
+    valid = torch.from_numpy(ids >= 0)
+    assert n_c == 0 and n_g == K
+    assert torch.equal(st_c, st_g) and acc_c == acc_g
+    assert torch.equal(out_c[valid], out_g[valid])

@@ -6,7 +6,9 @@ import raises), imports every module of throttlecrab_tpu_torch, and
 checks that no module named `throttlecrab_tpu` or `throttlecrab_tpu.*`
 got loaded (`throttlecrab_tpu_torch` shares the prefix, so the check is
 exact).  Then the device contract: without a card, asking for `cuda` —
-explicitly or by default — raises instead of running on the CPU.
+explicitly or by default — raises instead of running on the CPU.  Last,
+the native keymap builds (g++, from native/keymap.cpp) and serves a batch
+with still no jax and nothing of the JAX package loaded.
 """
 
 import os
@@ -54,12 +56,18 @@ else:
         else:
             raise AssertionError("cuda requested without a card must raise")
     print("no card: cuda entry points raise")
-try:
-    TorchRateLimiter(capacity=64, device="cpu", keymap="native")
-except NotImplementedError as e:
-    assert "ROADMAP" in str(e)
-else:
-    raise AssertionError("the native keymap is not ported")
+from throttlecrab_tpu_torch.native import NativeKeyMap
+lim = TorchRateLimiter(capacity=64, device="cpu", keymap="native")
+assert isinstance(lim.keymap, NativeKeyMap)
+res = lim.rate_limit_batch(["a", "b", "a"], 2, 1, 60, 1, 10**18)
+assert list(res.allowed) == [True, True, True]
+leaked = sorted(
+    m for m in sys.modules
+    if m == "throttlecrab_tpu" or m.startswith("throttlecrab_tpu.")
+)
+assert not leaked, leaked
+assert sys.modules.get("jax") is None
+print("native keymap builds and imports no jax")
 print("ok")
 """
 

@@ -16,7 +16,8 @@ import numpy as np
 import pytest
 import torch
 
-from throttlecrab_tpu_torch.tpu import fused, kernel
+from throttlecrab_tpu_torch.tpu import kernel
+from throttlecrab_tpu_torch.tpu.nvcc import CSRC
 from torch_windows import NS, TIERS, fresh_state, out_mask, rand_window
 
 _TIER = {False: 0, True: 1, "cur": 2, "w32": 3}
@@ -30,8 +31,8 @@ def lane_lib(tmp_path_factory):
     out = tmp_path_factory.mktemp("lane") / "liblane_host.so"
     subprocess.run(
         [gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-Wall", "-Werror",
-         "-I", str(fused.CSRC), "-o", str(out),
-         str(fused.CSRC / "lane_host.cpp")],
+         "-I", str(CSRC), "-o", str(out),
+         str(CSRC / "lane_host.cpp")],
         check=True, capture_output=True, text=True,
     )
     lib = ctypes.CDLL(str(out))

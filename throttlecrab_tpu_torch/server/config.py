@@ -46,7 +46,7 @@ _SPEC = [
     ("max_scan_depth", "THROTTLECRAB_MAX_SCAN_DEPTH", 16, int,
      "Max backlog sub-batches decided in one device launch"),
     ("keymap", "THROTTLECRAB_KEYMAP", "auto", str,
-     "Host key->slot backend: auto or python (native is not ported)"),
+     "Host key->slot backend: auto, python, native"),
     ("device", "THROTTLECRAB_DEVICE", "cuda", str,
      "Torch device of the bucket table: cuda (the CUDA kernel) or cpu "
      "(the plain version)"),

@@ -20,15 +20,10 @@ The table is updated in place (the JAX package donates it instead).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
-from . import kernel
+from . import kernel, nvcc
 from .kernel import INS_WIDTH, PACK_FLAG_VALID, PACK_WIDTH
 
 #: Kernel windows launched through tc_fused_window since import.
@@ -36,14 +31,8 @@ LAUNCHES = 0
 
 MAX_BATCH = 1 << 16  # the table's scratch tail bounds a sub-batch
 
-_PKG = Path(__file__).resolve().parent.parent
-CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG / "build"
+LIB_STEM = "libtc_fused"
 SOURCES = ("fused_window.cu", "gcra_lane.cuh")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
 
 _TIERS = {"cur": 2, "w32": 3}
 _lib = None
@@ -58,54 +47,16 @@ def _tier(compact) -> int:
     return 1 if compact else 0
 
 
-def library_path() -> Path:
-    """Where the build of the current sources lives."""
-    h = hashlib.sha256()
-    for name in SOURCES:
-        h.update((CSRC / name).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libtc_fused_{h.hexdigest()[:16]}.so"
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = Path("/usr/local/cuda/bin/nvcc")
-    if default.exists():
-        return str(default)
-    raise RuntimeError("nvcc not found: the CUDA kernel cannot be built")
-
-
-def build() -> Path:
+def build():
     """Compile the kernel library unless this source revision is built;
-    returns its path.  The output is renamed into place, so concurrent
-    builders never load a half-written file.  nvcc's report (ptxas
-    registers, stack and spills per kernel) is kept beside it as
-    `<library>.log`."""
-    path = library_path()
-    if path.exists():
-        return path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [
-        _nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-        str(CSRC / "fused_window.cu"),
-    ]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
-        )
-    path.with_suffix(".log").write_text(res.stdout + res.stderr)
-    os.replace(tmp, path)
-    return path
+    returns its path (see nvcc.build)."""
+    return nvcc.build(LIB_STEM, SOURCES)
 
 
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        lib = nvcc.load(LIB_STEM, SOURCES)
         fn = lib.tc_fused_window
         p = ctypes.c_void_p
         fn.argtypes = [

@@ -1,11 +1,12 @@
 """Batched GCRA decision: row layout, host certificates and the plain decide.
 
 The counterpart of `throttlecrab_tpu/tpu/kernel.py`, limited to what the
-serving path reaches.  A decision window is K sub-batches of B requests
-against a table of packed int32 state rows; each sub-batch gathers its
-slots' rows, evaluates the GCRA closed forms, and writes the surviving
-state back at unique indices.  The sub-batches run strictly in order:
-a slot may recur in sub-batch k+1 and must see k's write.
+serving and by-id launch paths reach.  A decision window is K
+sub-batches of B requests against a table of packed int32 state rows;
+each sub-batch gathers its slots' rows, evaluates the GCRA closed forms,
+and writes the surviving state back at unique indices.  The sub-batches
+run strictly in order: a slot may recur in sub-batch k+1 and must see
+k's write.
 
 Intra-batch duplicate keys
 ==========================
@@ -28,8 +29,15 @@ independently:
 
 The functions below are the plain version of the decision window: plain
 torch ops, one sub-batch at a time.  On CUDA tensors the serving path
-runs the hand-written kernel in `fused.py` instead; this module is what
-the CPU path runs and what the kernel is held against.
+runs the hand-written kernel in `fused.py` instead; `decide_window` is
+what the CPU path runs and what that kernel is held against.
+
+The by-id launch path (`gcra_scan_byid` / `gcra_scan_ids` /
+`gcra_scan_ids20` and their `_acc` twins) has no fused kernel, as in the
+JAX package: its decide is these torch ops, and only its state-row
+gather and scatter are kernels (`row_ops.py`, the port of
+`pallas_ops.py`).  `_gcra_body` takes its row movement explicitly: the
+by-id scans pass `row_ops`, `decide_window` the plain `row_ops.PLAIN`.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import row_ops
 from .sat import (
     I64_MAX,
     div_trunc,
@@ -291,9 +300,10 @@ def _request_outputs(t, inc, emission, tol, now):
     return allowed, remaining, reset_after, retry_after, new_tat, ttl
 
 
-def _gcra_body(state, batch, *, with_degen=True, compact=False):
+def _gcra_body(state, batch, *, rowops, with_degen=True, compact=False):
     """Decide one sub-batch; updates `state` (i32[N, W]) in place and
-    returns (out, n_exp).
+    returns (out, n_exp).  `rowops` moves the state rows: `row_ops` (the
+    CUDA kernels on a CUDA table) or `row_ops.PLAIN` (indexing).
 
     with_degen=False drops the degenerate-case machinery — legal only
     when the host certifies no quantity-0, burst-1, zero-emission or
@@ -310,8 +320,8 @@ def _gcra_body(state, batch, *, with_degen=True, compact=False):
     N = state.shape[0]
     ins = state.shape[-1] > 4
 
-    s = torch.clamp(slots.to(torch.int64), 0, N - 1)
-    rows_g = state.index_select(0, s)
+    s = torch.clamp(slots, 0, N - 1)  # i32, as the kernels take it
+    rows_g = rowops.row_gather(state, s)
     stored_tat, stored_exp = unpack_state(rows_g)
     stored_deny = unpack_deny(rows_g) if ins else None
     v = valid
@@ -436,8 +446,9 @@ def _gcra_body(state, batch, *, with_degen=True, compact=False):
         f_add, f_sub = sat_add, sat_sub
 
     out = _finish(
-        state, s, N, now, tol, allowed_out, remaining_out, reset_out,
-        retry_out, wrote, tat_fin, compact, f_add, f_sub, cur=cur_out,
+        state, rowops, s, N, now, tol, allowed_out, remaining_out,
+        reset_out, retry_out, wrote, tat_fin, compact, f_add, f_sub,
+        cur=cur_out,
         ins_row=(stored_tat, stored_exp, stored_deny, denied_seg,
                  v & is_last) if ins else None,
     )
@@ -445,8 +456,9 @@ def _gcra_body(state, batch, *, with_degen=True, compact=False):
 
 
 def _finish(
-    state, s, N, now, tol, allowed, remaining, reset_after, retry_after,
-    wrote, tat_fin, compact, s_add, s_sub, cur=None, ins_row=None,
+    state, rowops, s, N, now, tol, allowed, remaining, reset_after,
+    retry_after, wrote, tat_fin, compact, s_add, s_sub, cur=None,
+    ins_row=None,
 ):
     """Write back the surviving state (one row scatter, in place) and
     stack the outputs of the `compact` tier."""
@@ -456,7 +468,7 @@ def _finish(
     # Suppressed writes land in the scratch tail (the last B rows) at
     # distinct indices, keeping every scatter index unique.
     B = s.shape[0]
-    scratch = N - B + torch.arange(B, dtype=torch.int64, device=s.device)
+    scratch = N - B + torch.arange(B, dtype=torch.int32, device=s.device)
     if ins_row is None:
         scatter_idx = torch.where(wrote, s, scratch)
         rows = pack_state(tat_fin, expiry_fin)
@@ -473,7 +485,7 @@ def _finish(
             dim=-1,
         )
         scatter_idx = torch.where(touch, s, scratch)
-    state.index_copy_(0, scatter_idx, rows)
+    rowops.row_scatter(state, scatter_idx, rows)
 
     if compact == "cur":
         if cur is None:
@@ -520,7 +532,7 @@ def decide_window(state, packed, now, *, with_degen=True, compact=False):
     for k in range(packed.shape[0]):
         out, n = _gcra_body(
             state, _unpack_requests(packed[k], now[k]),
-            with_degen=with_degen, compact=compact,
+            rowops=row_ops.PLAIN, with_degen=with_degen, compact=compact,
         )
         outs.append(out)
         n_exp.append(n)
@@ -567,6 +579,244 @@ def gcra_scan_packed_ins(
         ins_counts, (packed[..., 2] & PACK_FLAG_VALID) != 0, out, compact
     )
     return state, exp_acc + n_exp.sum(), ins_counts, out
+
+
+# ---- the by-id launch path ------------------------------------------------ #
+# By-id request words (native/keymap.cpp tk_assemble_ids):
+#   low 32 bits: key id | high 32: rank(14) | is_last<<14 | valid<<15
+# The device gathers (slot, emission, tolerance) from resident id rows,
+# an i32[n_ids, IDROW_WIDTH] table built by BucketTable.upload_id_rows,
+# so a request costs 8 bytes host->device instead of the 36-byte packed
+# row.  The quantity is uniform per launch.
+IDROW_WIDTH = 8
+
+
+def pack_id_rows(slots, emission, tolerance):
+    """Host-side build of the resident by-id parameter rows (numpy):
+    i32[n, IDROW_WIDTH] = [slot, em_lo, em_hi, tol_lo, tol_hi, pad...]
+    (the scans read columns 0-4)."""
+    rows = np.zeros((len(slots), IDROW_WIDTH), np.int32)
+    rows[:, 0] = slots
+    for base, arr in ((1, emission), (3, tolerance)):
+        a = np.asarray(arr, np.int64)
+        rows[:, base] = (a & _U32).astype(np.uint32).view(np.int32)
+        rows[:, base + 1] = (a >> 32).astype(np.int32)
+    return rows
+
+
+def _rows_to_batch(rows, rank, is_last, valid, quantity, now_k):
+    """Gathered id rows -> the _gcra_body batch tuple (shared by the
+    host-words and raw-ids sub-batches, so they cannot drift)."""
+    return (
+        rows[:, 0],                                        # slots
+        rank,
+        is_last,
+        _join(rows[:, 1], rows[:, 2]),                     # emission
+        _join(rows[:, 3], rows[:, 4]),                     # tolerance
+        torch.full(rank.shape, quantity, dtype=torch.int64,
+                   device=rank.device),                    # quantity
+        valid,
+        now_k,
+    )
+
+
+def _byid_batch(w, now_k, id_rows, quantity):
+    """One sub-batch of 8-byte request words (i64[B]) -> the _gcra_body
+    tuple."""
+    n_ids = id_rows.shape[0]
+    idx = torch.clamp(_to_i32(w & _U32), 0, n_ids - 1)
+    meta = w >> 32
+    rows = id_rows.index_select(0, idx)
+    # An unresolved id row (resolve_all on a full table) carries slot -1,
+    # which would otherwise clip to slot 0 and decide against another
+    # key's bucket.
+    valid = ((meta & (1 << 15)) != 0) & (rows[:, 0] >= 0)
+    return _rows_to_batch(
+        rows, meta & 0x3FFF, (meta & (1 << 14)) != 0, valid, quantity, now_k
+    )
+
+
+def _device_segments(segkey):
+    """(rank i64[B], is_last bool[B]) per lane from a per-lane segment key,
+    on the device: a stable argsort groups equal keys in arrival order, a
+    running max finds each run's start, and the inverse permutation (a
+    second stable argsort) maps the ranks back to arrival positions."""
+    B = segkey.shape[0]
+    order = torch.argsort(segkey, stable=True)
+    sk = segkey.index_select(0, order)
+    pos = torch.arange(B, dtype=torch.int64, device=segkey.device)
+    change = sk[1:] != sk[:-1]
+    edge = torch.ones(1, dtype=torch.bool, device=segkey.device)
+    run_start = torch.cat([edge, change])
+    start_pos = torch.cummax(torch.where(run_start, pos, 0), dim=0).values
+    rank_sorted = pos - start_pos
+    last_sorted = torch.cat([change, edge])
+    inv = torch.argsort(order, stable=True)
+    return rank_sorted.index_select(0, inv), last_sorted.index_select(0, inv)
+
+
+def _ids_batch(w, now_k, id_rows, quantity):
+    """One sub-batch of raw key ids (i32[B], negative = padding) -> the
+    _gcra_body tuple, with the duplicate-segment structure derived on the
+    device.  Segments are keyed by slot, so two ids sharing a slot still
+    serialise; every invalid lane gets its own key beyond any real slot,
+    so it can neither join nor split a real segment."""
+    n_ids = id_rows.shape[0]
+    # An id beyond the resident rows (interned after upload, or corrupt)
+    # is invalid, never clipped onto another key.
+    valid = (w >= 0) & (w < n_ids)
+    rows = id_rows.index_select(0, torch.clamp(w, 0, n_ids - 1))
+    slots = rows[:, 0]
+    valid = valid & (slots >= 0)
+    pos = torch.arange(w.shape[0], dtype=torch.int32, device=w.device)
+    segkey = torch.where(valid, slots, _I32_MAX - pos)
+    rank, is_last = _device_segments(segkey)
+    return _rows_to_batch(rows, rank, is_last, valid, quantity, now_k)
+
+
+# The 20-bit id stream: 2.5 bytes per request in one u16 buffer per
+# sub-batch (B low-16 lanes, then B/4 lanes of packed high nibbles),
+# decoded on the device, for tables under 2^20 - 1 keys.
+IDS20_SENTINEL = (1 << 20) - 1  # padding marker (never a real id)
+
+
+def pack_ids20(ids):
+    """i32[K, B] raw key ids (negative = padding) -> u16[K, B + B//4]
+    (numpy).  Needs B % 4 == 0 and every real id < 2^20 - 1: the
+    all-ones pattern is the padding sentinel, which decodes to an id out
+    of range of any conforming table, so the scan masks it invalid."""
+    ids = np.asarray(ids)
+    K, B = ids.shape
+    if B % 4:
+        raise ValueError("ids20 batch width must be a multiple of 4")
+    if (ids >= IDS20_SENTINEL).any():
+        raise ValueError("ids must be < 2^20 - 1 for the 20-bit id stream")
+    u = np.where(ids < 0, IDS20_SENTINEL, ids).astype(np.uint32)
+    lo = (u & 0xFFFF).astype(np.uint16)
+    hi4 = (u >> 16).astype(np.uint16).reshape(K, B // 4, 4)
+    hibuf = (
+        hi4[..., 0] | (hi4[..., 1] << 4) | (hi4[..., 2] << 8)
+        | (hi4[..., 3] << 12)
+    )
+    return np.concatenate([lo, hibuf], axis=1)
+
+
+def _ids20_decode(buf, B):
+    """One sub-batch's u16[B + B//4] stream -> i32[B] ids (device)."""
+    b = buf.to(torch.int32)
+    pos = torch.arange(B, dtype=torch.int32, device=buf.device)
+    hi = (b.index_select(0, B + (pos >> 2)) >> ((pos & 3) * 4)) & 0xF
+    return (hi << 16) | b[:B]
+
+
+def _ids20_width(packed):
+    """B of a u16[K, B + B//4] stream; a misaligned buffer (e.g. a raw id
+    stream handed to the wrong scan) would mis-split into in-range
+    garbage ids, so it raises instead."""
+    W = packed.shape[1]
+    if W % 5:
+        raise ValueError(
+            f"ids20 stream width must be a multiple of 5 (got {W})"
+        )
+    return W * 4 // 5
+
+
+def _scan_rows(state, exp_acc, batches, *, with_degen, compact):
+    """Decide sub-batches in order with the state rows moved by the
+    row_ops kernels; returns (state, exp_acc, out stacked over K)."""
+    outs, n_exp = [], []
+    for batch in batches:
+        out, n = _gcra_body(
+            state, batch, rowops=row_ops, with_degen=with_degen,
+            compact=compact,
+        )
+        outs.append(out)
+        n_exp.append(n)
+    return state, exp_acc + torch.stack(n_exp).sum(), torch.stack(outs)
+
+
+def gcra_scan_byid_acc(
+    state, exp_acc, id_rows, words, now, quantity, *, with_degen=True,
+    compact=False,
+):
+    """K sub-batches of 8-byte request words (i64[K, B], tk_assemble_ids
+    layout) against resident `id_rows`; `now` i64[K], `quantity` a
+    launch-uniform int.  Returns (state, exp_acc, out) with `state`
+    updated in place and `out` per the `compact` tier; lanes whose valid
+    bit is 0 are padding."""
+    return _scan_rows(
+        state, exp_acc,
+        (_byid_batch(words[k], now[k], id_rows, quantity)
+         for k in range(words.shape[0])),
+        with_degen=with_degen, compact=compact,
+    )
+
+
+def gcra_scan_ids_acc(
+    state, exp_acc, id_rows, ids, now, quantity, *, with_degen=True,
+    compact=False,
+):
+    """K sub-batches of raw key ids (i32[K, B], negative = padding), the
+    duplicate-segment structure derived on the device; otherwise as
+    gcra_scan_byid_acc."""
+    return _scan_rows(
+        state, exp_acc,
+        (_ids_batch(ids[k], now[k], id_rows, quantity)
+         for k in range(ids.shape[0])),
+        with_degen=with_degen, compact=compact,
+    )
+
+
+def gcra_scan_ids20_acc(
+    state, exp_acc, id_rows, packed, now, quantity, *, with_degen=True,
+    compact=False,
+):
+    """gcra_scan_ids_acc fed by the 20-bit id stream (u16[K, B + B//4],
+    pack_ids20)."""
+    B = _ids20_width(packed)
+    return _scan_rows(
+        state, exp_acc,
+        (_ids_batch(_ids20_decode(packed[k], B), now[k], id_rows, quantity)
+         for k in range(packed.shape[0])),
+        with_degen=with_degen, compact=compact,
+    )
+
+
+def _without_acc(scan_acc, state, id_rows, stream, now, quantity, **kw):
+    acc = torch.zeros((), dtype=torch.int64, device=state.device)
+    state, _, out = scan_acc(state, acc, id_rows, stream, now, quantity, **kw)
+    return state, out
+
+
+def gcra_scan_byid(
+    state, id_rows, words, now, quantity, *, with_degen=True, compact=False,
+):
+    """gcra_scan_byid_acc without the expired-hit count: (state, out)."""
+    return _without_acc(
+        gcra_scan_byid_acc, state, id_rows, words, now, quantity,
+        with_degen=with_degen, compact=compact,
+    )
+
+
+def gcra_scan_ids(
+    state, id_rows, ids, now, quantity, *, with_degen=True, compact=False,
+):
+    """gcra_scan_ids_acc without the expired-hit count: (state, out)."""
+    return _without_acc(
+        gcra_scan_ids_acc, state, id_rows, ids, now, quantity,
+        with_degen=with_degen, compact=compact,
+    )
+
+
+def gcra_scan_ids20(
+    state, id_rows, packed, now, quantity, *, with_degen=True,
+    compact=False,
+):
+    """gcra_scan_ids20_acc without the expired-hit count: (state, out)."""
+    return _without_acc(
+        gcra_scan_ids20_acc, state, id_rows, packed, now, quantity,
+        with_degen=with_degen, compact=compact,
+    )
 
 
 def _empty_rows(state):

@@ -4,7 +4,7 @@ The reference hashes string keys straight into its HashMap on every request
 (`periodic.rs:151-209`); here the hot path is on the card, so the host's only
 job is resolving string keys to dense slot indices.  This module is the
 pure-Python keymap of `throttlecrab_tpu/tpu/keymap.py`; the native C++
-keymap is not part of this package yet.
+keymap is `throttlecrab_tpu_torch/native.py`.
 
 Slot lifecycle: allocated on first sight of a key, recycled through a free
 list when a cleanup sweep reports the slot expired (limiter.sweep).

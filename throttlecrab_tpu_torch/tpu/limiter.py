@@ -4,7 +4,9 @@ The counterpart of `throttlecrab_tpu/tpu/limiter.py`: requests arrive as
 whole batches, string keys are resolved to table slots on the host, GCRA
 parameters are derived with the reference's exact f64 pipeline, and every
 decision window runs through one launch of the decision-window kernel
-against the bucket table on the card.
+against the bucket table on the card.  `keymap="native"` resolves keys
+in C++ (`native.py`) and adds `dispatch_wire_window`, the fully native
+batch preparation of wire frames.
 
 Exactness notes vs the scalar contract:
 
@@ -28,11 +30,21 @@ import numpy as np
 from ..core.errors import InternalError, InvalidRateLimit, NegativeQuantity
 from ..core.rate_limiter import RateLimitResult, normalize_now_ns
 from .kernel import (
+    PACK_WIDTH,
     cur_wire_safe,
     finish_cur,
     finish_w32,
     fits_w32_wire,
+    fits_w32_wire_agg,
     pack_requests,
+)
+from ..native import (
+    PREP_BIGTOL,
+    PREP_CONFLICT,
+    PREP_DEGEN,
+    PREP_FULL,
+    NativeKeyMap,
+    native_available,
 )
 from .keymap import PyKeyMap
 from .sat import I64_MAX
@@ -169,6 +181,14 @@ def param_rounds(rounds, slots, positions, emission, tolerance, quantity):
             st[1] += 1
             rounds[i] = st[1]
     return rounds
+
+
+def limiter_uses_bytes_keys(limiter) -> bool:
+    """Whether a limiter's host keymap stores bytes keys (native backend)
+    or str keys (python backend).  Transports that receive raw bytes must
+    match the identity str-keyed transports use, or one client key
+    becomes two buckets."""
+    return bool(getattr(limiter.keymap, "BYTES_KEYS", False))
 
 
 def sequential_fallback(batches, decide_fn, error_result_fn, wire,
@@ -316,6 +336,52 @@ class _PendingLaunch:
         return results
 
 
+class _PendingWireLaunch:
+    """In-flight window from dispatch_wire_window; `.fetch()` copies the
+    compact device output to the host and distributes it into per-frame
+    WireBatchResults.  The output is the 4-plane compact i32[K, 4, B],
+    the w32 words, or the "cur" words i64[K, B] completed to the exact
+    wire values by the native keymap's tk_finish (`finish`)."""
+
+    def __init__(
+        self, out_dev, prepared, finish=None, now_ns=0, w32=False
+    ) -> None:
+        self._out_dev = out_dev
+        self._prepared = prepared
+        self._finish = finish
+        self._now_ns = now_ns
+        self._w32 = w32
+
+    def fetch(self) -> list:
+        out = self._out_dev.cpu().numpy()
+        results = []
+        for j, (packed, status, params) in enumerate(self._prepared):
+            n = len(status)
+            valid = (packed[:, 2] & 2) != 0
+            cur_plane = None
+            if self._w32:
+                o = np.stack(finish_w32(out[j, :n]))
+            elif self._finish is not None:
+                o = self._finish(packed, out[j, :n], self._now_ns).T
+                # cur*2 + allowed: the arithmetic shift recovers the
+                # exact observed TAT.
+                cur_plane = out[j, :n] >> 1
+            else:
+                o = out[j, :, :n]
+            results.append(
+                WireBatchResult(
+                    allowed=(o[0] != 0) & valid,
+                    limit=np.where(valid, params[:, 0], 0),
+                    remaining=np.where(valid, o[1], 0),
+                    reset_after_s=np.where(valid, o[2], 0),
+                    retry_after_s=np.where(valid, o[3], 0),
+                    status=status,
+                    cur_ns=cur_plane,
+                )
+            )
+        return results
+
+
 class TorchRateLimiter(ScalarCompatMixin):
     """Batched GCRA over a bucket table on the card + a host keymap."""
 
@@ -332,19 +398,18 @@ class TorchRateLimiter(ScalarCompatMixin):
         insight: bool = False,
     ) -> None:
         """`device` defaults to "cuda" (asking for it without a card
-        raises); "cpu" runs the plain version.  `keymap` is "python",
-        "auto" (the same here) or a ready keymap object exposing
-        resolve/free_slots/grow/capacity; "native" is not ported yet."""
+        raises); "cpu" runs the plain version.  `keymap` selects the host
+        key->slot backend: "python" (hashable keys of any kind),
+        "native" (the C++ batch resolver, bytes keys; str keys are
+        encoded), "auto" (native when it builds, else python), or a ready
+        keymap object exposing resolve/free_slots/grow/capacity."""
         self.table = BucketTable(capacity, device=device, insight=insight)
         if keymap == "auto":
-            keymap = "python"
+            keymap = "native" if native_available() else "python"
         if keymap == "python":
             self.keymap = PyKeyMap(capacity)
         elif keymap == "native":
-            raise NotImplementedError(
-                "the native C++ keymap (and dispatch_wire_window, which "
-                "needs it) is not ported yet; see ROADMAP.md queue A"
-            )
+            self.keymap = NativeKeyMap(capacity)
         else:
             self.keymap = keymap
         self.auto_grow = auto_grow
@@ -496,6 +561,8 @@ class TorchRateLimiter(ScalarCompatMixin):
                 "normalize_now_ns per request for pre-epoch clocks"
             )
         n = len(keys)
+        if getattr(self.keymap, "BYTES_KEYS", False):
+            keys = [k.encode() if isinstance(k, str) else k for k in keys]
         max_burst, quantity, emission, tolerance, status, valid = (
             prepare_batch(n, max_burst, count_per_period, period, quantity)
         )
@@ -643,14 +710,105 @@ class TorchRateLimiter(ScalarCompatMixin):
             out_dev, prepared, valid_s, wire, cur=use_cur, w32=use_w32
         )
 
-    def dispatch_wire_window(self, frames, now_ns: int,
-                             collect_cur: bool = False):
-        """The native wire-frame dispatch needs the C++ keymap's batch
-        preparation, which is not ported yet."""
-        raise NotImplementedError(
-            "dispatch_wire_window needs the native keymap, which is not "
-            "ported yet; see ROADMAP.md queue A"
+    def dispatch_wire_window(
+        self, frames, now_ns: int, collect_cur: bool = False
+    ):
+        """The fully native serving dispatch: each frame is (key_blob,
+        offsets i64[n+1], params i64[n, 4]) as a wire layer hands batches
+        over.  One C++ call per frame validates, derives the GCRA params
+        (exact f64 pipeline), resolves slots and writes the packed rows
+        (native/keymap.cpp tk_prepare_batch); Python only pads to powers
+        of two and launches the window through check_many_packed.
+        Returns a handle with .fetch() -> [WireBatchResult], or None when
+        the window needs the exact Python path (a keymap without
+        prepare_batch, a mid-batch param change, or a full table;
+        preparation is idempotent, so the fallback simply re-resolves)."""
+        km = self.keymap
+        if not hasattr(km, "prepare_batch"):
+            return None
+        if now_ns < 0:
+            # Part of the with_degen=False certificate: the nonneg
+            # saturating forms require now >= 0.
+            raise ValueError(
+                "batch now_ns must be non-negative; apply "
+                "normalize_now_ns per request for pre-epoch clocks"
+            )
+        prepared = []
+        width = self.MIN_PAD
+        any_degen = False
+        any_bigtol = False
+        # Per-window w32-certificate aggregates, folded across frames (the
+        # C++ prep computes them per frame in the same pass).
+        agg = np.empty(4, np.int64)
+        max_tol = 0
+        min_tol = 1 << 62
+        max_inc = 0
+        rem_bound = 0
+        for blob, offsets, params in frames:
+            packed, status, flags = km.prepare_batch(
+                blob, offsets, params, agg=agg
+            )
+            if flags & (PREP_CONFLICT | PREP_FULL):
+                return None
+            any_degen = any_degen or bool(flags & PREP_DEGEN)
+            any_bigtol = any_bigtol or bool(flags & PREP_BIGTOL)
+            max_tol = max(max_tol, int(agg[0]))
+            # agg[0] > 0 iff the frame had a valid lane with tol > 0
+            # (tol <= 0 lanes set PREP_DEGEN, which refuses w32, so the
+            # 0 sentinel of the min never leaks in).
+            if int(agg[0]) > 0:
+                min_tol = min(min_tol, int(agg[1]))
+            max_inc = max(max_inc, int(agg[2]))
+            rem_bound = max(rem_bound, int(agg[3]))
+            prepared.append((packed, status, params))
+            n = len(status)
+            width = max(width, 1 << max(n - 1, 0).bit_length())
+
+        # PREP_BIGTOL is set only for valid lanes, and degenerate lanes
+        # obey the same write bound, so bigtol and now alone decide
+        # whether the stored TATs stay cur-safe.
+        params_cur_safe = not any_bigtol and now_ns < (1 << 61)
+        K = len(prepared)
+        K_pad = 1 << max(K - 1, 0).bit_length()
+        stack = np.zeros((K_pad, width, PACK_WIDTH), np.int32)
+        for j, (packed, _, _) in enumerate(prepared):
+            stack[j, : len(packed)] = packed
+
+        # Tier ladder: w32 (4 B/request, certified on the C++ prep's
+        # aggregates), else cur (8 B, host-finished by tk_finish), else
+        # the 4-plane compact output.  collect_cur wants the observed-TAT
+        # plane, which only the cur tier carries.
+        use_w32 = (
+            not any_degen
+            and not any_bigtol
+            and not collect_cur
+            and fits_w32_wire_agg(
+                max_tol, min_tol, max_inc, rem_bound, now_ns,
+                self.table.tol_hwm, self.table.now_hwm,
+            )
         )
+        use_cur = (
+            not use_w32
+            and not any_degen
+            and params_cur_safe
+            and self.table.cur_safe
+            and hasattr(km, "finish")
+        )
+        out_dev = self.table.check_many_packed(
+            stack,
+            np.full(K_pad, now_ns, np.int64),
+            with_degen=any_degen,
+            compact="w32" if use_w32 else ("cur" if use_cur else True),
+            params_cur_safe=params_cur_safe,
+            max_tolerance=max_tol,
+        )
+        if use_w32:
+            return _PendingWireLaunch(out_dev, prepared, w32=True)
+        if use_cur:
+            return _PendingWireLaunch(
+                out_dev, prepared, finish=km.finish, now_ns=now_ns
+            )
+        return _PendingWireLaunch(out_dev, prepared)
 
     def sweep(self, now_ns: int) -> int:
         """Run a cleanup sweep; returns the number of slots freed."""

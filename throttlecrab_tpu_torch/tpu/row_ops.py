@@ -1,0 +1,156 @@
+"""Bucket-table row gather and scatter as hand-written CUDA kernels (sm_90a).
+
+The port of `throttlecrab_tpu/tpu/pallas_ops.py` (`row_gather`,
+`row_scatter`): the state-row movement of the composed decide
+(`kernel._gcra_body` / `_finish`) on the by-id launch path.  The source
+is `csrc/row_ops.cu`, built with nvcc at first use (tpu/nvcc.py) and
+bound with ctypes.
+
+Rows are i32[W] with W = 4, or 6 for the insight layout.  Each wrapper
+takes the plain version (`row_gather_plain` / `row_scatter_plain`:
+`index_select` / `index_copy_`) only for tensors that lie on the CPU;
+for a CUDA tensor it launches the kernel or raises.  `GATHER_LAUNCHES`
+and `SCATTER_LAUNCHES` count kernel launches.  Both kernels are queued
+on the current stream without synchronising, so a sub-batch's scatter
+stays ahead of the next sub-batch's gather.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from types import SimpleNamespace
+
+import torch
+
+from . import nvcc
+
+#: Kernel launches through tc_row_gather / tc_row_scatter since import.
+GATHER_LAUNCHES = 0
+SCATTER_LAUNCHES = 0
+
+MAX_BATCH = 1 << 16  # the table's scratch tail bounds a sub-batch
+WIDTHS = (4, 6)
+
+LIB_STEM = "libtc_row_ops"
+SOURCES = ("row_ops.cu",)
+
+_lib = None
+
+
+def build():
+    """Compile the kernel library unless this source revision is built;
+    returns its path (see nvcc.build)."""
+    return nvcc.build(LIB_STEM, SOURCES)
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        lib = nvcc.load(LIB_STEM, SOURCES)
+        p = ctypes.c_void_p
+        for fn in (lib.tc_row_gather, lib.tc_row_scatter):
+            fn.argtypes = [
+                p, ctypes.c_longlong, ctypes.c_int, p, ctypes.c_int, p, p,
+            ]
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+# ---- the plain version ---------------------------------------------------- #
+
+
+def row_gather_plain(table, idx):
+    """rows[i] = table[idx[i]]."""
+    return table.index_select(0, idx)
+
+
+def row_scatter_plain(table, idx, rows):
+    """table[idx[i]] = rows[i] in place; returns `table`."""
+    return table.index_copy_(0, idx.to(torch.int64), rows)
+
+
+#: Plain row movement for `kernel._gcra_body`'s `rowops` argument (the
+#: kernels' route passes this module itself).
+PLAIN = SimpleNamespace(
+    row_gather=row_gather_plain, row_scatter=row_scatter_plain
+)
+
+
+# ---- the wrappers --------------------------------------------------------- #
+
+
+def _check(table, idx, rows=None):
+    """Raise on what the kernels do not take; returns (N, W, B)."""
+    for name, t in (("table", table), ("idx", idx), ("rows", rows)):
+        if t is None:
+            continue
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be torch.int32, got {t.dtype}")
+        if t.device != table.device:
+            raise ValueError(
+                f"{name} is on {t.device}, table on {table.device}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if table.dim() != 2 or table.shape[1] not in WIDTHS:
+        raise ValueError(
+            f"table must be i32[N, 4|6], got {tuple(table.shape)}"
+        )
+    N, W = table.shape
+    if idx.dim() != 1:
+        raise ValueError(f"idx must be i32[B], got {tuple(idx.shape)}")
+    B = idx.shape[0]
+    if not 1 <= B <= min(MAX_BATCH, N):
+        raise ValueError(f"batch {B} outside [1, min({MAX_BATCH}, N={N})]")
+    if rows is not None and tuple(rows.shape) != (B, W):
+        raise ValueError(
+            f"rows must be i32[{B}, {W}], got {tuple(rows.shape)}"
+        )
+    if table.device.type == "cuda":
+        # W=4 rows move as 16-byte vectors, W=6 rows as 8-byte ones.
+        align = 16 if W == 4 else 8
+        for name, t in (("table", table), ("rows", rows)):
+            if t is not None and t.data_ptr() % align:
+                raise ValueError(f"{name} must be {align}-byte aligned")
+    elif table.device.type != "cpu":
+        raise ValueError(
+            f"row ops run on cuda or cpu tensors, got {table.device}"
+        )
+    return N, W, B
+
+
+def row_gather(table, idx):
+    """rows = table[idx]: `table` i32[N, W] (W 4 or 6), `idx` i32[B] with
+    every index in [0, N); returns i32[B, W] on the table's device."""
+    global GATHER_LAUNCHES
+    N, W, B = _check(table, idx)
+    if table.device.type == "cpu":
+        return row_gather_plain(table, idx)
+    out = torch.empty((B, W), dtype=torch.int32, device=table.device)
+    rc = _load().tc_row_gather(
+        table.data_ptr(), N, W, idx.data_ptr(), B, out.data_ptr(),
+        torch.cuda.current_stream(table.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"tc_row_gather failed: CUDA error {rc}")
+    GATHER_LAUNCHES += 1
+    return out
+
+
+def row_scatter(table, idx, rows):
+    """table[idx] = rows in place: `idx` i32[B] unique (the caller's
+    guarantee, as for the TPU kernel), in [0, N); `rows` i32[B, W].
+    Returns `table`."""
+    global SCATTER_LAUNCHES
+    N, W, B = _check(table, idx, rows)
+    if table.device.type == "cpu":
+        return row_scatter_plain(table, idx, rows)
+    rc = _load().tc_row_scatter(
+        table.data_ptr(), N, W, idx.data_ptr(), B, rows.data_ptr(),
+        torch.cuda.current_stream(table.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"tc_row_scatter failed: CUDA error {rc}")
+    SCATTER_LAUNCHES += 1
+    return table

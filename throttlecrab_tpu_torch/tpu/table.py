@@ -6,10 +6,14 @@ sees integer slots.  Each slot's (TAT, expiry) pair is one i32[4] row
 (i32[6] with the insight deny counter), plus a scratch tail of
 `SCRATCH` rows that absorbs suppressed writes at unique indices.
 
-Every decision window goes through `fused.gcra_scan_packed_fused_*`:
-on `cuda` that is the hand-written kernel, on `cpu` the plain version.
-The state is updated in place; outputs are returned as device tensors so
-the caller decides when to fetch.
+Every decision window of the serving path goes through
+`fused.gcra_scan_packed_fused_*`: on `cuda` that is the hand-written
+kernel, on `cpu` the plain version.  The by-id launch path
+(`upload_id_rows`, `check_many_byid` / `_ids` / `_ids20`) runs the
+composed decide of `kernel.gcra_scan_*_acc`, whose state rows move
+through the `row_ops` kernels on `cuda`.  The state is updated in place;
+outputs are returned as device tensors so the caller decides when to
+fetch.
 """
 
 from __future__ import annotations
@@ -20,7 +24,12 @@ import torch
 from . import fused
 from .kernel import (
     EMPTY_EXPIRY,
+    IDS20_SENTINEL,
     INS_WIDTH,
+    gcra_scan_byid_acc,
+    gcra_scan_ids20_acc,
+    gcra_scan_ids_acc,
+    pack_id_rows,
     pack_requests,
     pack_state,
     sweep_expired,
@@ -63,6 +72,40 @@ def _host_max_tol(valid, tolerance):
         return None
     v = np.asarray(valid, bool)
     return int(np.where(v, np.asarray(tolerance, np.int64), 0).max(initial=0))
+
+
+class StaleIdRowsError(RuntimeError):
+    """Device-resident by-id parameter rows refer to slots the keymap has
+    since remapped (a sweep freed them, the table grew, or new ids were
+    interned); re-run upload_id_rows before the next by-id launch."""
+
+
+class ResidentIdRows:
+    """Device-resident by-id parameter rows plus a staleness guard: pins
+    the keymap's `mutations` counter at upload, and a launch after any
+    later sweep, growth or intern raises StaleIdRowsError instead of
+    deciding against stale or uncovered slots."""
+
+    def __init__(self, rows: torch.Tensor, keymap) -> None:
+        self.rows = rows
+        self._keymap = keymap
+        self._stamp = getattr(keymap, "mutations", 0)
+
+    def rows_checked(self) -> torch.Tensor:
+        current = getattr(self._keymap, "mutations", 0)
+        if current != self._stamp:
+            raise StaleIdRowsError(
+                "by-id parameter rows are stale: the keymap remapped "
+                f"slots since upload (mutations {self._stamp} -> "
+                f"{current}); re-run upload_id_rows"
+            )
+        return self.rows
+
+
+def _is_u16(a) -> bool:
+    if isinstance(a, torch.Tensor):
+        return a.dtype == torch.uint16
+    return np.asarray(a).dtype == np.uint16
 
 
 class BucketTable:
@@ -237,6 +280,111 @@ class BucketTable:
                 with_degen=with_degen, compact=compact,
             )
         return out
+
+    # ---- the by-id launch path ---------------------------------------- #
+
+    def upload_id_rows(self, slots, emission, tolerance, keymap=None):
+        """Build and upload the by-id parameter rows: i32[n_ids,
+        IDROW_WIDTH] = [slot, em_lo/hi, tol_lo/hi, pad], resident on the
+        table's device launch after launch.
+
+        A sweep or growth remaps slots and silently invalidates the
+        rows; pass the `keymap` the slots came from to get a
+        ResidentIdRows guard that raises StaleIdRowsError instead (re-
+        upload to refresh).  Without `keymap` the raw tensor is returned
+        and freshness is the caller's contract."""
+        rows = torch.from_numpy(
+            pack_id_rows(slots, emission, tolerance)
+        ).to(self.device)
+        # The rows' tolerances bound every later by-id write, so noting
+        # them here covers all by-id launches (which report none).
+        self.note_max_tolerance(
+            None
+            if isinstance(tolerance, torch.Tensor)
+            else int(np.max(np.asarray(tolerance, np.int64), initial=0))
+        )
+        if keymap is None:
+            return rows
+        return ResidentIdRows(rows, keymap)
+
+    def _byid_launch(self, scan_acc, id_rows, stream, dtype, batch, now_ns,
+                     quantity, with_degen, compact, params_cur_safe):
+        if isinstance(id_rows, ResidentIdRows):
+            id_rows = id_rows.rows_checked()
+        if batch > self.SCRATCH:
+            raise ValueError("batch exceeds scratch region")
+        track_cur_safety(self, compact, params_cur_safe)
+        self.note_launch_now(_host_max_now(now_ns))
+        self.state, self.exp_acc, out = scan_acc(
+            self.state,
+            self.exp_acc,
+            id_rows,
+            torch.as_tensor(stream, dtype=dtype).to(self.device),
+            torch.as_tensor(now_ns, dtype=torch.int64).to(self.device),
+            int(quantity),
+            with_degen=with_degen,
+            compact=compact,
+        )
+        return out
+
+    def check_many_byid(
+        self, id_rows, words, now_ns, quantity: int = 1,
+        with_degen: bool = True, compact=False,
+        params_cur_safe: bool = False,
+    ) -> torch.Tensor:
+        """K stacked sub-batches of 8-byte request words (i64[K, B],
+        tk_assemble_ids layout) against resident `id_rows` (a tensor, or
+        a ResidentIdRows guard, which is freshness-checked).  `quantity`
+        is launch-uniform.  Returns the device output per `compact` (see
+        check_many_packed) without fetching."""
+        return self._byid_launch(
+            gcra_scan_byid_acc, id_rows, words, torch.int64, words.shape[1],
+            now_ns, quantity, with_degen, compact, params_cur_safe,
+        )
+
+    def check_many_ids(
+        self, id_rows, ids, now_ns, quantity: int = 1,
+        with_degen: bool = True, compact=False,
+        params_cur_safe: bool = False,
+    ) -> torch.Tensor:
+        """K stacked sub-batches of raw key ids (i32[K, B], negative =
+        padding) against resident `id_rows`: 4 bytes per request, the
+        duplicate-segment structure derived on the device.  Otherwise as
+        check_many_byid."""
+        return self._byid_launch(
+            gcra_scan_ids_acc, id_rows, ids, torch.int32, ids.shape[1],
+            now_ns, quantity, with_degen, compact, params_cur_safe,
+        )
+
+    def check_many_ids20(
+        self, id_rows, packed, now_ns, quantity: int = 1,
+        with_degen: bool = True, compact=False,
+        params_cur_safe: bool = False,
+    ) -> torch.Tensor:
+        """K stacked sub-batches of 20-bit packed key ids (u16[K, B +
+        B//4], kernel.pack_ids20): 2.5 bytes per request.  The resident
+        rows must stay below the padding sentinel, so padding can never
+        alias a real key."""
+        if isinstance(id_rows, ResidentIdRows):
+            id_rows = id_rows.rows_checked()
+        if id_rows.shape[0] > IDS20_SENTINEL:
+            raise ValueError(
+                "20-bit id stream needs n_ids <= 2^20 - 1 (the padding "
+                f"sentinel); table has {id_rows.shape[0]} id rows"
+            )
+        # Loudly reject a sibling API's buffer: raw i32 ids would be
+        # truncated into in-range garbage decisions.
+        if packed.shape[1] % 5 or not _is_u16(packed):
+            raise ValueError(
+                "packed must be the u16[K, B + B//4] stream from "
+                f"kernel.pack_ids20 (got {packed.dtype}"
+                f"[..., {packed.shape[1]}])"
+            )
+        return self._byid_launch(
+            gcra_scan_ids20_acc, id_rows, packed, torch.uint16,
+            packed.shape[1] * 4 // 5, now_ns, quantity, with_degen, compact,
+            params_cur_safe,
+        )
 
     def sweep(self, now_ns: int) -> np.ndarray:
         """Vacate expired slots (a vacated slot's deny count dies with
