@@ -10,13 +10,15 @@ exits nonzero without its last line:
    the kernel libraries from csrc/ (one nvcc per source, started
    together, timed), with ptxas's registers/stack/spills per kernel;
 2. kernel vs plain: the decision-window kernel (tpu/fused.py) against its
-   plain torch version (tpu/kernel.py) on the card, at the serving shape
-   (N = 2^20 + 2^16 rows, K = 16 sub-batches of B = 4096) on hostile
-   windows — duplicates, degenerate lanes, invalid lanes, edge-valued
-   tolerances — over two consecutive windows, for all five output tiers
-   x row widths 4 and 6.  Tolerance: exact equality (integer math) on
-   valid-lane outputs, real-slot state, expired-hit counts and insight
-   totals;
+   plain torch version (tpu/kernel.py) on the card, at the serving N
+   (2^20 + 2^16 rows) for all 12 kernel instantiations (row widths 4
+   and 6 x six output tiers): at K = 16 sub-batches of B = 4096 on two
+   consecutive hostile windows — duplicates, degenerate lanes, invalid
+   lanes, edge-valued tolerances — then on cross-block windows at B =
+   4096, 1, 4097 and 65536 (one slot over every lane of every sub-batch;
+   one slot at lanes 0 and B-1 of every sub-batch).  Tolerance: exact
+   equality (integer math) on valid-lane outputs, real-slot state,
+   expired-hit counts and insight totals;
 3. serving path at full size: TorchRateLimiter(capacity=2^20) on cuda
    under BASELINE config 3 traffic (1M keys, Zipf-1.1, batch 4096,
    per-key heterogeneous params) through dispatch_many(wire=True), K = 16
@@ -45,9 +47,12 @@ exits nonzero without its last line:
    have moved;
 8. times, beside the card's name and power limit: the decision-window
    kernel's and its plain version's time per window at K=16, B=4096,
-   W=4 and W=6 in the w32 tier, and each row kernel's, its plain
-   version's and the library call's time per launch at B=4096 (CUDA
-   events); phases 3, 6 and 7's decisions/s come from the host clock.
+   W=4 and W=6 in the w32 tier (CUDA events, the profiler's device time
+   and its kernel records per call, which must all be the window kernel
+   and at most one per call, and the wrapper's host time per call), and
+   each row kernel's, its plain version's and the library call's time
+   per launch at B=4096 (CUDA events, profiler); phases 3, 6 and 7's
+   decisions/s come from the host clock.
 
 The line before the last is the {"kernels": [...]} record; the last line
 is {"ok": true, "device": {...}}.
@@ -73,37 +78,54 @@ CAPACITY = 1 << 20
 BYID_K = 64  # bench.py's by-id depth off the TPU
 BYID_CAPACITY = 1 << 21
 N_KEYS = 1_000_000
-TIERS = [(False, True), (True, True), (True, False), ("cur", False),
-         ("w32", False)]
+TIERS = [(False, True), (True, True), (False, False), (True, False),
+         ("cur", False), ("w32", False)]
+CROSS_BLOCK_B = (4096, 1, 4097, 65536)  # batch widths of the cross-block windows
+REGISTERS_PER_SM = 65536
+FUSED_THREADS = 256  # threads per block of the decision-window kernel
 
 
-def ptxas_summary(log: str) -> list:
-    """One line per kernel instantiation from nvcc's -Xptxas -v report:
-    registers, stack frame and spills."""
+def ptxas_summary(log: str) -> dict:
+    """{kernel instantiation: (registers, stack bytes, spill store bytes,
+    spill load bytes)} from nvcc's -Xptxas -v report."""
     import re
 
-    lines, name = [], None
+    kernels, name, frame = {}, None, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             mangled = m.group(1)
-            d = re.search(r"decide_kernelILi(\d)ELb(\d)ELi(\d)E", mangled)
+            d = re.search(r"window_kernelILi(\d)ELb(\d)ELi(\d)E", mangled)
             s = re.search(r"(scatter|gather)_kernelILi(\d)E", mangled)
             tier = ("False", "True", "cur", "w32")
             name = (
-                f"decide W={d.group(1)} with_degen={d.group(2) == '1'} "
+                f"window W={d.group(1)} with_degen={d.group(2) == '1'} "
                 f"tier={tier[int(d.group(3))]}" if d
                 else f"{s.group(1)} W={s.group(2)}" if s else mangled
             )
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
-                      line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m and name:
-            frame = f"stack {m.group(1)} B, spill stores {m.group(2)} B"
+            frame = tuple(int(x) for x in m.groups())
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            lines.append(f"{name}: {m.group(1)} registers, {frame}")
+            kernels[name] = (int(m.group(1)),) + frame
             name = None
-    return sorted(lines)
+    return dict(sorted(kernels.items()))
+
+
+def check_ptxas(name, kernels, threads):
+    """Print each instantiation's report; fail on a stack frame, a spill,
+    or more registers than `threads` threads can hold on one SM."""
+    bad = []
+    for kname, (regs, stack, st, ld) in kernels.items():
+        print(f"  ptxas {name}: {kname}: {regs} registers, stack {stack} B, "
+              f"spill stores {st} B, spill loads {ld} B")
+        if stack or st or ld or regs * threads > REGISTERS_PER_SM:
+            bad.append(kname)
+    if bad:
+        raise AssertionError(f"{name}: stack, spills or more registers "
+                             f"than {threads} threads fit in {bad}")
 
 
 def card_line() -> str:
@@ -139,20 +161,22 @@ def segments(slots, valid):
     return rank, is_last, first
 
 
-def hostile_window(rng, k, b, cap, degen):
+def hostile_window(rng, k, b, cap, degen, slots=None):
     """(packed i32[k, b, 9], now i64[k], valid bool[k, b]): half the lanes
-    on a hot set of 512 slots (long duplicate segments), degenerate params
-    when `degen`, 10 % invalid lanes, edge-valued tolerances."""
+    on a hot set of 512 slots (long duplicate segments), or `slots`
+    i32[k, b] when given; degenerate params when `degen`, 10 % invalid
+    lanes, edge-valued tolerances."""
     import numpy as np
 
     from throttlecrab_tpu_torch.tpu.kernel import pack_requests
 
-    hot = rng.integers(0, cap, 512)
-    slots = np.where(
-        rng.random((k, b)) < 0.5,
-        hot[rng.integers(0, 512, (k, b))],
-        rng.integers(0, cap, (k, b)),
-    ).astype(np.int32)
+    if slots is None:
+        hot = rng.integers(0, cap, 512)
+        slots = np.where(
+            rng.random((k, b)) < 0.5,
+            hot[rng.integers(0, 512, (k, b))],
+            rng.integers(0, cap, (k, b)),
+        ).astype(np.int32)
     if degen:
         em = rng.choice([0, 1, 1000, NS, 7 * NS, 1 << 62], (k, b))
         tol = rng.choice(
@@ -173,6 +197,20 @@ def hostile_window(rng, k, b, cap, degen):
         em[j], tol[j], q[j] = em[j][first], tol[j][first], q[j][first]
     now = T0 + np.sort(rng.integers(0, 100 * NS, k)).astype(np.int64)
     return pack_requests(slots, rank, is_last, em, tol, q, valid), now, valid
+
+
+def cross_block_windows(rng, k, b, cap, degen):
+    """Two windows whose duplicate segments span the kernel's blocks:
+    every lane of every sub-batch on one slot, and one slot at lanes 0
+    and b-1 of every sub-batch (the other lanes elsewhere)."""
+    import numpy as np
+
+    hot = int(rng.integers(0, cap))
+    edge = rng.integers(0, cap, (k, b))
+    edge[edge == hot] = (hot + 1) % cap
+    edge[:, 0] = edge[:, -1] = hot
+    return [hostile_window(rng, k, b, cap, degen, slots=s.astype(np.int32))
+            for s in (np.full((k, b), hot), edge)]
 
 
 def hostile_state(rng, rows, cap, width, device):
@@ -230,15 +268,18 @@ def max_abs_err(a, b, mask):
     return max(abs(int(x) - int(y)) for x, y in zip(a[differ], b[differ]))
 
 
-def compare_kernel_plain(device, k, b, cap, seed=0):
-    """Phase 2; returns the largest valid-lane output difference."""
+def compare_kernel_plain(device, k, b, cap, seed=0, cross=False):
+    """Phase 2 at one (k, b): two hostile windows, or the cross-block
+    windows when `cross`; returns the largest valid-lane output
+    difference."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(seed)
     n_rows = cap + (1 << 16)
     windows = {
-        degen: [hostile_window(rng, k, b, cap, degen) for _ in range(2)]
+        degen: cross_block_windows(rng, k, b, cap, degen) if cross else
+        [hostile_window(rng, k, b, cap, degen) for _ in range(2)]
         for degen in (True, False)
     }
     worst = 0
@@ -279,7 +320,8 @@ def compare_kernel_plain(device, k, b, cap, seed=0):
                         f"{with_degen=}): max_abs_err={err}, "
                         f"state/n_exp/ins identical={same}"
                     )
-            print(f"  identical: width={width} compact={compact!r} "
+            print(f"  identical: B={b} {'cross-block ' if cross else ''}"
+                  f"width={width} compact={compact!r} "
                   f"with_degen={with_degen} n_exp={int(acc['kernel'])}")
     return worst
 
@@ -438,35 +480,48 @@ def time_windows(fn, n_warm, n_timed):
     return start.elapsed_time(end) / n_timed
 
 
-def profile_device(fn, n=1):
+def profile_device(fn, n=1, detail=False):
     """(wall ms, device ms, {kernel name: device ms}, kernels) per call of
     fn() over `n` calls, from torch.profiler's CUDA kernel records (every
-    kernel the calls launched, ctypes-launched ones included); device ms
-    is None when the profiler records no kernel on this machine."""
+    kernel the calls launched, ctypes-launched ones included), recorded
+    in the step after a warm-up step of `n` calls; device ms is None when
+    the profiler records no kernel on this machine.  With `detail`, also
+    {kernel name: records} and the number of kernel-launch API records."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(n):  # warm-up step: traced, not recorded
+            fn()
+        torch.cuda.synchronize()
+        prof.step()
         t = time.perf_counter()
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3 / n
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not kernels:
-        return wall, None, {}, 0
-    by_name = {}
+        prof.step()
+    events = prof.events()
+    # The schedule's step annotation also shows on the device timeline.
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not e.name.startswith("ProfilerStep")]
+    by_name, counts = {}, {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
-    return (
+        counts[e.name] = counts.get(e.name, 0) + 1
+    api = sum(1 for e in events if "LaunchKernel" in e.name
+              and e.device_type != DeviceType.CUDA)
+    result = (
         wall,
-        sum(by_name.values()) / n / 1e3,
+        sum(by_name.values()) / n / 1e3 if kernels else None,
         {k: v / n / 1e3 for k, v in by_name.items()},
         len(kernels) / n,
     )
+    return result + (counts, api) if detail else result
 
 
 def bound_ms(k, b, width_out_bytes):
@@ -510,41 +565,76 @@ def timing_window(device, width, rng):
     return state, packed, now
 
 
+def host_us_per_call(fn, n=200):
+    """µs of host time per fn() call, back to back, before the device is
+    waited for (the wrapper's own cost when the device keeps up)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host = (time.perf_counter() - t) / n * 1e6
+    torch.cuda.synchronize()
+    return host
+
+
 def time_kernel(device, rng, rounds=3):
-    """{width: (kernel ms, plain ms, kernel device ms, plain device ms)}
-    per w32 window: CUDA-event medians of `rounds` rounds that alternate
-    the widths, then the profiler's device time."""
+    """{width: {"ms", "plain_ms", "device_ms", "plain_device_ms",
+    "kernels_per_call", "host_us"}} per w32 window: CUDA-event medians of
+    `rounds` rounds that alternate the widths, then the profiler's device
+    time and kernel count per call, then the wrapper's host time."""
     import numpy as np
 
     from throttlecrab_tpu_torch.tpu import fused, kernel
 
     inputs = {w: timing_window(device, w, rng) for w in (4, 6)}
+    calls = {
+        w: {side: (lambda fn=fn, st=state, p=packed, n=now: fn(
+            st, p, n, with_degen=False, compact="w32"))
+            for side, fn in (("kernel", fused.fused_window),
+                             ("plain", kernel.decide_window))}
+        for w, (state, packed, now) in inputs.items()
+    }
     samples = {w: ([], []) for w in inputs}
     for _ in range(rounds):
-        for w, (state, packed, now) in inputs.items():
-            for fn, n_warm, n_timed, out in (
-                (fused.fused_window, 5, 50, samples[w][0]),
-                (kernel.decide_window, 1, 3, samples[w][1]),
-            ):
-                out.append(time_windows(
-                    lambda fn=fn, st=state, p=packed, n=now: fn(
-                        st, p, n, with_degen=False, compact="w32"),
-                    n_warm, n_timed,
-                ))
+        for w, call in calls.items():
+            samples[w][0].append(time_windows(call["kernel"], 5, 50))
+            samples[w][1].append(time_windows(call["plain"], 1, 3))
     for w, (k_ms, p_ms) in samples.items():
         print(f"  W={w} rounds: kernel {[round(x, 4) for x in k_ms]} ms, "
               f"plain {[round(x, 2) for x in p_ms]} ms")
-    device = {}
-    for w, (state, packed, now) in inputs.items():
-        device[w] = tuple(profile_device(
-            lambda fn=fn, st=state, p=packed, n=now: fn(
-                st, p, n, with_degen=False, compact="w32"), reps)[1]
-            for fn, reps in ((fused.fused_window, 20),
-                             (kernel.decide_window, 2)))
-    return {
-        w: (float(np.median(k_ms)), float(np.median(p_ms))) + device[w]
-        for w, (k_ms, p_ms) in samples.items()
-    }
+    result = {}
+    for w, call in calls.items():
+        n = 20
+        _, k_dev, _, k_count, names, api = profile_device(
+            call["kernel"], n, detail=True)
+        p_dev = profile_device(call["plain"], 2)[1]
+        print(f"  W={w} profiler: {n} fused_window calls, kernel records "
+              f"{names}, {api} kernel-launch API records")
+        # Every record must be the window kernel (no fill, no second
+        # kernel) and there may be no more than one per call.  The
+        # profiler can drop records late in a long run, so fewer than
+        # one per call is reported, not failed.
+        if k_dev is not None and (
+            len(names) != 1 or "window_kernel" not in next(iter(names))
+            or k_count > 1 or api > n
+        ):
+            raise AssertionError(f"fused_window W={w}: kernel records "
+                                 f"{names}, {api} launch records for {n} "
+                                 "calls; expected the window kernel once "
+                                 "per call")
+        result[w] = {
+            "ms": float(np.median(samples[w][0])),
+            "plain_ms": float(np.median(samples[w][1])),
+            "device_ms": k_dev,
+            "plain_device_ms": p_dev,
+            "kernels_per_call": k_count if k_dev is not None else None,
+            "launch_api_per_call": api / n,
+            "host_us": host_us_per_call(call["kernel"]),
+        }
+    return result
 
 
 def time_row_kernels(device, rng, rounds=3):
@@ -889,15 +979,23 @@ def main() -> int:
     device = torch.device("cuda")
     card = card_line()
     print(f"[1] card: {card}")
+    ptxas = {}
     for name, (lib, sec) in build_kernels().items():
         print(f"[1] built {lib.name} in {sec:.1f} s (0 when this checkout "
               "had built it already)")
-        for line in ptxas_summary(lib.with_suffix(".log").read_text()):
-            print(f"  ptxas {name}: {line}")
+        ptxas[name] = ptxas_summary(lib.with_suffix(".log").read_text())
+        check_ptxas(name, ptxas[name], FUSED_THREADS)
+    if len(ptxas["fused_window"]) != 12:
+        raise AssertionError(f"{len(ptxas['fused_window'])} decision-window "
+                             "instantiations built, expected 12")
 
     print(f"[2] kernel vs plain on the card: K={K} B={B} "
-          f"N={CAPACITY + (1 << 16)}")
+          f"N={CAPACITY + (1 << 16)}, then cross-block windows at "
+          f"B={CROSS_BLOCK_B}")
     worst = compare_kernel_plain(device, K, B, CAPACITY)
+    for seed, b in enumerate(CROSS_BLOCK_B, 1):
+        worst = max(worst, compare_kernel_plain(device, K, b, CAPACITY,
+                                                seed=seed, cross=True))
 
     print("[3] serving path: TorchRateLimiter(capacity=2^20) on cuda, "
           "BASELINE config 3 traffic")
@@ -1005,16 +1103,21 @@ def main() -> int:
     _frames, now = frame_windows[1]
     wire_profile = summarize_profile(*profile_device(
         lambda: wire_lim.dispatch_wire_window(_frames, now + NS).fetch()))
-    print(f"  one more window under the profiler: {wire_profile}")
+    print(f"  one more window under the profiler: {wire_profile} "
+          f"({wire_profile.get('kernels')} kernels, idle share "
+          f"{wire_profile.get('idle_share')})")
     del wire_lim, wire_ref
 
     print(f"[8] times ({card})")
     times = time_kernel(device, np.random.default_rng(5))
-    for width, (k_ms, p_ms, k_dev, p_dev) in times.items():
-        print(f"  fused_window W={width}: kernel {k_ms:.4f} ms, plain "
-              f"{p_ms:.4f} ms, bound {bound_ms(K, B, 4):.4f} ms per K={K} "
-              f"w32 window (medians); device time (profiler) kernel "
-              f"{k_dev} ms, plain {p_dev} ms")
+    for width, t in times.items():
+        print(f"  fused_window W={width}: kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, bound {bound_ms(K, B, 4):.5f} ms "
+              f"per K={K} w32 window (CUDA-event medians); device time "
+              f"(profiler) kernel {t['device_ms']} ms in "
+              f"{t['kernels_per_call']} kernel per call, plain "
+              f"{t['plain_device_ms']} ms; wrapper host time "
+              f"{t['host_us']:.1f} µs per call")
     row_times = time_row_kernels(device, np.random.default_rng(8))
     for (name, w), t in row_times.items():
         print(f"  {name} W={w}: kernel {t['kernel']:.5f} ms, plain "
@@ -1032,17 +1135,24 @@ def main() -> int:
         "replaces": "throttlecrab_tpu/tpu/pallas_fused.py:656",
         "launches": launches,
         "max_abs_err": worst,
-        "ms": times[4][0],
-        "plain_ms": times[4][1],
+        "ms": times[4]["ms"],
+        "plain_ms": times[4]["plain_ms"],
         "bound_ms": bound_ms(K, B, 4),
         "bound_by": "bytes",
         "library_ms": None,
         "identical": worst == 0,
         "shape": f"K={K} B={B} W=4 w32",
-        "w6_ms": times[6][0],
-        "w6_plain_ms": times[6][1],
-        "device_ms": times[4][2],
-        "plain_device_ms": times[4][3],
+        "w6_ms": times[6]["ms"],
+        "w6_plain_ms": times[6]["plain_ms"],
+        "device_ms": times[4]["device_ms"],
+        "plain_device_ms": times[4]["plain_device_ms"],
+        "w6_device_ms": times[6]["device_ms"],
+        "kernels_per_call": times[4]["kernels_per_call"],
+        "w6_kernels_per_call": times[6]["kernels_per_call"],
+        "launch_api_per_call": times[4]["launch_api_per_call"],
+        "host_us_per_call": times[4]["host_us"],
+        "ptxas": {k: v[0] for k, v in ptxas["fused_window"].items()},
+        "cross_block_b": list(CROSS_BLOCK_B),
         "main_path_decisions_per_s": rate,
         "wire_window_launches": wire_launches,
         "wire_window_decisions_per_s": wire_rate,

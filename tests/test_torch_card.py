@@ -17,7 +17,14 @@ import pytest
 import torch
 
 from throttlecrab_tpu_torch.tpu import fused, kernel, row_ops
-from torch_windows import NS, TIERS, fresh_state, out_mask, rand_window
+from torch_windows import (
+    ALL_TIERS,
+    NS,
+    cross_block_windows,
+    fresh_state,
+    out_mask,
+    rand_window,
+)
 
 
 @pytest.fixture
@@ -28,24 +35,39 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# (K, B): batch widths from one lane to the largest the table's scratch
+# tail takes — one partial block (255), a full cluster (4096), one lane
+# past it (4097: two rounds per thread), 65,536 (16 rounds).
+_SHAPES = [(4, 256)] + [(K, B) for B in (1, 255, 4096, 4097, 65536)
+                        for K in (1, 16)]
+
+
 @pytest.mark.cuda
-def test_kernel_matches_plain_version_on_card(cuda_device):
-    """Every tier and width, two consecutive hostile windows."""
+@pytest.mark.parametrize("K,B", _SHAPES)
+def test_kernel_matches_plain_version_on_card(cuda_device, K, B):
+    """Every tier and width: two hostile windows, then the cross-block
+    windows (one slot over every lane of every sub-batch; one slot at
+    lanes 0 and B-1 of every sub-batch), state carried across all four.
+    Each window is exactly one launch."""
+    cap = max(512, 2 * B)
     for width in (4, 6):
-        for compact, with_degen in TIERS:
-            rng = np.random.default_rng(width + len(str(compact)))
-            K, B, cap = 4, 256, 512
+        for t, (compact, with_degen) in enumerate(ALL_TIERS):
+            rng = np.random.default_rng(100 * width + 10 * t + K)
             st_k = torch.from_numpy(fresh_state(cap + B, width)).to(
                 cuda_device
             )
             st_p = st_k.clone()
-            for _ in range(2):
-                packed, now, valid = rand_window(rng, K, B, cap, with_degen)
+            windows = [rand_window(rng, K, B, cap, with_degen)
+                       for _ in range(2)]
+            windows += cross_block_windows(rng, K, B, cap, with_degen)
+            for packed, now, valid in windows:
                 p = torch.from_numpy(packed).to(cuda_device)
                 n = torch.from_numpy(now).to(cuda_device)
+                before = fused.LAUNCHES
                 out_k, ne_k = fused.fused_window(
                     st_k, p, n, with_degen=with_degen, compact=compact
                 )
+                assert fused.LAUNCHES == before + 1
                 out_p, ne_p = kernel.decide_window(
                     st_p, p, n, with_degen=with_degen, compact=compact
                 )

@@ -20,6 +20,8 @@ TIERS = [
     (False, True), (True, True), (True, False), ("cur", False),
     ("w32", False),
 ]
+# All six, one per kernel instantiation at each row width.
+ALL_TIERS = TIERS + [(False, False)]
 
 
 def fresh_state(rows, width):
@@ -29,12 +31,33 @@ def fresh_state(rows, width):
     return st
 
 
-def rand_window(rng, K, B, cap, degen):
+def segments(slots, valid):
+    """Duplicate-key structure of one sub-batch: (rank, is_last, first)
+    per lane, `first` the lane opening its segment.  Invalid lanes are
+    segments of their own (rank 0, is_last)."""
+    n = len(slots)
+    lane = np.arange(n)
+    key = np.where(valid, slots.astype(np.int64), -1 - lane)
+    order = np.argsort(key, kind="stable")
+    sk = key[order]
+    start = np.r_[True, sk[1:] != sk[:-1]]
+    run_start = np.maximum.accumulate(np.where(start, lane, 0))
+    rank = np.empty(n, np.int32)
+    rank[order] = lane - run_start
+    is_last = np.empty(n, bool)
+    is_last[order] = np.r_[sk[1:] != sk[:-1], True]
+    first = np.empty(n, np.int64)
+    first[order] = order[run_start]
+    return rank, is_last, first
+
+
+def rand_window(rng, K, B, cap, degen, slots=None):
     """A hostile packed window: (packed i32[K, B, 9], now i64[K],
-    valid bool[K, B])."""
+    valid bool[K, B]); `slots` i32[K, B] replaces the uniform draw."""
     from throttlecrab_tpu_torch.tpu.kernel import pack_requests
 
-    slots = rng.integers(0, cap, (K, B)).astype(np.int32)
+    drawn = rng.integers(0, cap, (K, B)).astype(np.int32)
+    slots = drawn if slots is None else np.asarray(slots, np.int32)
     em = rng.choice([0, 1, 1000, NS, 7 * NS, 1 << 62], (K, B)).astype(
         np.int64
     )
@@ -50,24 +73,25 @@ def rand_window(rng, K, B, cap, degen):
     rank = np.zeros((K, B), np.int32)
     is_last = np.ones((K, B), bool)
     for k in range(K):
-        first: dict = {}
-        seen: dict = {}
-        for i in range(B):
-            if not valid[k, i]:
-                continue
-            s = int(slots[k, i])
-            if s in seen:
-                cnt, last = seen[s]
-                rank[k, i] = cnt
-                is_last[k, last] = False
-                seen[s] = (cnt + 1, i)
-                j = first[s]  # uniform params per segment
-                em[k, i], tol[k, i], q[k, i] = em[k, j], tol[k, j], q[k, j]
-            else:
-                seen[s] = (1, i)
-                first[s] = i
+        rank[k], is_last[k], first = segments(slots[k], valid[k])
+        # uniform params per segment
+        em[k], tol[k], q[k] = em[k][first], tol[k][first], q[k][first]
     now = T0 + np.sort(rng.integers(0, 100 * NS, K)).astype(np.int64)
     return pack_requests(slots, rank, is_last, em, tol, q, valid), now, valid
+
+
+def cross_block_windows(rng, K, B, cap, degen):
+    """Two windows whose segments cross the kernel's blocks: every lane of
+    every sub-batch on one slot, and one slot recurring in every
+    sub-batch at lanes 0 and B-1 (the other lanes elsewhere)."""
+    hot = int(rng.integers(0, cap))
+    edge = rng.integers(0, cap, (K, B))
+    edge[edge == hot] = (hot + 1) % cap
+    edge[:, 0] = edge[:, -1] = hot
+    return [
+        rand_window(rng, K, B, cap, degen, slots=s)
+        for s in (np.full((K, B), hot), edge)
+    ]
 
 
 def out_mask(valid, compact):

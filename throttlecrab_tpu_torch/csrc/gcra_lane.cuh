@@ -1,12 +1,12 @@
-// Per-lane body of the GCRA decision window, shared by the CUDA kernel
-// (fused_window.cu, compiled by nvcc for sm_90a) and the host shim
-// (lane_host.cpp, compiled by g++ so the arithmetic is checked on a
-// machine without a card).
+// Per-lane body and launch geometry of the GCRA decision window, shared
+// by the CUDA kernel (fused_window.cu, compiled by nvcc for sm_90a) and
+// the host shim (lane_host.cpp, compiled by g++ so the arithmetic and
+// the schedule are checked on a machine without a card).
 //
 // One lane = one request of one sub-batch.  Lanes are independent: the
 // duplicate-key closed forms (main prefix + degenerate three-view orbit,
 // see throttlecrab_tpu_torch/tpu/kernel.py) need no communication
-// between positions, so the device runs one thread per lane.
+// between positions, so a thread decides its lanes on its own.
 //
 // Integer semantics are those of throttlecrab_tpu/tpu/sat.py, bit for
 // bit, on native 64-bit integers.  Signed overflow is undefined in C++,
@@ -21,8 +21,10 @@
 
 #ifdef __CUDACC__
 #define TC_HD __host__ __device__ __forceinline__
+#define TC_UNROLL _Pragma("unroll")
 #else
 #define TC_HD inline
+#define TC_UNROLL
 #endif
 
 namespace tc {
@@ -41,6 +43,49 @@ constexpr int TIER_NS = 0;     // False:  i64[K, 4, B] ns planes
 constexpr int TIER_WIRE = 1;   // True:   i32[K, 4, B] whole-second planes
 constexpr int TIER_CUR = 2;    // "cur":  i64[K, B] cur*2 + allowed
 constexpr int TIER_W32 = 3;    // "w32":  i32[K, B] bit-packed wire word
+
+// ---- launch geometry ----
+// One window is one launch of a single thread block cluster: the grid
+// is the cluster.  Thread t of block b owns lanes lane_of(g, b, t, j),
+// j < g.lanes; the row each lane hands from its gather to its scatter
+// waits in the block's shared memory, column-major [W][lanes * threads].
+constexpr int CLUSTER_BLOCKS = 16;    // Hopper's largest (non-portable)
+constexpr int BLOCK_THREADS = 256;    // 256 x <= 255 registers fit one SM
+constexpr int MAX_BATCH = 1 << 16;    // the table's scratch tail
+constexpr int SMEM_LIMIT = 232448;    // shared memory a block may use
+
+struct Geometry {
+  int blocks;      // blocks of the cluster (= the grid)
+  int threads;     // threads per block
+  int lanes;       // lanes per thread
+  int smem_bytes;  // dynamic shared memory per block
+};
+
+// The geometry of a window of B lanes and W-wide rows: the fewest
+// blocks (a power of two up to CLUSTER_BLOCKS) whose threads cover B,
+// then as many lanes per thread as that leaves.
+TC_HD Geometry window_geometry(int B, int W) {
+  Geometry g;
+  g.threads = BLOCK_THREADS;
+  const int need = (B + BLOCK_THREADS - 1) / BLOCK_THREADS;
+  g.blocks = 1;
+  while (g.blocks < need && g.blocks < CLUSTER_BLOCKS) g.blocks *= 2;
+  const int per_lane_round = g.blocks * BLOCK_THREADS;
+  g.lanes = (B + per_lane_round - 1) / per_lane_round;
+  g.smem_bytes = g.lanes * BLOCK_THREADS * W * 4;
+  return g;
+}
+// The lane thread t of block b decides and scatters in round j (>= B:
+// none).  Consecutive threads take consecutive lanes.
+TC_HD int lane_of(const Geometry& g, int b, int t, int j) {
+  return (j * g.blocks + b) * g.threads + t;
+}
+// Where that lane's row waits in its block's shared memory (column c of
+// the row at row_slot + c * row_stride).
+TC_HD int row_slot(const Geometry& g, int t, int j) {
+  return j * g.threads + t;
+}
+TC_HD int row_stride(const Geometry& g) { return g.lanes * g.threads; }
 
 TC_HD int64_t wadd(int64_t a, int64_t b) {
   return (int64_t)((uint64_t)a + (uint64_t)b);
@@ -76,9 +121,20 @@ TC_HD int64_t sat_sub_nn(int64_t a, int64_t b) {
   int64_t d = wsub(a, b);
   return d > a ? I64_MIN : d;
 }
+// Whether the exact product of a, b > 0 exceeds I64_MAX, from its high
+// half: for b > 0 the same verdict as the reference's a > I64_MAX / b,
+// without a 64-bit division.
+TC_HD bool mul_exceeds_i64(int64_t a, int64_t b) {
+#ifdef __CUDA_ARCH__
+  const uint64_t hi = __umul64hi((uint64_t)a, (uint64_t)b);
+#else
+  const uint64_t hi =
+      (uint64_t)(((unsigned __int128)(uint64_t)a * (uint64_t)b) >> 64);
+#endif
+  return hi != 0 || wmul(a, b) < 0;
+}
 TC_HD int64_t sat_mul_nonneg(int64_t a, int64_t b) {
-  int64_t safe_b = b > 1 ? b : 1;
-  bool overflow = b > 0 && a > I64_MAX / safe_b;
+  const bool overflow = a > 0 && b > 0 && mul_exceeds_i64(a, b);
   return overflow ? I64_MAX : wmul(a, b);
 }
 TC_HD int64_t div_trunc(int64_t a, int64_t b) { return a / (b > 1 ? b : 1); }
@@ -107,6 +163,61 @@ struct Ops<false> {
   TC_HD static int64_t sub(int64_t a, int64_t b) { return sat_sub_nn(a, b); }
   TC_HD static int64_t mul(int64_t a, int64_t b) { return wmul(a, b); }
 };
+
+// One packed request row (kernel.pack_requests), held in registers.
+struct Req {
+  int32_t p[PACK_WIDTH];
+};
+TC_HD Req load_req(const int32_t* packed, int i) {
+  Req r;
+  const int32_t* src = packed + (int64_t)i * PACK_WIDTH;
+  TC_UNROLL
+  for (int c = 0; c < PACK_WIDTH; ++c) r.p[c] = src[c];
+  return r;
+}
+
+// A table row moves as one 16-byte vector (W = 4), or one 16-byte and
+// one 8-byte vector (W = 6: a 24-byte row of a 16-byte aligned table
+// starts on 16 bytes when its index is even, else on 8, so the 16-byte
+// vector is its first or its last four words).  Cached in L2 only: the
+// rows change under other blocks of the cluster between the barriers,
+// so no SM keeps a copy in its L1.
+template <int W>
+TC_HD void load_row(const int32_t* src, int32_t* row) {
+#ifdef __CUDA_ARCH__
+  if (W == 4) {
+    const int4 v = __ldcg(reinterpret_cast<const int4*>(src));
+    row[0] = v.x, row[1] = v.y, row[2] = v.z, row[3] = v.w;
+  } else {
+    const bool even = (reinterpret_cast<uintptr_t>(src) & 15) == 0;
+    const int4 q = __ldcg(reinterpret_cast<const int4*>(src + (even ? 0 : 2)));
+    const int2 d = __ldcg(reinterpret_cast<const int2*>(src + (even ? 4 : 0)));
+    row[0] = even ? q.x : d.x, row[1] = even ? q.y : d.y;
+    row[2] = even ? q.z : q.x, row[3] = even ? q.w : q.y;
+    row[4] = even ? d.x : q.z, row[5] = even ? d.y : q.w;
+  }
+#else
+  for (int c = 0; c < W; ++c) row[c] = src[c];
+#endif
+}
+template <int W>
+TC_HD void store_row(int32_t* dst, const int32_t* row) {
+#ifdef __CUDA_ARCH__
+  if (W == 4) {
+    __stcg(reinterpret_cast<int4*>(dst),
+           make_int4(row[0], row[1], row[2], row[3]));
+  } else {
+    const bool even = (reinterpret_cast<uintptr_t>(dst) & 15) == 0;
+    __stcg(reinterpret_cast<int4*>(dst + (even ? 0 : 2)),
+           even ? make_int4(row[0], row[1], row[2], row[3])
+                : make_int4(row[2], row[3], row[4], row[5]));
+    __stcg(reinterpret_cast<int2*>(dst + (even ? 4 : 0)),
+           even ? make_int2(row[4], row[5]) : make_int2(row[0], row[1]));
+  }
+#else
+  for (int c = 0; c < W; ++c) dst[c] = row[c];
+#endif
+}
 
 struct ReqOut {
   bool allowed;
@@ -138,17 +249,18 @@ TC_HD int64_t view_next(int64_t t, const ReqOut& o, int64_t em, int64_t tol,
 }
 
 // Decide lane i of one sub-batch.
-//   state:    i32[N, W] table (read only here: the gather)
-//   packed:   i32[B, PACK_WIDTH] this sub-batch's request rows
-//   rows_out: i32[B, W] the row each lane hands to the scatter
-//   out:      this sub-batch's output slice, laid out per TIER
+//   r:      the lane's packed request row
+//   state:  i32[N, W] table (read only here: the gather)
+//   ro:     where the row handed to the scatter goes, column c at
+//           ro[c * ro_stride]
+//   out:    this sub-batch's output slice, laid out per TIER
 // Returns whether the lane is an expired hit (kernel._gcra_body n_exp).
 template <int W, bool DEGEN, int TIER>
-TC_HD bool decide_lane(int i, int B, int64_t N, const int32_t* state,
-                       const int32_t* packed, int64_t now, int32_t* rows_out,
-                       void* out) {
+TC_HD bool decide_lane(const Req& r, int i, int B, int64_t N,
+                       const int32_t* state, int64_t now, int32_t* ro,
+                       int ro_stride, void* out) {
   typedef Ops<DEGEN> S;
-  const int32_t* p = packed + (int64_t)i * PACK_WIDTH;
+  const int32_t* p = r.p;
   const int64_t slot = p[0];
   const int64_t rank = p[1];
   const bool is_last = (p[2] & FLAG_IS_LAST) != 0;
@@ -157,7 +269,8 @@ TC_HD bool decide_lane(int i, int B, int64_t N, const int32_t* state,
   const int64_t tol = join(p[5], p[6]);
   const int64_t q = join(p[7], p[8]);
   const int64_t g = slot < 0 ? 0 : (slot > N - 1 ? N - 1 : slot);
-  const int32_t* row = state + g * W;
+  int32_t row[W];
+  load_row<W>(state + g * W, row);
   const int64_t stored_tat = join(row[0], row[1]);
   const int64_t stored_exp = join(row[2], row[3]);
   const bool live = v && stored_exp > now;
@@ -259,15 +372,14 @@ TC_HD bool decide_lane(int i, int B, int64_t N, const int32_t* state,
   const int64_t expiry_fin = ttl_fin < 0 ? I64_MAX : S::add(tat_fin, tol);
   const int64_t tat_w = wrote ? tat_fin : stored_tat;
   const int64_t exp_w = wrote ? expiry_fin : stored_exp;
-  int32_t* ro = rows_out + (int64_t)i * W;
   ro[0] = lo32(tat_w);
-  ro[1] = hi32(tat_w);
-  ro[2] = lo32(exp_w);
-  ro[3] = hi32(exp_w);
+  ro[ro_stride] = hi32(tat_w);
+  ro[2 * ro_stride] = lo32(exp_w);
+  ro[3 * ro_stride] = hi32(exp_w);
   if (W > 4) {
     const int64_t deny = wadd(join(row[4], row[5]), denied_seg);
-    ro[4] = lo32(deny);
-    ro[5] = hi32(deny);
+    ro[4 * ro_stride] = lo32(deny);
+    ro[5 * ro_stride] = hi32(deny);
   }
 
   // ---- output tier ----
@@ -299,13 +411,53 @@ TC_HD bool decide_lane(int i, int B, int64_t N, const int32_t* state,
 // The scatter target of lane i: its gathered slot when it is the valid
 // is_last lane of its segment (one per slot, so indices are unique),
 // else its own scratch row N - B + i.
-TC_HD int64_t scatter_index(int i, int B, int64_t N, const int32_t* packed) {
-  const int32_t* p = packed + (int64_t)i * PACK_WIDTH;
-  if ((p[2] & FLAG_IS_LAST) && (p[2] & FLAG_VALID)) {
-    const int64_t slot = p[0];
+TC_HD int64_t scatter_index(const Req& r, int i, int B, int64_t N) {
+  if ((r.p[2] & FLAG_IS_LAST) && (r.p[2] & FLAG_VALID)) {
+    const int64_t slot = r.p[0];
     return slot < 0 ? 0 : (slot > N - 1 ? N - 1 : slot);
   }
   return N - B + i;
+}
+
+// Scatter lane i: the row decide_lane left at `ro` goes to its target.
+template <int W>
+TC_HD void scatter_lane(const Req& r, int i, int B, int64_t N,
+                        int32_t* state, const int32_t* ro, int ro_stride) {
+  int32_t row[W];
+  TC_UNROLL
+  for (int c = 0; c < W; ++c) row[c] = ro[c * ro_stride];
+  store_row<W>(state + scatter_index(r, i, B, N) * W, row);
+}
+
+// The 12 instantiations: W in {4, 6} x {exact: ns, wire; certified: ns,
+// wire, cur, w32}.  by_kind calls f(Kind<W, DEGEN, TIER>{}) for the one
+// the arguments name and returns its result, or -1 for any other.
+template <int W, bool DEGEN, int TIER>
+struct Kind {
+  static constexpr int width = W;
+  static constexpr bool degen = DEGEN;
+  static constexpr int tier = TIER;
+};
+
+template <int W, typename F>
+int by_tier(int with_degen, int tier, F&& f) {
+  if (with_degen) {
+    if (tier == TIER_NS) return f(Kind<W, true, TIER_NS>{});
+    if (tier == TIER_WIRE) return f(Kind<W, true, TIER_WIRE>{});
+    return -1;  // cur/w32 exist only on the certified path
+  }
+  if (tier == TIER_NS) return f(Kind<W, false, TIER_NS>{});
+  if (tier == TIER_WIRE) return f(Kind<W, false, TIER_WIRE>{});
+  if (tier == TIER_CUR) return f(Kind<W, false, TIER_CUR>{});
+  if (tier == TIER_W32) return f(Kind<W, false, TIER_W32>{});
+  return -1;
+}
+
+template <typename F>
+int by_kind(int width, int with_degen, int tier, F&& f) {
+  if (width == 4) return by_tier<4>(with_degen, tier, f);
+  if (width == 6) return by_tier<6>(with_degen, tier, f);
+  return -1;
 }
 
 }  // namespace tc

@@ -4,15 +4,20 @@ The port of `throttlecrab_tpu/tpu/pallas_fused.py:fused_window`: for each
 of a window's K sub-batches, in order, gather the slots' state rows,
 evaluate the GCRA closed forms, write the outputs of the requested tier
 and the expired-hit count, and scatter the surviving rows back at unique
-indices.  The source is `csrc/fused_window.cu` over the lane body in
-`csrc/gcra_lane.cuh`; it is compiled with nvcc into a plain-C shared
-library at first use (into `throttlecrab_tpu_torch/build/`, keyed by a
-hash of the sources) and bound with ctypes.
+indices.  The source is `csrc/fused_window.cu` over the lane body and
+launch geometry in `csrc/gcra_lane.cuh`; it is compiled with nvcc into a
+plain-C shared library at first use (into `throttlecrab_tpu_torch/build/`,
+keyed by a hash of the sources) and bound with ctypes.
+
+A window is one CUDA launch: one thread block cluster (up to 16 blocks of
+256 threads) walks the K sub-batches with a cluster barrier between each
+gather and its scatter, and writes the expired-hit counts itself.  The
+wrapper allocates the outputs with `torch.empty` and launches nothing
+else.
 
 Each wrapper takes the kernel's plain version (`kernel.decide_window`)
 only for tensors that lie on the CPU; for a CUDA tensor it launches the
-kernel or raises.  `LAUNCHES` counts kernel windows launched (each window
-is 2K CUDA launches: decide, then scatter, per sub-batch).
+kernel or raises.  `LAUNCHES` counts kernel launches (one per window).
 
 The table is updated in place (the JAX package donates it instead).
 """
@@ -36,6 +41,9 @@ SOURCES = ("fused_window.cu", "gcra_lane.cuh")
 
 _TIERS = {"cur": 2, "w32": 3}
 _lib = None
+_launch = None  # the bound tc_fused_window
+_raw_stream = None  # device index -> the current stream's handle
+_prepared = set()  # device indices the kernels were prepared on
 
 
 def _tier(compact) -> int:
@@ -53,19 +61,35 @@ def build():
     return nvcc.build(LIB_STEM, SOURCES)
 
 
-def _load():
-    global _lib
+def _load(index):
+    """The bound launch function, with the library built and loaded and
+    the kernels prepared on device `index` (once each)."""
+    global _lib, _launch, _raw_stream
     if _lib is None:
         lib = nvcc.load(LIB_STEM, SOURCES)
         fn = lib.tc_fused_window
         p = ctypes.c_void_p
         fn.argtypes = [
             p, ctypes.c_longlong, ctypes.c_int, p, p, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, p, p, p, p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, p, p, p,
         ]
         fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        lib.tc_fused_window_prepare.argtypes = []
+        lib.tc_fused_window_prepare.restype = ctypes.c_int
+        _raw_stream = torch._C._cuda_getCurrentRawStream
+        _lib, _launch = lib, fn
+    if index not in _prepared:
+        with torch.cuda.device(index):
+            rc = _lib.tc_fused_window_prepare()
+        if rc == -2:
+            raise RuntimeError(
+                "this card cannot hold the decision window's thread block "
+                "cluster (cudaOccupancyMaxActiveClusters is 0)"
+            )
+        if rc != 0:
+            raise RuntimeError(f"tc_fused_window_prepare failed: error {rc}")
+        _prepared.add(index)
+    return _launch
 
 
 def _check(state, packed, now, with_degen, tier):
@@ -95,6 +119,8 @@ def _check(state, packed, now, with_degen, tier):
         raise ValueError(f"now must be i64[{K}], got {tuple(now.shape)}")
     if not 1 <= B <= min(MAX_BATCH, state.shape[0]):
         raise ValueError(f"batch width {B} outside [1, {MAX_BATCH}]")
+    if state.data_ptr() % 16:  # the kernel moves rows in 16-byte vectors
+        raise ValueError("state must be 16-byte aligned")
     if tier >= 2 and with_degen:
         raise ValueError('compact="cur"/"w32" require with_degen=False')
 
@@ -104,7 +130,7 @@ def fused_window(state, packed, now, *, with_degen=True, compact=False):
     in place.  `packed` is i32[K, B, PACK_WIDTH], `now` i64[K], on the
     state's device.  Returns (out, n_exp i64[K]) with `out` per tier:
     False i64[K, 4, B], True i32[K, 4, B], "cur" i64[K, B], "w32"
-    i32[K, B].  Invalid lanes' outputs are don't-care.  The launches are
+    i32[K, B].  Invalid lanes' outputs are don't-care.  The launch is
     queued on the current stream; nothing synchronises."""
     global LAUNCHES
     if state.device.type == "cpu":
@@ -126,12 +152,12 @@ def fused_window(state, packed, now, *, with_degen=True, compact=False):
             (K, B), dtype=torch.int64 if tier == 2 else torch.int32,
             device=dev,
         )
-    n_exp = torch.zeros(K, dtype=torch.int64, device=dev)
-    rows_out = torch.empty((B, W), dtype=torch.int32, device=dev)
-    rc = _load().tc_fused_window(
+    n_exp = torch.empty(K, dtype=torch.int64, device=dev)  # kernel-written
+    launch = _load(dev.index)
+    rc = launch(
         state.data_ptr(), N, W, packed.data_ptr(), now.data_ptr(), K, B,
         int(bool(with_degen)), tier, out.data_ptr(), n_exp.data_ptr(),
-        rows_out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        _raw_stream(dev.index),
     )
     if rc != 0:
         raise RuntimeError(f"tc_fused_window failed: error {rc}")
