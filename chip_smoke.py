@@ -38,9 +38,15 @@ exits nonzero without its last line:
    params, every key populated once, then Zipf-1.1 windows of K = 64 x
    B = 4096 through check_many_byid (host words + finish_ids),
    check_many_ids (finish_raw) and check_many_ids20 (w32 + finish_w32);
-   the row kernels' counters, zeroed just before, must count 2K launches
-   per window, and the same traffic on device="cpu" must give identical
-   wire values and real-slot state;
+   the counters, zeroed just before, must count exactly one
+   decision-window launch per window and no row-kernel launch, and the
+   same traffic on device="cpu" must give identical wire values,
+   real-slot state and expired hits.  Then one more ids window through
+   the composed scan kernel.gcra_scan_ids_acc on a copy of the table,
+   whose rows move through the row kernels (their counters, zeroed just
+   before, must count K each), must decide as the table's route; and one
+   ids window under the profiler (kernel records, device ms, idle share,
+   the largest records by name);
 7. dispatch_wire_window: phase 3's traffic as native wire frames through
    TorchRateLimiter(keymap="native") on cuda, against its device="cpu"
    replay; the decision-window kernel's counter, zeroed just before, must
@@ -51,8 +57,8 @@ exits nonzero without its last line:
    and its kernel records per call, which must all be the window kernel
    and at most one per call, and the wrapper's host time per call), and
    each row kernel's, its plain version's and the library call's time
-   per launch at B=4096 (CUDA events, profiler); phases 3, 6 and 7's
-   decisions/s come from the host clock.
+   per launch at B=4096 (CUDA events, profiler, host time per call);
+   phases 3, 6 and 7's decisions/s come from the host clock.
 
 The line before the last is the {"kernels": [...]} record; the last line
 is {"ok": true, "device": {...}}.
@@ -61,6 +67,7 @@ is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import re
 import signal
 import socket
 import subprocess
@@ -88,8 +95,6 @@ FUSED_THREADS = 256  # threads per block of the decision-window kernel
 def ptxas_summary(log: str) -> dict:
     """{kernel instantiation: (registers, stack bytes, spill store bytes,
     spill load bytes)} from nvcc's -Xptxas -v report."""
-    import re
-
     kernels, name, frame = {}, None, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -524,20 +529,42 @@ def profile_device(fn, n=1, detail=False):
     return result + (counts, api) if detail else result
 
 
-def bound_ms(k, b, width_out_bytes):
+def bound_ms(k, b, width_out_bytes, rows):
     """The least time for one window: every packed request row read once,
-    one 32-byte sector per gathered and per scattered table row, the
-    outputs and per-sub-batch counts written once, at the HBM rate.  The
-    integer work (a few hundred operations per lane) is far below the
-    card's rate, so bytes bound it."""
+    one 32-byte sector read and one written for each of the `rows`
+    distinct table rows the window touches (counted from the run's
+    slots), the outputs and per-sub-batch counts written once, at the HBM
+    rate.  The integer work (a few hundred operations per lane) is far
+    below the card's rate, so bytes bound it."""
     moved = (
         k * b * 36  # packed request rows
         + k * 8  # now
-        + 2 * k * b * SECTOR  # gathered and scattered table rows
+        + 2 * rows * SECTOR  # table rows, read and written once each
         + k * b * width_out_bytes  # outputs
         + k * 8  # n_exp
     )
     return moved / HBM_BYTES_PER_S * 1e3
+
+
+def byid_bound_ms(ids, width_out_bytes):
+    """The least time for one by-id window of raw ids i32[K, B]: the ids
+    read once, one 32-byte sector for each distinct valid id's resident
+    id row, one sector read and one written for its table row (one slot
+    per interned id), the outputs and per-sub-batch counts written once,
+    at the HBM rate.  The packed rows are the front end's intermediate,
+    not the function's input, so they are not counted."""
+    import numpy as np
+
+    k, b = ids.shape
+    distinct = int(np.unique(ids[ids >= 0]).size)
+    moved = (
+        k * b * 4  # ids
+        + k * 8  # now
+        + 3 * distinct * SECTOR  # id rows read; table rows read, written
+        + k * b * width_out_bytes  # outputs
+        + k * 8  # n_exp
+    )
+    return moved / HBM_BYTES_PER_S * 1e3, distinct
 
 
 def timing_window(device, width, rng):
@@ -633,16 +660,19 @@ def time_kernel(device, rng, rounds=3):
             "kernels_per_call": k_count if k_dev is not None else None,
             "launch_api_per_call": api / n,
             "host_us": host_us_per_call(call["kernel"]),
+            "rows": int(inputs[w][1][..., 0].unique().numel()),
         }
     return result
 
 
 def time_row_kernels(device, rng, rounds=3):
-    """{(name, W): {"kernel"|"plain"|"library": ms}} per launch at B=4096
-    over the by-id table (N = 2^21 + 2^16 rows): medians of `rounds`
-    rounds that alternate kernel, plain version and library call.  Each
-    call takes the next of 8 index sets, so consecutive launches do not
-    find each other's rows in L2."""
+    """{(name, W): {"kernel"|"plain"|"library": ms, "device_"...: ms,
+    "host_us_"...: µs}} per launch at B=4096 over the by-id table (N =
+    2^21 + 2^16 rows): CUDA-event medians of `rounds` rounds that
+    alternate kernel, plain version and library call, then the
+    profiler's device time, then the host time per call of the kernel's
+    wrapper and of the library call.  Each call takes the next of 8 index
+    sets, so consecutive launches do not find each other's rows in L2."""
     import itertools
 
     import numpy as np
@@ -677,6 +707,9 @@ def time_row_kernels(device, rng, rounds=3):
         for (name, side), fn in fns.items():
             samples[(name, w)].setdefault(
                 "device_" + side, []).append(profile_device(fn, 100)[1])
+        for (name, side), fn in fns.items():
+            if side != "plain":
+                samples[(name, w)]["host_us_" + side] = [host_us_per_call(fn)]
     for (name, w), by_side in samples.items():
         print(f"  {name} W={w} rounds (ms per launch): " + ", ".join(
             f"{side} {[x if x is None else round(x, 5) for x in v]}"
@@ -798,9 +831,10 @@ def byid_plan(rng, n_keys, per_variant=3):
 
 def run_byid(device, keys, em, tol, plan):
     """Drive the plan through a native-keymap limiter on `device`: intern
-    and resolve every key, upload the id rows, then per window dispatch,
-    fetch and finish.  Returns (limiter, wire i32[K*B, 4] per window,
-    valid lanes per window, seconds per window)."""
+    and resolve every key, upload the id rows, then per window prepare
+    the stream, launch, fetch and finish.  Returns (limiter, id rows,
+    wire i32[K*B, 4] per window, valid lanes per window, seconds per
+    window, (prep, launch, fetch, finish) seconds per window)."""
     import numpy as np
 
     from throttlecrab_tpu_torch.tpu.kernel import (
@@ -821,54 +855,120 @@ def run_byid(device, keys, em, tol, plan):
                          table.now_hwm):
         raise AssertionError("config 3 params do not fit the w32 tier")
     cert = dict(quantity=1, with_degen=False)
-    wires, valids, seconds = [], [], []
+    wires, valids, seconds, splits = [], [], [], []
     now = T0
     for variant, ids in plan:
         nows = np.full(BYID_K, now, np.int64)
-        t = time.perf_counter()
+        t = [time.perf_counter()]
         if variant == "byid":
             words, n_bad = km.assemble_ids(ids, B)
             if n_bad:
                 raise AssertionError(f"assemble_ids: {n_bad} bad ids")
+            t.append(time.perf_counter())
             out = table.check_many_byid(rows, words.reshape(BYID_K, B),
                                         nows, compact="cur", **cert)
-            wire = km.finish_ids(words, em, tol, 1, out.cpu().numpy(), now)
+            t.append(time.perf_counter())
+            out = out.cpu().numpy()
+            t.append(time.perf_counter())
+            wire = km.finish_ids(words, em, tol, 1, out, now)
         elif variant == "ids20":
-            out = table.check_many_ids20(
-                rows, pack_ids20(ids.reshape(BYID_K, B)), nows,
-                compact="w32", **cert)
-            wire = np.stack(finish_w32(out.cpu().numpy().reshape(-1)), 1)
+            stream = pack_ids20(ids.reshape(BYID_K, B))
+            t.append(time.perf_counter())
+            out = table.check_many_ids20(rows, stream, nows, compact="w32",
+                                         **cert)
+            t.append(time.perf_counter())
+            out = out.cpu().numpy()
+            t.append(time.perf_counter())
+            wire = np.stack(finish_w32(out.reshape(-1)), 1)
         else:
+            t.append(time.perf_counter())
             out = table.check_many_ids(rows, ids.reshape(BYID_K, B), nows,
                                        compact="cur", **cert)
-            wire = km.finish_raw(ids, em, tol, 1, out.cpu().numpy(), now)
-        seconds.append(time.perf_counter() - t)
+            t.append(time.perf_counter())
+            out = out.cpu().numpy()
+            t.append(time.perf_counter())
+            wire = km.finish_raw(ids, em, tol, 1, out, now)
+        t.append(time.perf_counter())
+        seconds.append(t[-1] - t[0])
+        splits.append(tuple(b - a for a, b in zip(t, t[1:])))
         wires.append(wire)
         valids.append(ids >= 0)
         now += int(2e6)
-    return lim, wires, valids, seconds
+    return lim, rows, wires, valids, seconds, splits
 
 
-def summarize_profile(wall, device, by_name, n_kernels):
+def composed_scan_check(lim, rows):
+    """One more Zipf ids window two ways on phase 6's cuda table: through
+    check_many_ids (the window kernel) and through the composed scan
+    kernel.gcra_scan_ids_acc on a copy of the table, whose rows move
+    through the row kernels.  Fails unless outputs (valid lanes),
+    real-slot state and expired hits agree; returns the row kernels'
+    launches during the composed scan (counters zeroed just before)."""
+    import numpy as np
+    import torch
+
+    from throttlecrab_tpu_torch.tpu import kernel, row_ops
+
+    table = lim.table
+    ids = byid_plan(np.random.default_rng(61), N_KEYS, 1)[-2][1]
+    ids = ids.reshape(BYID_K, B)
+    now = np.full(BYID_K, T0 + 5 * NS, np.int64)
+    state = table.state.clone()
+    acc = torch.zeros((), dtype=torch.int64, device=state.device)
+    hits = table.expired_hits()
+    cert = dict(with_degen=False, compact="cur")
+    row_ops.GATHER_LAUNCHES = row_ops.SCATTER_LAUNCHES = 0
+    state, acc, want = kernel.gcra_scan_ids_acc(
+        state, acc, rows.rows_checked(), torch.from_numpy(ids).to(
+            state.device), torch.from_numpy(now).to(state.device), 1, **cert)
+    torch.cuda.synchronize()
+    launches = {"row_gather": row_ops.GATHER_LAUNCHES,
+                "row_scatter": row_ops.SCATTER_LAUNCHES}
+    if set(launches.values()) != {BYID_K}:
+        raise AssertionError(f"composed scan row launches {launches}, "
+                             f"expected {BYID_K} each")
+    got = table.check_many_ids(rows, ids, now, 1, **cert)
+    valid = torch.from_numpy(ids >= 0).to(state.device)
+    if not torch.equal(got[valid], want[valid]):
+        raise AssertionError("the composed scan's outputs differ from the "
+                             "window kernel's")
+    if not torch.equal(table.state[:BYID_CAPACITY], state[:BYID_CAPACITY]):
+        raise AssertionError("the composed scan's state differs from the "
+                             "window kernel's")
+    if table.expired_hits() - hits != int(acc):
+        raise AssertionError("the composed scan's expired hits differ")
+    return launches
+
+
+def summarize_profile(wall, device, by_name, n_kernels, top=0):
     """A profile_device result as a record: wall and device ms, the
-    device's idle share of the wall time, and the row kernels' share of
-    the device time."""
+    device's idle share of the wall time, the window kernel's and the row
+    kernels' shares of the device time and, with `top`, the largest
+    device records by name."""
     if device is None:
         return {"wall_ms": wall, "device_ms": "not measured"}
+    # The row kernels' own names; torch's index kernels (e.g.
+    # at::native::vectorized_gather_kernel) are not counted.
     rows = sum(v for k, v in by_name.items()
-               if "gather_kernel" in k or "scatter_kernel" in k)
-    return {
+               if re.search(r"\)::(gather|scatter)_kernel<", k))
+    window = sum(v for k, v in by_name.items() if "window_kernel" in k)
+    record = {
         "wall_ms": round(wall, 3),
         "device_ms": round(device, 3),
         "idle_share": round(1 - device / wall, 4),
         "kernels": int(n_kernels),
+        "window_kernel_ms": round(window, 4),
         "row_kernels_ms": round(rows, 4),
     }
+    if top:
+        largest = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+        record["largest_ms"] = [[k[:90], round(v, 4)] for k, v in largest]
+    return record
 
 
 def profile_byid_window(lim, keys, em, tol):
     """One more Zipf window through check_many_ids (phase 6's limiter,
-    after its comparison) under the profiler."""
+    after its comparison) under the profiler: (record, ids i32[K, B])."""
     import numpy as np
 
     km, table = lim.keymap, lim.table
@@ -882,7 +982,8 @@ def profile_byid_window(lim, keys, em, tol):
                                    compact="cur")
         km.finish_raw(ids, em, tol, 1, out.cpu().numpy(), int(now[0]))
 
-    return summarize_profile(*profile_device(window))
+    record = summarize_profile(*profile_device(window), top=8)
+    return record, ids.reshape(BYID_K, B)
 
 
 def byid_rates(plan, seconds):
@@ -1043,21 +1144,28 @@ def main() -> int:
           f" on cuda, {N_KEYS} keys, config 3 params, K={BYID_K} B={B}")
     keys, em, tol = config3_params(N_KEYS)
     plan = byid_plan(np.random.default_rng(6), N_KEYS)
+    fused.LAUNCHES = 0
     row_ops.GATHER_LAUNCHES = row_ops.SCATTER_LAUNCHES = 0
-    lim_g, wires_g, valids, sec_g = run_byid(device, keys, em, tol, plan)
+    lim_g, rows_g, wires_g, valids, sec_g, split_g = run_byid(
+        device, keys, em, tol, plan)
     torch.cuda.synchronize()
-    row_launches = {"row_gather": row_ops.GATHER_LAUNCHES,
-                    "row_scatter": row_ops.SCATTER_LAUNCHES}
-    expect = BYID_K * len(plan)
-    if set(row_launches.values()) != {expect}:
-        raise AssertionError(f"row kernel launches {row_launches}, "
-                             f"expected {expect} each (2K per window)")
+    byid_launches = fused.LAUNCHES
+    byid_row_launches = {"row_gather": row_ops.GATHER_LAUNCHES,
+                         "row_scatter": row_ops.SCATTER_LAUNCHES}
+    if byid_launches != len(plan) or any(byid_row_launches.values()):
+        raise AssertionError(
+            f"{byid_launches} decision-window launches and row launches "
+            f"{byid_row_launches} for {len(plan)} by-id windows; expected "
+            "one window launch per window and no row launch")
     if not lim_g.table.state.is_cuda:
         raise AssertionError("the by-id table left the card")
-    print(f"  {len(plan)} windows ({[v for v, _ in plan]}), row launches "
-          f"{row_launches}")
+    print(f"  {len(plan)} windows ({[v for v, _ in plan]}): "
+          f"{byid_launches} decision-window launches, row launches "
+          f"{byid_row_launches}")
     print("  seconds per window: " + ", ".join(f"{x:.3f}" for x in sec_g))
-    lim_c, wires_c, _, sec_c = run_byid("cpu", keys, em, tol, plan)
+    print("  ms per window, prep+launch+fetch+finish: " + ", ".join(
+        "+".join(f"{x * 1e3:.1f}" for x in sp) for sp in split_g))
+    lim_c, _, wires_c, _, sec_c, _ = run_byid("cpu", keys, em, tol, plan)
     for w, (a, b, v) in enumerate(zip(wires_g, wires_c, valids)):
         if not np.array_equal(a[v], b[v]):
             raise AssertionError(f"by-id window {w} ({plan[w][0]}) differs "
@@ -1068,16 +1176,29 @@ def main() -> int:
     if lim_g.table.expired_hits() != lim_c.table.expired_hits():
         raise AssertionError("by-id expired-hit counts differ")
     byid_rate = byid_rates(plan, sec_g)
+    byid_split = {
+        part: float(np.median([sp[i] for sp in split_g[1:]]) * 1e3)
+        for i, part in enumerate(("prep", "launch", "fetch", "finish"))
+    }
     print("  identical to the device='cpu' replay (wire values, state, "
           "expired hits)")
-    byid_profile = profile_byid_window(lim_g, keys, em, tol)
-    print(f"  one more ids window under the profiler: {byid_profile}")
+    del lim_c
+    composed_launches = composed_scan_check(lim_g, rows_g)
+    print("  one more ids window: the composed scan (row kernels, "
+          f"{composed_launches}) on a copy of the table decides as the "
+          "window kernel (outputs, state, expired hits)")
+    byid_profile, profiled_ids = profile_byid_window(lim_g, keys, em, tol)
+    byid_bound, byid_rows = byid_bound_ms(profiled_ids, 8)
+    byid_kernel_bound = bound_ms(BYID_K, B, 8, byid_rows)
+    print(f"  one more ids window under the profiler: {byid_profile}; "
+          f"{byid_rows} distinct ids; bound {byid_bound:.6f} ms for the "
+          f"window, {byid_kernel_bound:.6f} ms for its window kernel")
     print("  decisions/s (host clock, windows after each variant's first): "
           + ", ".join(f"{v} {r:.0f}" for v, r in byid_rate.items())
-          + f" on cuda; cpu replay " + ", ".join(
+          + " on cuda; cpu replay " + ", ".join(
               f"{v} {r:.0f}" for v, r in byid_rates(plan, sec_c).items())
-          + f" ({card})")
-    del lim_g, lim_c
+          + f"; median ms per window on cuda {byid_split} ({card})")
+    del lim_g
 
     print("[7] dispatch_wire_window: phase 3's traffic as native frames")
     frame_windows = wire_frames(windows)
@@ -1112,7 +1233,8 @@ def main() -> int:
     times = time_kernel(device, np.random.default_rng(5))
     for width, t in times.items():
         print(f"  fused_window W={width}: kernel {t['ms']:.4f} ms, plain "
-              f"{t['plain_ms']:.4f} ms, bound {bound_ms(K, B, 4):.5f} ms "
+              f"{t['plain_ms']:.4f} ms, bound "
+              f"{bound_ms(K, B, 4, t['rows']):.5f} ms "
               f"per K={K} w32 window (CUDA-event medians); device time "
               f"(profiler) kernel {t['device_ms']} ms in "
               f"{t['kernels_per_call']} kernel per call, plain "
@@ -1125,7 +1247,9 @@ def main() -> int:
               f"{row_bound_ms(B, w):.6f} ms per launch at B={B} (medians); "
               f"device time (profiler) kernel {t['device_kernel']} ms, "
               f"plain {t['device_plain']} ms, library "
-              f"{t['device_library']} ms")
+              f"{t['device_library']} ms; host time per call kernel "
+              f"{t['host_us_kernel']:.1f} µs, library "
+              f"{t['host_us_library']:.1f} µs")
 
     print(f"card: {card_line()}")
     kernels = [{
@@ -1137,13 +1261,14 @@ def main() -> int:
         "max_abs_err": worst,
         "ms": times[4]["ms"],
         "plain_ms": times[4]["plain_ms"],
-        "bound_ms": bound_ms(K, B, 4),
+        "bound_ms": bound_ms(K, B, 4, times[4]["rows"]),
         "bound_by": "bytes",
         "library_ms": None,
         "identical": worst == 0,
         "shape": f"K={K} B={B} W=4 w32",
         "w6_ms": times[6]["ms"],
         "w6_plain_ms": times[6]["plain_ms"],
+        "w6_bound_ms": bound_ms(K, B, 4, times[6]["rows"]),
         "device_ms": times[4]["device_ms"],
         "plain_device_ms": times[4]["plain_device_ms"],
         "w6_device_ms": times[6]["device_ms"],
@@ -1157,6 +1282,15 @@ def main() -> int:
         "wire_window_launches": wire_launches,
         "wire_window_decisions_per_s": wire_rate,
         "wire_window_profile": wire_profile,
+        "byid_window_launches": byid_launches,
+        "byid_windows": len(plan),
+        "byid_shape": f"K={BYID_K} B={B} W=4 cur/w32",
+        "byid_distinct_ids": byid_rows,
+        "byid_bound_ms": byid_bound,
+        "byid_kernel_bound_ms": byid_kernel_bound,
+        "byid_decisions_per_s": byid_rate,
+        "byid_window_ms": byid_split,
+        "byid_window_profile": byid_profile,
         "card": card,
     }]
     for name, replaces in (("row_gather", "pallas_ops.py:128"),
@@ -1167,7 +1301,7 @@ def main() -> int:
             "route": "cuda",
             "source": "throttlecrab_tpu_torch/csrc/row_ops.cu",
             "replaces": f"throttlecrab_tpu/tpu/{replaces}",
-            "launches": row_launches[name],
+            "launches": composed_launches[name],
             "max_abs_err": row_worst[name],
             "ms": t4["kernel"],
             "plain_ms": t4["plain"],
@@ -1184,9 +1318,10 @@ def main() -> int:
             "plain_device_ms": t4["device_plain"],
             "library_device_ms": t4["device_library"],
             "w6_device_ms": t6["device_kernel"],
-            "launches_per_window": BYID_K,
-            "byid_window_profile": byid_profile,
-            "byid_decisions_per_s": byid_rate,
+            "launches_per_window": byid_row_launches[name] // len(plan),
+            "host_us_per_call": t4["host_us_kernel"],
+            "library_host_us_per_call": t4["host_us_library"],
+            "w6_host_us_per_call": t6["host_us_kernel"],
             "card": card,
         })
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain versions, on the card: the
-decision-window kernel (fused.py) and the row gather/scatter (row_ops.py,
-also through a by-id scan).
+decision-window kernel (fused.py), also behind the table's by-id entry
+points, and the row gather/scatter (row_ops.py, also through a composed
+by-id scan).
 
 Needs a CUDA card: the tests carry the `cuda` marker and skip elsewhere
 (decided in a fixture when they run).  The file imports nothing of jax,
@@ -17,9 +18,11 @@ import pytest
 import torch
 
 from throttlecrab_tpu_torch.tpu import fused, kernel, row_ops
+from throttlecrab_tpu_torch.tpu.table import BucketTable
 from torch_windows import (
     ALL_TIERS,
     NS,
+    byid_words,
     cross_block_windows,
     fresh_state,
     out_mask,
@@ -183,3 +186,85 @@ def test_byid_scan_on_card_matches_cpu(cuda_device, W, variant):
     assert n_c == 0 and n_g == K
     assert torch.equal(st_c, st_g) and acc_c == acc_g
     assert torch.equal(out_c[valid], out_g[valid])
+
+
+def _byid_stream(variant, ids, slots):
+    if variant == "byid":
+        return byid_words(ids, slots)
+    if variant == "ids20":
+        return kernel.pack_ids20(ids)
+    return ids
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["byid", "ids", "ids20"])
+@pytest.mark.parametrize("W", row_ops.WIDTHS)
+def test_byid_table_on_card_is_one_window_launch(cuda_device, W, variant):
+    """check_many_{byid,ids,ids20} on the card decide as the cpu route:
+    each call is exactly one fused_window launch and no row-kernel
+    launch.  The windows at B = 4096 include one whose duplicate segment
+    spans every lane of every sub-batch (across the cluster's blocks) and
+    one with an id at lanes 0 and B-1 of every sub-batch."""
+    rng = np.random.default_rng(23 + W)
+    n_ids, cap, K, B = 3000, 8192, 4, 4096
+    slots = rng.choice(cap, n_ids, replace=False).astype(np.int32)
+    em = rng.choice([1000, NS, 7 * NS], n_ids).astype(np.int64)
+    hot = int(rng.integers(0, n_ids))
+    edge = rng.integers(-1, n_ids, (K, B)).astype(np.int32)
+    edge[edge == hot] = (hot + 1) % n_ids
+    edge[:, 0] = edge[:, -1] = hot
+    windows = [rng.integers(-1, n_ids, (K, B)).astype(np.int32),
+               np.full((K, B), hot, np.int32), edge]
+    tiers = [("cur", False), (False, True)]
+    if variant == "ids20":
+        tiers = [("w32", False), (True, True)]
+    results = {}
+    for dev in ("cpu", cuda_device):
+        table = BucketTable(cap, device=dev, insight=W > 4)
+        rows = table.upload_id_rows(slots, em, em * 5)
+        outs = []
+        for j, ids in enumerate(windows * len(tiers)):
+            compact, with_degen = tiers[j // len(windows)]
+            now = 1_753_700_000 * NS + (j * K + np.arange(K)) * NS // 4
+            before = (fused.LAUNCHES, row_ops.GATHER_LAUNCHES,
+                      row_ops.SCATTER_LAUNCHES)
+            out = getattr(table, "check_many_" + variant)(
+                rows, _byid_stream(variant, ids, slots), now, 1,
+                with_degen=with_degen, compact=compact,
+            )
+            if dev != "cpu":
+                assert (fused.LAUNCHES - before[0],
+                        row_ops.GATHER_LAUNCHES - before[1],
+                        row_ops.SCATTER_LAUNCHES - before[2]) == (1, 0, 0)
+            outs.append((out.cpu().numpy(), ids >= 0, compact))
+        results[str(dev)] = (outs, table.state[:cap].cpu(),
+                             table.expired_hits())
+    (outs_c, st_c, hits_c), (outs_g, st_g, hits_g) = results.values()
+    for (oc, valid, compact), (og, _, _) in zip(outs_c, outs_g):
+        assert not ((oc != og) & out_mask(valid, compact)).any()
+    assert torch.equal(st_c, st_g) and hits_c == hits_g
+
+
+@pytest.mark.cuda
+def test_byid_table_raises_when_the_window_kernel_cannot_launch(
+    cuda_device, monkeypatch
+):
+    """No fallback: a by-id call whose window kernel cannot be loaded
+    raises, and nothing else decides the window."""
+    table = BucketTable(64, device=cuda_device)
+    rows = table.upload_id_rows(np.arange(8, dtype=np.int32),
+                                np.full(8, NS, np.int64),
+                                np.full(8, 4 * NS, np.int64))
+    state = table.state.clone()
+
+    def broken(index):
+        raise RuntimeError("window kernel unavailable")
+
+    monkeypatch.setattr(fused, "_load", broken)
+    before = (row_ops.GATHER_LAUNCHES, row_ops.SCATTER_LAUNCHES)
+    with pytest.raises(RuntimeError, match="unavailable"):
+        table.check_many_ids(rows, np.arange(8, dtype=np.int32)[None],
+                             np.array([1_753_700_000 * NS]), 1,
+                             with_degen=False, compact="cur")
+    assert (row_ops.GATHER_LAUNCHES, row_ops.SCATTER_LAUNCHES) == before
+    assert torch.equal(table.state, state)

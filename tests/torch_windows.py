@@ -1,5 +1,5 @@
 """Hostile decision windows shared by the port's kernel tests
-(test_torch_fused.py, test_torch_lane_header.py).
+(test_torch_fused.py, test_torch_lane_header.py, test_torch_card.py).
 
 The generator is the shape of test_pallas_fused.py's: duplicate-key
 segments with uniform per-segment params, degenerate params (zero
@@ -98,3 +98,20 @@ def out_mask(valid, compact):
     """Valid lanes of an output of tier `compact` (invalid lanes are
     don't-care in every tier)."""
     return valid if compact in ("cur", "w32") else valid[:, None, :]
+
+
+def byid_words(ids, slots):
+    """tk_assemble_ids request words (i64[K, B]) for raw ids i32[K, B]
+    against id rows with slots `slots`: segments per slot in arrival
+    order; padding (negative ids) has the valid bit clear."""
+    ids = np.asarray(ids, np.int64)
+    words = ids & 0xFFFFFFFF
+    for k in range(ids.shape[0]):
+        valid = ids[k] >= 0
+        slot = np.asarray(slots, np.int64)[np.clip(ids[k], 0, len(slots) - 1)]
+        # + 1: an unresolved slot (-1) is a key of its own, apart from
+        # segments()'s negative keys for invalid lanes.
+        rank, is_last, _ = segments(slot + 1, valid)
+        meta = rank.astype(np.int64) | (is_last << 14) | (1 << 15)
+        words[k] |= np.where(valid, meta << 32, 0)
+    return words

@@ -18,9 +18,13 @@
 // Bound: bytes.  Each row touched costs one 32-byte sector of the
 // table, plus the 4-byte index and the row itself on the dense side;
 // at B = 4096 that is ~0.2 MB, some 0.06 us at 3.35 TB/s, so a launch
-// is bound by its own launch cost long before the memory system.
-// Making it fast means fusing it away (fused_window.cu does, for the
-// serving path), not tuning this kernel.
+// is bound by its own launch cost long before the memory system.  So
+// these kernels are fused away where speed matters: every window of
+// the table's entry points, by-id ones included, moves its rows inside
+// fused_window.cu's cluster loop.  What still launches these is the
+// composed by-id scans of tpu/kernel.py (gcra_scan_{byid,ids,ids20}),
+// the counterparts of the JAX functions, one gather and one scatter per
+// sub-batch; their wrapper (tpu/row_ops.py) keeps its host cost small.
 //
 // The scatter's indices are unique by the caller's construction
 // (suppressed writes go to distinct scratch rows), as the TPU kernel

@@ -13,7 +13,9 @@ A window is one CUDA launch: one thread block cluster (up to 16 blocks of
 256 threads) walks the K sub-batches with a cluster barrier between each
 gather and its scatter, and writes the expired-hit counts itself.  The
 wrapper allocates the outputs with `torch.empty` and launches nothing
-else.
+else.  Every window of `BucketTable` comes here: the serving path's
+packed windows, and the by-id windows once `kernel.py`'s front end has
+expanded their ids into packed rows.
 
 Each wrapper takes the kernel's plain version (`kernel.decide_window`)
 only for tensors that lie on the CPU; for a CUDA tensor it launches the

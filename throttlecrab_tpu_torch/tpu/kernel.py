@@ -32,12 +32,17 @@ torch ops, one sub-batch at a time.  On CUDA tensors the serving path
 runs the hand-written kernel in `fused.py` instead; `decide_window` is
 what the CPU path runs and what that kernel is held against.
 
-The by-id launch path (`gcra_scan_byid` / `gcra_scan_ids` /
-`gcra_scan_ids20` and their `_acc` twins) has no fused kernel, as in the
-JAX package: its decide is these torch ops, and only its state-row
-gather and scatter are kernels (`row_ops.py`, the port of
+The by-id launch path decides on the expanded arrays, as the JAX
+package's `gcra_scan_byid` says it may: a front end (`byid_window` /
+`ids_window` / `ids20_window`, torch ops batched over the whole window)
+turns the window's ids into the packed request rows, which then go
+through the decision window like any other (`BucketTable.check_many_*`
+hand them to `fused.py`).  The composed scans `gcra_scan_byid` /
+`gcra_scan_ids` / `gcra_scan_ids20` and their `_acc` twins stay the
+counterparts of the JAX functions: one sub-batch at a time, their state
+rows moved by the `row_ops` kernels on a CUDA table (the port of
 `pallas_ops.py`).  `_gcra_body` takes its row movement explicitly: the
-by-id scans pass `row_ops`, `decide_window` the plain `row_ops.PLAIN`.
+composed scans pass `row_ops`, `decide_window` the plain `row_ops.PLAIN`.
 """
 
 from __future__ import annotations
@@ -605,8 +610,8 @@ def pack_id_rows(slots, emission, tolerance):
 
 
 def _rows_to_batch(rows, rank, is_last, valid, quantity, now_k):
-    """Gathered id rows -> the _gcra_body batch tuple (shared by the
-    host-words and raw-ids sub-batches, so they cannot drift)."""
+    """One sub-batch's request fields (`_byid_fields` / `_ids_fields`)
+    -> the _gcra_body batch tuple."""
     return (
         rows[:, 0],                                        # slots
         rank,
@@ -620,58 +625,76 @@ def _rows_to_batch(rows, rank, is_last, valid, quantity, now_k):
     )
 
 
-def _byid_batch(w, now_k, id_rows, quantity):
-    """One sub-batch of 8-byte request words (i64[B]) -> the _gcra_body
-    tuple."""
+def _id_rows_at(id_rows, idx):
+    """id_rows[idx] for an index tensor of any shape: i32[..., IDROW_WIDTH]."""
+    rows = id_rows.index_select(0, idx.reshape(-1))
+    return rows.reshape(idx.shape + (id_rows.shape[1],))
+
+
+def _byid_fields(w, id_rows):
+    """8-byte request words (i64[..., B]) -> (id rows i32[..., B,
+    IDROW_WIDTH], rank i64, is_last, valid), lane for lane.  The id is
+    clamped into the resident rows and keeps its valid bit."""
     n_ids = id_rows.shape[0]
-    idx = torch.clamp(_to_i32(w & _U32), 0, n_ids - 1)
+    rows = _id_rows_at(id_rows, torch.clamp(_to_i32(w & _U32), 0, n_ids - 1))
     meta = w >> 32
-    rows = id_rows.index_select(0, idx)
     # An unresolved id row (resolve_all on a full table) carries slot -1,
     # which would otherwise clip to slot 0 and decide against another
     # key's bucket.
-    valid = ((meta & (1 << 15)) != 0) & (rows[:, 0] >= 0)
-    return _rows_to_batch(
-        rows, meta & 0x3FFF, (meta & (1 << 14)) != 0, valid, quantity, now_k
-    )
+    valid = ((meta & (1 << 15)) != 0) & (rows[..., 0] >= 0)
+    return rows, meta & 0x3FFF, (meta & (1 << 14)) != 0, valid
+
+
+def _byid_batch(w, now_k, id_rows, quantity):
+    """One sub-batch of 8-byte request words (i64[B]) -> the _gcra_body
+    tuple."""
+    return _rows_to_batch(*_byid_fields(w, id_rows), quantity, now_k)
 
 
 def _device_segments(segkey):
-    """(rank i64[B], is_last bool[B]) per lane from a per-lane segment key,
-    on the device: a stable argsort groups equal keys in arrival order, a
+    """(rank i64[..., B], is_last bool[..., B]) per lane from a per-lane
+    segment key, each row of the last dimension on its own, on the
+    device: a stable argsort groups equal keys in arrival order, a
     running max finds each run's start, and the inverse permutation (a
     second stable argsort) maps the ranks back to arrival positions."""
-    B = segkey.shape[0]
-    order = torch.argsort(segkey, stable=True)
-    sk = segkey.index_select(0, order)
-    pos = torch.arange(B, dtype=torch.int64, device=segkey.device)
-    change = sk[1:] != sk[:-1]
-    edge = torch.ones(1, dtype=torch.bool, device=segkey.device)
-    run_start = torch.cat([edge, change])
-    start_pos = torch.cummax(torch.where(run_start, pos, 0), dim=0).values
+    dev = segkey.device
+    order = torch.argsort(segkey, dim=-1, stable=True)
+    sk = torch.gather(segkey, -1, order)
+    pos = torch.arange(segkey.shape[-1], dtype=torch.int64, device=dev)
+    change = sk[..., 1:] != sk[..., :-1]
+    edge = torch.ones(sk.shape[:-1] + (1,), dtype=torch.bool, device=dev)
+    run_start = torch.cat([edge, change], dim=-1)
+    start_pos = torch.cummax(torch.where(run_start, pos, 0), dim=-1).values
     rank_sorted = pos - start_pos
-    last_sorted = torch.cat([change, edge])
-    inv = torch.argsort(order, stable=True)
-    return rank_sorted.index_select(0, inv), last_sorted.index_select(0, inv)
+    last_sorted = torch.cat([change, edge], dim=-1)
+    inv = torch.argsort(order, dim=-1, stable=True)
+    return (torch.gather(rank_sorted, -1, inv),
+            torch.gather(last_sorted, -1, inv))
 
 
-def _ids_batch(w, now_k, id_rows, quantity):
-    """One sub-batch of raw key ids (i32[B], negative = padding) -> the
-    _gcra_body tuple, with the duplicate-segment structure derived on the
-    device.  Segments are keyed by slot, so two ids sharing a slot still
-    serialise; every invalid lane gets its own key beyond any real slot,
-    so it can neither join nor split a real segment."""
+def _ids_fields(w, id_rows):
+    """Raw key ids (i32[..., B], negative = padding) -> (id rows, rank
+    i64, is_last, valid) as `_byid_fields`, with the duplicate-segment
+    structure of each sub-batch derived on the device.  Segments are
+    keyed by slot, so two ids sharing a slot still serialise; every
+    invalid lane gets its own key beyond any real slot, so it can
+    neither join nor split a real segment."""
     n_ids = id_rows.shape[0]
     # An id beyond the resident rows (interned after upload, or corrupt)
     # is invalid, never clipped onto another key.
     valid = (w >= 0) & (w < n_ids)
-    rows = id_rows.index_select(0, torch.clamp(w, 0, n_ids - 1))
-    slots = rows[:, 0]
+    rows = _id_rows_at(id_rows, torch.clamp(w, 0, n_ids - 1))
+    slots = rows[..., 0]
     valid = valid & (slots >= 0)
-    pos = torch.arange(w.shape[0], dtype=torch.int32, device=w.device)
+    pos = torch.arange(w.shape[-1], dtype=torch.int32, device=w.device)
     segkey = torch.where(valid, slots, _I32_MAX - pos)
     rank, is_last = _device_segments(segkey)
-    return _rows_to_batch(rows, rank, is_last, valid, quantity, now_k)
+    return rows, rank, is_last, valid
+
+
+def _ids_batch(w, now_k, id_rows, quantity):
+    """One sub-batch of raw key ids (i32[B]) -> the _gcra_body tuple."""
+    return _rows_to_batch(*_ids_fields(w, id_rows), quantity, now_k)
 
 
 # The 20-bit id stream: 2.5 bytes per request in one u16 buffer per
@@ -702,23 +725,69 @@ def pack_ids20(ids):
 
 
 def _ids20_decode(buf, B):
-    """One sub-batch's u16[B + B//4] stream -> i32[B] ids (device)."""
+    """u16[..., B + B//4] streams -> i32[..., B] ids (device), each row of
+    the last dimension one sub-batch."""
     b = buf.to(torch.int32)
     pos = torch.arange(B, dtype=torch.int32, device=buf.device)
-    hi = (b.index_select(0, B + (pos >> 2)) >> ((pos & 3) * 4)) & 0xF
-    return (hi << 16) | b[:B]
+    hi = (b.index_select(-1, B + (pos >> 2)) >> ((pos & 3) * 4)) & 0xF
+    return (hi << 16) | b[..., :B]
 
 
 def _ids20_width(packed):
     """B of a u16[K, B + B//4] stream; a misaligned buffer (e.g. a raw id
     stream handed to the wrong scan) would mis-split into in-range
     garbage ids, so it raises instead."""
-    W = packed.shape[1]
+    W = packed.shape[-1]
     if W % 5:
         raise ValueError(
             f"ids20 stream width must be a multiple of 5 (got {W})"
         )
     return W * 4 // 5
+
+
+# ---- the by-id window front end ------------------------------------------ #
+# A whole window's ids become the packed request rows in one pass of
+# batched torch ops (no loop over sub-batches), independent of the
+# table; the decision window then runs on them as on any packed window.
+
+
+def _pack_window(rows, rank, is_last, valid, quantity):
+    """Request fields over [K, B] lanes -> i32[K, B, PACK_WIDTH] in
+    pack_requests' layout: the id row's slot, the rank (up to B - 1, so
+    a whole i32 column), the flags, the id row's emission and tolerance
+    words verbatim, and the launch-uniform quantity."""
+    flags = (is_last.to(torch.int32) * PACK_FLAG_IS_LAST
+             + valid.to(torch.int32) * PACK_FLAG_VALID)
+    q = rows.new_empty(rank.shape + (2,))
+    q[..., 0] = ((quantity & _U32) ^ (1 << 31)) - (1 << 31)
+    q[..., 1] = quantity >> 32
+    return torch.cat(
+        [rows[..., :1], rank.to(torch.int32)[..., None], flags[..., None],
+         rows[..., 1:5], q],
+        dim=-1,
+    )
+
+
+def byid_window(id_rows, words, quantity):
+    """8-byte request words (i64[K, B], tk_assemble_ids layout) against
+    resident `id_rows` -> the packed window i32[K, B, PACK_WIDTH] on the
+    words' device; `quantity` a launch-uniform int.  Lane for lane the
+    rows gcra_scan_byid_acc decides."""
+    return _pack_window(*_byid_fields(words, id_rows), quantity)
+
+
+def ids_window(id_rows, ids, quantity):
+    """Raw key ids (i32[K, B], negative = padding) -> the packed window,
+    as byid_window; the rows gcra_scan_ids_acc decides."""
+    return _pack_window(*_ids_fields(ids, id_rows), quantity)
+
+
+def ids20_window(id_rows, packed, quantity):
+    """The 20-bit id stream (u16[K, B + B//4], pack_ids20) -> the packed
+    window, as ids_window; all K sub-batches decoded at once."""
+    return ids_window(
+        id_rows, _ids20_decode(packed, _ids20_width(packed)), quantity
+    )
 
 
 def _scan_rows(state, exp_acc, batches, *, with_degen, compact):

@@ -6,13 +6,21 @@ The port of `throttlecrab_tpu/tpu/pallas_ops.py` (`row_gather`,
 is `csrc/row_ops.cu`, built with nvcc at first use (tpu/nvcc.py) and
 bound with ctypes.
 
+The table's by-id entry points no longer reach these kernels: their
+windows go through the window kernel, which moves the rows itself
+(`fused.py`).  The composed by-id scans of `kernel.py` still do, one
+gather and one scatter per sub-batch.
+
 Rows are i32[W] with W = 4, or 6 for the insight layout.  Each wrapper
 takes the plain version (`row_gather_plain` / `row_scatter_plain`:
 `index_select` / `index_copy_`) only for tensors that lie on the CPU;
 for a CUDA tensor it launches the kernel or raises.  `GATHER_LAUNCHES`
 and `SCATTER_LAUNCHES` count kernel launches.  Both kernels are queued
 on the current stream without synchronising, so a sub-batch's scatter
-stays ahead of the next sub-batch's gather.
+stays ahead of the next sub-batch's gather.  A launch costs the host
+more than the device, so the wrappers keep their own work small: the
+bound functions are looked up once and the stream handle comes from one
+C call.
 """
 
 from __future__ import annotations
@@ -35,6 +43,9 @@ LIB_STEM = "libtc_row_ops"
 SOURCES = ("row_ops.cu",)
 
 _lib = None
+_gather = None  # the bound tc_row_gather
+_scatter = None  # the bound tc_row_scatter
+_raw_stream = None  # device index -> the current stream's handle
 
 
 def build():
@@ -44,7 +55,9 @@ def build():
 
 
 def _load():
-    global _lib
+    """Build, load and bind the library (once: the plain-C functions
+    launch on whichever device is current, so they serve every device)."""
+    global _lib, _gather, _scatter, _raw_stream
     if _lib is None:
         lib = nvcc.load(LIB_STEM, SOURCES)
         p = ctypes.c_void_p
@@ -53,8 +66,9 @@ def _load():
                 p, ctypes.c_longlong, ctypes.c_int, p, ctypes.c_int, p, p,
             ]
             fn.restype = ctypes.c_int
+        _raw_stream = torch._C._cuda_getCurrentRawStream
+        _gather, _scatter = lib.tc_row_gather, lib.tc_row_scatter
         _lib = lib
-    return _lib
 
 
 # ---- the plain version ---------------------------------------------------- #
@@ -81,33 +95,35 @@ PLAIN = SimpleNamespace(
 
 
 def _check(table, idx, rows=None):
-    """Raise on what the kernels do not take; returns (N, W, B)."""
+    """Raise on what the kernels do not take; returns (N, W, B, device
+    index), the index -1 for a CPU table."""
+    dev = table.get_device()
     for name, t in (("table", table), ("idx", idx), ("rows", rows)):
         if t is None:
             continue
-        if t.dtype != torch.int32:
+        if t.dtype is not torch.int32:
             raise TypeError(f"{name} must be torch.int32, got {t.dtype}")
-        if t.device != table.device:
+        if t.get_device() != dev:
             raise ValueError(
                 f"{name} is on {t.device}, table on {table.device}"
             )
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if table.dim() != 2 or table.shape[1] not in WIDTHS:
-        raise ValueError(
-            f"table must be i32[N, 4|6], got {tuple(table.shape)}"
-        )
-    N, W = table.shape
+    has_rows = rows is not None
+    shape = table.shape
+    if len(shape) != 2 or shape[1] not in WIDTHS:
+        raise ValueError(f"table must be i32[N, 4|6], got {tuple(shape)}")
+    N, W = shape
     if idx.dim() != 1:
         raise ValueError(f"idx must be i32[B], got {tuple(idx.shape)}")
     B = idx.shape[0]
     if not 1 <= B <= min(MAX_BATCH, N):
         raise ValueError(f"batch {B} outside [1, min({MAX_BATCH}, N={N})]")
-    if rows is not None and tuple(rows.shape) != (B, W):
+    if has_rows and rows.shape != (B, W):
         raise ValueError(
             f"rows must be i32[{B}, {W}], got {tuple(rows.shape)}"
         )
-    if table.device.type == "cuda":
+    if table.is_cuda:
         # W=4 rows move as 16-byte vectors, W=6 rows as 8-byte ones.
         align = 16 if W == 4 else 8
         for name, t in (("table", table), ("rows", rows)):
@@ -117,21 +133,21 @@ def _check(table, idx, rows=None):
         raise ValueError(
             f"row ops run on cuda or cpu tensors, got {table.device}"
         )
-    return N, W, B
+    return N, W, B, dev
 
 
 def row_gather(table, idx):
     """rows = table[idx]: `table` i32[N, W] (W 4 or 6), `idx` i32[B] with
     every index in [0, N); returns i32[B, W] on the table's device."""
     global GATHER_LAUNCHES
-    N, W, B = _check(table, idx)
-    if table.device.type == "cpu":
+    N, W, B, dev = _check(table, idx)
+    if dev < 0:
         return row_gather_plain(table, idx)
-    out = torch.empty((B, W), dtype=torch.int32, device=table.device)
-    rc = _load().tc_row_gather(
-        table.data_ptr(), N, W, idx.data_ptr(), B, out.data_ptr(),
-        torch.cuda.current_stream(table.device).cuda_stream,
-    )
+    if _lib is None:
+        _load()
+    out = table.new_empty((B, W))
+    rc = _gather(table.data_ptr(), N, W, idx.data_ptr(), B, out.data_ptr(),
+                 _raw_stream(dev))
     if rc != 0:
         raise RuntimeError(f"tc_row_gather failed: CUDA error {rc}")
     GATHER_LAUNCHES += 1
@@ -143,13 +159,13 @@ def row_scatter(table, idx, rows):
     guarantee, as for the TPU kernel), in [0, N); `rows` i32[B, W].
     Returns `table`."""
     global SCATTER_LAUNCHES
-    N, W, B = _check(table, idx, rows)
-    if table.device.type == "cpu":
+    N, W, B, dev = _check(table, idx, rows)
+    if dev < 0:
         return row_scatter_plain(table, idx, rows)
-    rc = _load().tc_row_scatter(
-        table.data_ptr(), N, W, idx.data_ptr(), B, rows.data_ptr(),
-        torch.cuda.current_stream(table.device).cuda_stream,
-    )
+    if _lib is None:
+        _load()
+    rc = _scatter(table.data_ptr(), N, W, idx.data_ptr(), B, rows.data_ptr(),
+                  _raw_stream(dev))
     if rc != 0:
         raise RuntimeError(f"tc_row_scatter failed: CUDA error {rc}")
     SCATTER_LAUNCHES += 1

@@ -6,14 +6,15 @@ sees integer slots.  Each slot's (TAT, expiry) pair is one i32[4] row
 (i32[6] with the insight deny counter), plus a scratch tail of
 `SCRATCH` rows that absorbs suppressed writes at unique indices.
 
-Every decision window of the serving path goes through
-`fused.gcra_scan_packed_fused_*`: on `cuda` that is the hand-written
-kernel, on `cpu` the plain version.  The by-id launch path
-(`upload_id_rows`, `check_many_byid` / `_ids` / `_ids20`) runs the
-composed decide of `kernel.gcra_scan_*_acc`, whose state rows move
-through the `row_ops` kernels on `cuda`.  The state is updated in place;
-outputs are returned as device tensors so the caller decides when to
-fetch.
+Every decision window goes through `fused.gcra_scan_packed_fused_*`:
+on `cuda` that is one launch of the hand-written kernel, on `cpu` the
+plain version.  The by-id launch path (`upload_id_rows`,
+`check_many_byid` / `_ids` / `_ids20`) first expands the window's ids
+into packed request rows with the front end of `kernel.py`
+(`byid_window` / `ids_window` / `ids20_window`), so a by-id window too
+is one launch, and the row kernels (`row_ops.py`) are not on it.  The
+state is updated in place; outputs are returned as device tensors so
+the caller decides when to fetch.
 """
 
 from __future__ import annotations
@@ -26,9 +27,9 @@ from .kernel import (
     EMPTY_EXPIRY,
     IDS20_SENTINEL,
     INS_WIDTH,
-    gcra_scan_byid_acc,
-    gcra_scan_ids20_acc,
-    gcra_scan_ids_acc,
+    byid_window,
+    ids20_window,
+    ids_window,
     pack_id_rows,
     pack_requests,
     pack_state,
@@ -307,21 +308,27 @@ class BucketTable:
             return rows
         return ResidentIdRows(rows, keymap)
 
-    def _byid_launch(self, scan_acc, id_rows, stream, dtype, batch, now_ns,
+    def _byid_launch(self, front, id_rows, stream, dtype, batch, now_ns,
                      quantity, with_degen, compact, params_cur_safe):
+        """Expand the window's ids with `front` and decide it as one
+        packed window.  An insight table takes the `_acc` window too: the
+        by-id entry points leave `ins_counts` alone, as the JAX package's
+        do."""
         if isinstance(id_rows, ResidentIdRows):
             id_rows = id_rows.rows_checked()
         if batch > self.SCRATCH:
             raise ValueError("batch exceeds scratch region")
         track_cur_safety(self, compact, params_cur_safe)
         self.note_launch_now(_host_max_now(now_ns))
-        self.state, self.exp_acc, out = scan_acc(
+        packed = front(
+            id_rows, torch.as_tensor(stream, dtype=dtype).to(self.device),
+            int(quantity),
+        )
+        self.state, self.exp_acc, out = fused.gcra_scan_packed_fused_acc(
             self.state,
             self.exp_acc,
-            id_rows,
-            torch.as_tensor(stream, dtype=dtype).to(self.device),
+            packed,
             torch.as_tensor(now_ns, dtype=torch.int64).to(self.device),
-            int(quantity),
             with_degen=with_degen,
             compact=compact,
         )
@@ -338,7 +345,7 @@ class BucketTable:
         is launch-uniform.  Returns the device output per `compact` (see
         check_many_packed) without fetching."""
         return self._byid_launch(
-            gcra_scan_byid_acc, id_rows, words, torch.int64, words.shape[1],
+            byid_window, id_rows, words, torch.int64, words.shape[1],
             now_ns, quantity, with_degen, compact, params_cur_safe,
         )
 
@@ -352,7 +359,7 @@ class BucketTable:
         duplicate-segment structure derived on the device.  Otherwise as
         check_many_byid."""
         return self._byid_launch(
-            gcra_scan_ids_acc, id_rows, ids, torch.int32, ids.shape[1],
+            ids_window, id_rows, ids, torch.int32, ids.shape[1],
             now_ns, quantity, with_degen, compact, params_cur_safe,
         )
 
@@ -381,7 +388,7 @@ class BucketTable:
                 f"[..., {packed.shape[1]}])"
             )
         return self._byid_launch(
-            gcra_scan_ids20_acc, id_rows, packed, torch.uint16,
+            ids20_window, id_rows, packed, torch.uint16,
             packed.shape[1] * 4 // 5, now_ns, quantity, with_degen, compact,
             params_cur_safe,
         )
