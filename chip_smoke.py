@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Eight phases, each printing its results; any failure raises and the script
+Nine phases, each printing its results; any failure raises and the script
 exits nonzero without its last line:
 
 1. card: the card's name and power limit (nvidia-smi), and the builds of
@@ -26,10 +26,15 @@ exits nonzero without its last line:
    path), then a sweep; the same traffic replayed on device="cpu" must
    give identical results and state, and the kernel's launch counter,
    zeroed just before, must have moved;
-4. server: `python -m throttlecrab_tpu_torch.server --http` on cuda
-   answers 5 POST /throttle for one key (burst 3, 1 per hour) as
-   allowed x3 (remaining 2, 1, 0) then denied x2, answers /health and
-   /metrics, and exits 0 on SIGTERM;
+4. server: `python -m throttlecrab_tpu_torch.server` on cuda, booted
+   twice: `--http --redis` (asyncio transports), then with
+   `--http-backend native --redis-backend native` (the C++ wire server).
+   Each boot answers 5 POST /throttle for one key (burst 3, 1 per hour)
+   as allowed x3 (remaining 2, 1, 0) then denied x2; RESP PING -> +PONG,
+   5 THROTTLE for another key -> :1 x3 (remaining 2, 1, 0) then :0 x2,
+   QUIT -> +OK and a close; one key over both transports shares one
+   bucket; /health and /metrics (which counts both transports'
+   requests) answer, and SIGTERM gives exit 0;
 5. row kernels vs plain: row_gather / row_scatter (tpu/row_ops.py)
    against index_select / index_copy_ at N = 2^21 + 2^16, B = 4096,
    W = 4 and 6, rows 0 and N-1 included.  Tolerance: exact equality;
@@ -58,7 +63,25 @@ exits nonzero without its last line:
    and at most one per call, and the wrapper's host time per call), and
    each row kernel's, its plain version's and the library call's time
    per launch at B=4096 (CUDA events, profiler, host time per call);
-   phases 3, 6 and 7's decisions/s come from the host clock.
+   phases 3, 6 and 7's decisions/s come from the host clock;
+9. native RESP server at full width: a NativeRedisTransport in process
+   over TorchRateLimiter(capacity=2^20, keymap="native") on cuda, batch
+   4096, max_scan_depth 16, answers phase 3's traffic (1M keys,
+   Zipf-1.1, per-key params, quantity 1; 10 windows' worth, 655,360
+   THROTTLE commands) pipelined over 8 connections by client
+   subprocesses, then a further 2 windows' worth under the profiler.  A
+   recording subclass keeps every window's frames, cookies, timestamp
+   and fetched results in dispatch order; every command must get a *5
+   reply, each connection's bytes must equal what a device="cpu"
+   replay of the recorded windows gives its requests, the table state
+   the replay's, and the counters (zeroed just before) must show one
+   decision-window launch per window, every window on the
+   dispatch_wire_window route.  Prints replies/s on the clients' clock,
+   decisions per launch, the driver's median ms per window and seconds
+   over the run for each part (wait in ws_next_batch, capture,
+   dispatch_wire_window, fetch, ws_respond) and its busy share,
+   phase 7's in-process rate, and the profiled stretch's device time and
+   idle share.
 
 The line before the last is the {"kernels": [...]} record; the last line
 is {"ok": true, "device": {...}}.
@@ -414,15 +437,42 @@ def http(port, method, path, body=None, timeout=30):
         return r.status, r.read()
 
 
-def check_server(extra_env=None):
-    import os
+def resp_frame(*parts) -> bytes:
+    out = b"*%d\r\n" % len(parts)
+    for part in parts:
+        data = part.encode()
+        out += b"$%d\r\n%s\r\n" % (len(data), data)
+    return out
 
-    port = free_port()
-    env = dict(os.environ, **(extra_env or {}))
+
+def resp_reply(sock) -> bytes:
+    """One RESP reply (a line, or a *5 array of integer lines)."""
+    data = b""
+    while not data.endswith(b"\r\n") or (
+        data.startswith(b"*5") and data.count(b"\r\n") < 6
+    ):
+        chunk = sock.recv(4096)
+        if not chunk:
+            break
+        data += chunk
+    return data
+
+
+def throttle_body(key, burst):
+    return json.dumps({"key": key, "max_burst": burst,
+                       "count_per_period": 1, "period": 3600}).encode()
+
+
+def check_server(backend):
+    """Phase 4, one boot with both transports on `backend` ("python" or
+    "native")."""
+    http_port, redis_port = free_port(), free_port()
     proc = subprocess.Popen(
         [sys.executable, "-m", "throttlecrab_tpu_torch.server", "--http",
-         "--http-host", "127.0.0.1", "--http-port", str(port)],
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+         "--http-host", "127.0.0.1", "--http-port", str(http_port),
+         "--http-backend", backend, "--redis", "--redis-host", "127.0.0.1",
+         "--redis-port", str(redis_port), "--redis-backend", backend],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
     )
     try:
         deadline = time.monotonic() + 180
@@ -432,29 +482,69 @@ def check_server(extra_env=None):
                     f"server exited {proc.returncode}:\n{proc.stdout.read()}"
                 )
             try:
-                if http(port, "GET", "/health", timeout=2) == (200, b"OK"):
+                if http(http_port, "GET", "/health", timeout=2) == (
+                    200, b"OK"
+                ):
                     break
             except OSError:
                 pass
             if time.monotonic() > deadline:
                 raise AssertionError("server did not come up in 180 s")
             time.sleep(0.25)
-        body = json.dumps({"key": "smoke:1", "max_burst": 3,
-                           "count_per_period": 1, "period": 3600}).encode()
-        answers = [json.loads(http(port, "POST", "/throttle", body)[1])
+        answers = [json.loads(http(http_port, "POST", "/throttle",
+                                   throttle_body("smoke:1", 3))[1])
                    for _ in range(5)]
-        for a in answers:
-            print(f"  {a}")
+        print(f"  HTTP: {answers[0]} ... {answers[-1]}")
         allowed = [a["allowed"] for a in answers]
         remaining = [a["remaining"] for a in answers]
         if allowed != [True, True, True, False, False] or (
             remaining[:3] != [2, 1, 0]
         ):
             raise AssertionError(f"unexpected answers {answers}")
-        status, text = http(port, "GET", "/metrics")
-        if status != 200 or b"throttlecrab_requests_allowed 3" not in text:
-            raise AssertionError("/metrics did not count the requests")
-        print(f"  /health 200 OK, /metrics 200 ({len(text)} bytes)")
+        with socket.create_connection(("127.0.0.1", redis_port), 30) as sock:
+            def resp(*parts):
+                sock.sendall(resp_frame(*parts))
+                return resp_reply(sock)
+
+            if resp("PING") != b"+PONG\r\n":
+                raise AssertionError("PING did not answer +PONG")
+            replies = [resp("THROTTLE", "smoke:r", "3", "1", "3600")
+                       for _ in range(5)]
+            print(f"  RESP: {replies[0]!r} ... {replies[-1]!r}")
+            heads = [r.split(b"\r\n")[1] for r in replies]
+            rem = [r.split(b"\r\n")[3] for r in replies[:3]]
+            if heads != [b":1"] * 3 + [b":0"] * 2 or rem != [
+                b":2", b":1", b":0"
+            ]:
+                raise AssertionError(f"unexpected RESP answers {replies}")
+            # One key over both transports: one bucket of burst 2.
+            shared = [
+                resp("THROTTLE", "smoke:both", "2", "1", "3600")[:8],
+                json.loads(http(http_port, "POST", "/throttle",
+                                throttle_body("smoke:both", 2))[1]
+                           )["allowed"],
+                resp("THROTTLE", "smoke:both", "2", "1", "3600")[:8],
+            ]
+            if shared != [b"*5\r\n:1\r\n", True, b"*5\r\n:0\r\n"]:
+                raise AssertionError(f"transports do not share a bucket: "
+                                     f"{shared}")
+            if resp("QUIT") != b"+OK\r\n" or sock.recv(16) != b"":
+                raise AssertionError("QUIT did not answer +OK and close")
+        print("  RESP PING/THROTTLE/QUIT as expected; one key shares one "
+              "bucket over RESP and HTTP")
+        want = (b'transport="http"} 6', b'transport="redis"} 7',
+                b"throttlecrab_requests_allowed 8")
+        deadline = time.monotonic() + 10  # the native /metrics: 1 s pushes
+        while True:
+            status, text = http(http_port, "GET", "/metrics")
+            if status == 200 and all(w in text for w in want):
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"/metrics did not count both "
+                                     f"transports:\n{text.decode()}")
+            time.sleep(0.25)
+        print(f"  /health 200 OK, /metrics 200 ({len(text)} bytes, counts "
+              "both transports)")
         proc.send_signal(signal.SIGTERM)
         rc = proc.wait(timeout=60)
         if rc != 0:
@@ -1037,6 +1127,350 @@ def run_wire(limiter, frame_windows):
     return results, seconds
 
 
+# ---- native RESP server (phase 9) ---------------------------------------- #
+
+
+RESP_CONNS = 8  # client connections, each its own subprocess
+RESP_WINDOWS = 10  # windows' worth of commands in the measured run
+RESP_PROFILED_WINDOWS = 2  # ... and in the profiled run after it
+SPLIT = ("wait", "capture", "dispatch", "fetch", "respond")
+
+# A RESP client that sends its pre-encoded commands pipelined (a sender
+# thread) while it counts the "*5" replies (a 3-byte carry across recv
+# chunks), then writes what it received to a file and its clock to
+# stdout.  It starts sending when the go file appears.
+RESP_CLIENT = r"""
+import json, os, socket, sys, threading, time
+src, dst, port, n, go = sys.argv[1:6]
+n = int(n)
+data = open(src, "rb").read()
+sock = socket.create_connection(("127.0.0.1", int(port)))
+while not os.path.exists(go):
+    time.sleep(0.001)
+start = time.monotonic()
+def send():
+    view = memoryview(data)
+    for i in range(0, len(data), 1 << 16):
+        sock.sendall(view[i:i + (1 << 16)])
+sender = threading.Thread(target=send)
+sender.start()
+chunks, count, carry = [], 0, b""
+while count < n:
+    chunk = sock.recv(1 << 20)
+    if not chunk:
+        break
+    chunks.append(chunk)
+    count += (carry + chunk).count(b"*5\r\n")
+    carry = chunk[-3:]
+end = time.monotonic()
+sender.join()
+sock.close()
+open(dst, "wb").write(b"".join(chunks))
+print(json.dumps({"start": start, "end": end, "replies": count}))
+"""
+
+
+def resp_commands(rng, n):
+    """`n` THROTTLE commands of phase 3's traffic with quantity 1: Zipf-1.1
+    key ids over N_KEYS, per-key (burst, count, period) from the id.
+    Returns (key ids i64[n], RESP frames as a list of bytes)."""
+    import numpy as np
+
+    p = np.arange(1, N_KEYS + 1, dtype=np.float64) ** -1.1
+    cdf = np.cumsum(p / p.sum())
+    kid = np.minimum(np.searchsorted(cdf, rng.random(n)),
+                     N_KEYS - 1).astype(np.int64)
+    cache = {}
+
+    def encode(k):
+        key = b"bench:key:%d" % k
+        args = [b"%d" % v for v in (5 + k % 60, 50 + k % 1000, 30 + k % 120)]
+        return b"*5\r\n$8\r\nTHROTTLE\r\n" + b"".join(
+            b"$%d\r\n%s\r\n" % (len(a), a) for a in [key, *args])
+
+    frames = []
+    for k in kid.tolist():
+        f = cache.get(k)
+        if f is None:
+            f = cache[k] = encode(k)
+        frames.append(f)
+    return kid, frames
+
+
+def run_resp_clients(port, kid, frames, tmp, tag):
+    """Send the commands over RESP_CONNS connections (command i on
+    connection i % RESP_CONNS), one client subprocess each, all started
+    by one go file; returns [(key ids, received bytes, clock record)]
+    per connection."""
+    import os
+
+    procs = []
+    go = os.path.join(tmp, f"{tag}.go")
+    try:
+        for c in range(RESP_CONNS):
+            src = os.path.join(tmp, f"{tag}{c}.in")
+            dst = os.path.join(tmp, f"{tag}{c}.out")
+            with open(src, "wb") as f:
+                f.write(b"".join(frames[c::RESP_CONNS]))
+            n = len(frames[c::RESP_CONNS])
+            procs.append((c, dst, subprocess.Popen(
+                [sys.executable, "-c", RESP_CLIENT, src, dst, str(port),
+                 str(n), go],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        time.sleep(0.5)  # the clients connect, then wait for the go file
+        open(go, "w").close()
+        out = []
+        for c, dst, proc in procs:
+            stdout, stderr = proc.communicate(timeout=300)
+            if proc.returncode != 0:
+                raise AssertionError(f"RESP client {c} exited "
+                                     f"{proc.returncode}: {stderr[-2000:]}")
+            with open(dst, "rb") as f:
+                out.append((kid[c::RESP_CONNS], f.read(),
+                            json.loads(stdout)))
+        return out
+    finally:
+        for _, _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def recording_transport(limiter):
+    """A NativeRedisTransport that records, in dispatch order, each
+    window's frames, cookies, timestamp and fetched results, and the
+    driver's seconds per part (SPLIT) of each window."""
+    from throttlecrab_tpu_torch.server.metrics import Metrics
+    from throttlecrab_tpu_torch.server.native_redis import (
+        NativeRedisTransport,
+    )
+
+    class Recording(NativeRedisTransport):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.windows = []
+            self._parts = dict.fromkeys(SPLIT, 0.0)
+
+        def _timed(self, part, fn, *a):
+            t = time.perf_counter()
+            out = fn(*a)
+            self._parts[part] += time.perf_counter() - t
+            return out
+
+        def _next_batch(self, linger_us):
+            return self._timed("wait", super()._next_batch, linger_us)
+
+        def _capture(self, n):
+            return self._timed("capture", super()._capture, n)
+
+        def _respond_one(self, *a):
+            return self._timed("respond", super()._respond_one, *a)
+
+        def _decide_frames(self, frames, now_ns):
+            self._record.update(frames=frames, now_ns=now_ns)
+            results = super()._decide_frames(frames, now_ns)
+            self._record["results"] = results
+            return results
+
+        def _decide_window(self, batches):
+            self._record = {"cookies": [(b[3], b[4]) for b in batches]}
+            super()._decide_window(batches)
+            self._record["split"] = self._parts
+            self.windows.append(self._record)
+            self._parts = dict.fromkeys(SPLIT, 0.0)
+
+    class TimedLimiter:
+        """The limiter with dispatch_wire_window and each handle's fetch
+        timed into the window being recorded."""
+
+        def __init__(self, inner):
+            self._inner = inner
+
+        def __getattr__(self, name):
+            return getattr(self._inner, name)
+
+        def __len__(self):
+            return len(self._inner)
+
+        def dispatch_wire_window(self, frames, now_ns):
+            handle = transport._timed(
+                "dispatch", self._inner.dispatch_wire_window, frames, now_ns)
+            if handle is not None:
+                fetch = handle.fetch
+                handle.fetch = lambda: transport._timed("fetch", fetch)
+            return handle
+
+    transport = Recording("127.0.0.1", 0, TimedLimiter(limiter), Metrics(),
+                          batch_size=B, max_scan_depth=K)
+    return transport
+
+
+def profile_stretch(run):
+    """torch.profiler around run(): its record (summarize_profile)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
+    return summarize_profile(wall, sum(by_name.values()) if kernels else None,
+                             by_name, len(kernels), top=4)
+
+
+def resp_expected(windows, replay):
+    """{cookie: [reply bytes...]} in dispatch order from the replay's
+    results, and {cookie: [key bytes...]} from the recorded frames."""
+    import numpy as np
+
+    replies, keys = {}, {}
+    for w, results in zip(windows, replay):
+        for (blob, offsets, _p), (gen, fd), res in zip(
+            w["frames"], w["cookies"], results
+        ):
+            if (res.status != 0).any():
+                raise AssertionError("a phase 9 request failed validation")
+            rows = np.stack([res.allowed.astype(np.int64), res.limit,
+                             res.remaining, res.reset_after_s,
+                             res.retry_after_s], 1).tolist()
+            for i, (g, f) in enumerate(zip(gen.tolist(), fd.tolist())):
+                replies.setdefault((g, f), []).append(
+                    b"*5\r\n:%d\r\n:%d\r\n:%d\r\n:%d\r\n:%d\r\n"
+                    % tuple(rows[i]))
+                keys.setdefault((g, f), []).append(
+                    blob[offsets[i]:offsets[i + 1]])
+    return replies, keys
+
+
+def check_resp_replies(runs, windows, replay):
+    """Each connection's bytes against the replay: the connection's
+    cookie is the one whose recorded keys are the keys it sent."""
+    replies, keys = resp_expected(windows, replay)
+    by_keys = {tuple(v): c for c, v in keys.items()}
+    if len(by_keys) != len(runs):
+        raise AssertionError(f"{len(by_keys)} connections recorded, "
+                             f"{len(runs)} clients ran")
+    for kid, got, clock in runs:
+        cookie = by_keys.get(tuple(b"bench:key:%d" % k for k in kid.tolist()))
+        if cookie is None:
+            raise AssertionError("a client's commands were not dispatched "
+                                 "in the order it sent them")
+        if clock["replies"] != len(kid):
+            raise AssertionError(f"{clock['replies']} *5 replies for "
+                                 f"{len(kid)} commands")
+        if got != b"".join(replies[cookie]):
+            raise AssertionError("a connection's replies differ from the "
+                                 "device='cpu' replay")
+
+
+def run_native_resp(card, wire_rate):
+    """Phase 9; returns its record for the kernels line."""
+    import asyncio
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from throttlecrab_tpu_torch.server import native_redis
+    from throttlecrab_tpu_torch.tpu import fused
+    from throttlecrab_tpu_torch.tpu.limiter import TorchRateLimiter
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(9)
+    n_main = RESP_WINDOWS * K * B
+    traffic = [resp_commands(rng, n_main),
+               resp_commands(rng, RESP_PROFILED_WINDOWS * K * B)]
+    limiter = TorchRateLimiter(capacity=CAPACITY, keymap="native")
+    transport = recording_transport(limiter)
+    loop = asyncio.new_event_loop()
+    loop.run_until_complete(transport.start())
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            fused.LAUNCHES = 0
+            native_redis.WIRE_WINDOWS = native_redis.EXACT_WINDOWS = 0
+            native_redis.DISPATCH_ERRORS = 0
+            runs = run_resp_clients(transport.bound_port, *traffic[0], tmp,
+                                    "main")
+            n_measured = len(transport.windows)
+            profiled = []
+            profile = profile_stretch(lambda: profiled.extend(
+                run_resp_clients(transport.bound_port, *traffic[1], tmp,
+                                 "profiled")))
+            torch.cuda.synchronize()
+            routes = (fused.LAUNCHES, native_redis.WIRE_WINDOWS,
+                      native_redis.EXACT_WINDOWS,
+                      native_redis.DISPATCH_ERRORS)
+    finally:
+        loop.run_until_complete(transport.stop())
+        loop.close()
+    windows = transport.windows
+    print(f"  {len(windows)} windows ({n_measured} in the measured run): "
+          f"fused_window launches, wire windows, exact windows, dispatch "
+          f"exceptions = {routes}")
+    if routes != (len(windows), len(windows), 0, 0):
+        raise AssertionError(f"expected one launch per window, all on the "
+                             f"dispatch_wire_window route: {routes}")
+    if not limiter.table.state.is_cuda:
+        raise AssertionError("the table left the card")
+    ref = TorchRateLimiter(capacity=CAPACITY, keymap="native", device="cpu")
+    replay = []
+    for w in windows:
+        handle = ref.dispatch_wire_window(w["frames"], w["now_ns"])
+        if handle is None:
+            raise AssertionError("the cpu replay left the wire route")
+        replay.append(handle.fetch())
+    assert_same_results([w["results"] for w in windows], replay)
+    check_resp_replies(runs + profiled, windows, replay)
+    if not torch.equal(limiter.table.state[:CAPACITY].cpu(),
+                       ref.table.state[:CAPACITY]):
+        raise AssertionError("table state differs from the cpu replay")
+    clocks = [c for _, _, c in runs]
+    span = max(c["end"] for c in clocks) - min(c["start"] for c in clocks)
+    rate = n_main / span
+    measured = windows[:n_measured]
+    split = {part: float(np.median([w["split"][part] for w in measured])
+                         * 1e3) for part in SPLIT}
+    # Seconds per part summed over the measured run (the first window's
+    # wait began before the clients started, so it is left out): the
+    # driver's busy share of the clients' span is everything but the
+    # wait.
+    totals = {part: float(sum(w["split"][part] for w in measured))
+              for part in SPLIT}
+    totals["wait"] -= measured[0]["split"]["wait"]
+    busy = (sum(totals.values()) - totals["wait"]) / span
+    per_launch = n_main / n_measured
+    print(f"  identical to the device='cpu' replay: every connection's "
+          f"replies (byte for byte), fetched results, table state")
+    print(f"  {n_main} commands over {RESP_CONNS} connections in "
+          f"{span:.3f} s: {rate:.0f} replies/s (clients' clock), "
+          f"{per_launch:.0f} decisions per launch; phase 7 in process "
+          f"{wire_rate:.0f} decisions/s; median ms per window {split}; "
+          f"seconds per part over the run {totals}, the driver busy "
+          f"{busy:.1%} of the span ({card})")
+    print(f"  profiled run ({RESP_PROFILED_WINDOWS * K * B} commands, "
+          f"{len(windows) - n_measured} windows): {profile} ({card})")
+    print(f"  phase 9 took {time.perf_counter() - t_phase:.1f} s (traffic, "
+          "serving, cpu replay and checks)")
+    return {
+        "resp_launches": routes[0],
+        "resp_windows": len(windows),
+        "resp_replies_per_s": rate,
+        "resp_window_ms": split,
+        "resp_driver_s": totals,
+        "resp_driver_busy_share": busy,
+        "resp_decisions_per_launch": per_launch,
+        "resp_profile": profile,
+    }
+
+
 # ---- main ---------------------------------------------------------------- #
 
 
@@ -1133,8 +1567,10 @@ def main() -> int:
     print("  identical to the device='cpu' replay (results, sweep, state)")
     del limiter, ref
 
-    print("[4] server on cuda")
-    check_server()
+    for backend in ("python", "native"):
+        print(f"[4] server on cuda, --http --redis on the {backend} "
+              "transports")
+        check_server(backend)
 
     print("[5] row kernels vs plain on the card: "
           f"N={BYID_CAPACITY + (1 << 16)} B={B} W=4,6")
@@ -1251,6 +1687,11 @@ def main() -> int:
               f"{t['host_us_kernel']:.1f} µs, library "
               f"{t['host_us_library']:.1f} µs")
 
+    print(f"[9] native RESP server: NativeRedisTransport over "
+          f"TorchRateLimiter(capacity=2^20, keymap='native') on cuda, "
+          f"batch {B}, max_scan_depth {K}, {RESP_CONNS} client processes")
+    resp = run_native_resp(card, wire_rate)
+
     print(f"card: {card_line()}")
     kernels = [{
         "name": "fused_window",
@@ -1291,6 +1732,7 @@ def main() -> int:
         "byid_decisions_per_s": byid_rate,
         "byid_window_ms": byid_split,
         "byid_window_profile": byid_profile,
+        **resp,
         "card": card,
     }]
     for name, replaces in (("row_gather", "pallas_ops.py:128"),

@@ -1,7 +1,7 @@
 """The CUDA kernels against their plain versions, on the card: the
 decision-window kernel (fused.py), also behind the table's by-id entry
-points, and the row gather/scatter (row_ops.py, also through a composed
-by-id scan).
+points and behind the native RESP transport's driver thread, and the row
+gather/scatter (row_ops.py, also through a composed by-id scan).
 
 Needs a CUDA card: the tests carry the `cuda` marker and skip elsewhere
 (decided in a fixture when they run).  The file imports nothing of jax,
@@ -10,14 +10,22 @@ so it runs where only the port is installed:
     python -m pytest tests/test_torch_card.py --noconftest -q
 
 Tolerance: exact equality (integer arithmetic) on valid-lane outputs,
-real-slot state, gathered and scattered rows, and the expired-hit counts.
+real-slot state, gathered and scattered rows, the expired-hit counts,
+and every byte the native RESP transport answers.
 """
+
+import asyncio
+import socket
+import threading
 
 import numpy as np
 import pytest
 import torch
 
+from throttlecrab_tpu_torch.server import native_redis
+from throttlecrab_tpu_torch.server.metrics import Metrics
 from throttlecrab_tpu_torch.tpu import fused, kernel, row_ops
+from throttlecrab_tpu_torch.tpu.limiter import TorchRateLimiter
 from throttlecrab_tpu_torch.tpu.table import BucketTable
 from torch_windows import (
     ALL_TIERS,
@@ -268,3 +276,126 @@ def test_byid_table_raises_when_the_window_kernel_cannot_launch(
                              with_degen=False, compact="cur")
     assert (row_ops.GATHER_LAUNCHES, row_ops.SCATTER_LAUNCHES) == before
     assert torch.equal(table.state, state)
+
+
+# ---- the native RESP transport's driver on the card ---------------------- #
+
+T0 = 1_753_700_000 * NS
+
+
+def _resp(key, burst, count, period, *rest):
+    parts = [b"THROTTLE", key, *(b"%d" % v for v in (burst, count, period,
+                                                     *rest))]
+    return b"*%d\r\n" % len(parts) + b"".join(
+        b"$%d\r\n%s\r\n" % (len(p), p) for p in parts)
+
+
+class _Recording(native_redis.NativeRedisTransport):
+    """Records each window's frames, cookies, timestamp and results."""
+
+    windows = None
+
+    def _decide_frames(self, frames, now_ns):
+        results = super()._decide_frames(frames, now_ns)
+        self.windows[-1].update(frames=frames, now_ns=now_ns, results=results)
+        return results
+
+    def _decide_window(self, batches):
+        self.windows.append({"cookies": [(b[3], b[4]) for b in batches]})
+        super()._decide_window(batches)
+
+
+def _serve(device, streams, capacity, cls=native_redis.NativeRedisTransport,
+           **kw):
+    """Serve `streams` (one bytes string per connection, sent pipelined
+    from one thread each) on a native RESP transport over a limiter on
+    `device` with a fixed clock; returns (transport, replies per stream).
+    Each stream ends with QUIT, so a connection's replies end at close."""
+    lim = TorchRateLimiter(capacity=capacity, keymap="native", device=device)
+    t = cls("127.0.0.1", 0, lim, Metrics(), now_fn=lambda: T0, **kw)
+    if cls is _Recording:
+        t.windows = []
+    out = [None] * len(streams)
+
+    def client(i):
+        with socket.create_connection(("127.0.0.1", t.bound_port), 30) as s:
+            s.sendall(streams[i])
+            data = b""
+            while chunk := s.recv(1 << 16):
+                data += chunk
+            out[i] = data
+
+    async def main():
+        await t.start()
+        try:
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(len(streams))]
+            for th in threads:
+                th.start()
+            for th in threads:
+                await asyncio.get_running_loop().run_in_executor(
+                    None, th.join, 60)
+        finally:
+            await t.stop()
+
+    asyncio.run(main())
+    return t, out
+
+
+@pytest.mark.cuda
+def test_native_resp_driver_on_card_matches_cpu_replay(cuda_device):
+    """Two connections pipeline 6,000 THROTTLEs over 800 keys (per-key
+    params) into a driver at batch 512: each window is one decision-window
+    launch on the dispatch_wire_window route, and a device="cpu" replay
+    of the recorded windows gives the same results, the same table state
+    and, per connection, the same reply bytes."""
+    rng = np.random.default_rng(77)
+    kid = rng.integers(0, 800, 6000)
+    cmds = [_resp(b"card:%d" % k, 2 + k % 9, 1 + k % 50, 1 + k % 30)
+            for k in kid.tolist()]
+    streams = [b"".join(cmds[c::2]) + b"*1\r\n$4\r\nQUIT\r\n"
+               for c in range(2)]
+    before = (fused.LAUNCHES, native_redis.WIRE_WINDOWS,
+              native_redis.EXACT_WINDOWS, native_redis.DISPATCH_ERRORS)
+    t, got = _serve(cuda_device, streams, 4096, cls=_Recording,
+                    batch_size=512, max_scan_depth=4)
+    n = len(t.windows)
+    assert (fused.LAUNCHES - before[0], native_redis.WIRE_WINDOWS - before[1],
+            native_redis.EXACT_WINDOWS - before[2],
+            native_redis.DISPATCH_ERRORS - before[3]) == (n, n, 0, 0)
+    ref = TorchRateLimiter(capacity=4096, keymap="native", device="cpu")
+    replies = {}
+    for w in t.windows:
+        want = ref.dispatch_wire_window(w["frames"], w["now_ns"]).fetch()
+        for res_g, res_c, (gen, fd) in zip(w["results"], want, w["cookies"]):
+            for f in ("allowed", "limit", "remaining", "reset_after_s",
+                      "retry_after_s", "status"):
+                assert np.array_equal(getattr(res_g, f), getattr(res_c, f))
+            rows = np.stack([res_c.allowed.astype(np.int64), res_c.limit,
+                             res_c.remaining, res_c.reset_after_s,
+                             res_c.retry_after_s], 1).tolist()
+            for cookie, row in zip(zip(gen.tolist(), fd.tolist()), rows):
+                replies.setdefault(cookie, []).append(
+                    b"*5\r\n:%d\r\n:%d\r\n:%d\r\n:%d\r\n:%d\r\n"
+                    % tuple(row))
+    want = sorted(b"".join(r) + b"+OK\r\n" for r in replies.values())
+    assert sorted(got) == want
+    assert torch.equal(t.limiter.table.state[:4096].cpu(),
+                       ref.table.state[:4096])
+
+
+@pytest.mark.cuda
+def test_native_resp_exact_path_on_card_answers_as_cpu(cuda_device):
+    """A window the native prep refuses (a full table, a key whose params
+    change in the batch) takes the exact path on the card, and the
+    transport answers the same bytes as on the CPU."""
+    stream = (
+        b"".join(_resp(b"f%d" % i, 2, 1, 60) for i in range(40)) * 2
+        + _resp(b"c", 3, 1, 60) + _resp(b"c", 5, 1, 60)
+        + _resp(b"c", 3, 1, 60, 2) + b"*1\r\n$4\r\nQUIT\r\n"
+    )
+    exact = native_redis.EXACT_WINDOWS
+    _, got = _serve(cuda_device, [stream], 16, batch_size=64)
+    assert native_redis.EXACT_WINDOWS > exact
+    _, want = _serve("cpu", [stream], 16, batch_size=64)
+    assert got == want and got[0].endswith(b"+OK\r\n")

@@ -7,8 +7,10 @@ checks that no module named `throttlecrab_tpu` or `throttlecrab_tpu.*`
 got loaded (`throttlecrab_tpu_torch` shares the prefix, so the check is
 exact).  Then the device contract: without a card, asking for `cuda` —
 explicitly or by default — raises instead of running on the CPU.  Last,
-the native keymap builds (g++, from native/keymap.cpp) and serves a batch
-with still no jax and nothing of the JAX package loaded.
+the native keymap builds (g++, from native/keymap.cpp) and serves a batch,
+and the native RESP transport (the wire server built from
+native/wire_server.cpp) answers a THROTTLE over a socket, with still no
+jax and nothing of the JAX package loaded.
 """
 
 import os
@@ -68,6 +70,37 @@ leaked = sorted(
 assert not leaked, leaked
 assert sys.modules.get("jax") is None
 print("native keymap builds and imports no jax")
+
+import asyncio
+from throttlecrab_tpu_torch.server.metrics import Metrics
+from throttlecrab_tpu_torch.server.native_redis import NativeRedisTransport
+
+async def throttle_once():
+    t = NativeRedisTransport(
+        "127.0.0.1", 0,
+        TorchRateLimiter(capacity=64, device="cpu", keymap="native"),
+        Metrics(), batch_size=16, now_fn=lambda: 10**18,
+    )
+    await t.start()
+    try:
+        reader, writer = await asyncio.open_connection(
+            "127.0.0.1", t.bound_port)
+        writer.write(b"*5\r\n$8\r\nTHROTTLE\r\n$1\r\nk\r\n$1\r\n2\r\n"
+                     b"$1\r\n1\r\n$2\r\n60\r\n")
+        reply = await asyncio.wait_for(reader.readuntil(b":0\r\n"), 10)
+        writer.close()
+    finally:
+        await t.stop()
+    return reply
+
+assert asyncio.run(throttle_once()) == b"*5\r\n:1\r\n:2\r\n:1\r\n:60\r\n:0\r\n"
+leaked = sorted(
+    m for m in sys.modules
+    if m == "throttlecrab_tpu" or m.startswith("throttlecrab_tpu.")
+)
+assert not leaked, leaked
+assert sys.modules.get("jax") is None
+print("native RESP transport builds, answers and imports no jax")
 print("ok")
 """
 

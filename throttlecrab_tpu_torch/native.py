@@ -1,13 +1,14 @@
-"""ctypes bridge to the C++ keymap (`native/keymap.cpp`).
+"""ctypes bridges to the C++ keymap (`native/keymap.cpp`) and the C++
+wire server (`native/wire_server.cpp`).
 
-The counterpart of the keymap half of `throttlecrab_tpu/native.py`.  The
-unmodified `native/keymap.cpp` is compiled with g++ at first use into
-`throttlecrab_tpu_torch/build/`, under a name keyed by a hash of the
-source and flags; the build is renamed into place, so concurrent
-builders never load a half-written file.  Without a toolchain the
-limiter's "auto" keymap falls back to the pure-Python one.  No pybind11:
-the ABI is a small C surface and the batch arrays travel as numpy
-pointers.
+The counterpart of `throttlecrab_tpu/native.py`.  The unmodified sources
+are compiled with g++ at first use into `throttlecrab_tpu_torch/build/`,
+under names keyed by a hash of the source and flags; each build is
+renamed into place, so concurrent builds never load a half-written
+file.  Without a toolchain the limiter's "auto" keymap falls back to the
+pure-Python one, and the native transports are unavailable.  No
+pybind11: the ABIs are small C surfaces and the batch arrays travel as
+numpy pointers.
 """
 
 from __future__ import annotations
@@ -32,16 +33,17 @@ _lib: Optional[ctypes.CDLL] = None
 _build_error: Optional[str] = None
 
 
-def _compile(src: Path, stem: str):
+def _compile(src: Path, stem: str, extra=()):
     """Build `src` into a shared library unless this revision is built;
     returns (path, None) or (None, error string with the compiler's
-    stderr).  THROTTLECRAB_NATIVE_CFLAGS overrides the optimisation/arch
-    flags (container images build for a portable baseline instead of
-    the build machine's -march=native)."""
+    stderr).  `extra` flags (e.g. -pthread) join the hash with the rest.
+    THROTTLECRAB_NATIVE_CFLAGS overrides the optimisation/arch flags
+    (container images build for a portable baseline instead of the build
+    machine's -march=native)."""
     flags = os.environ.get(
         "THROTTLECRAB_NATIVE_CFLAGS", "-O3 -march=native"
     ).split()
-    cmd_flags = [*flags, "-std=c++17", "-shared", "-fPIC"]
+    cmd_flags = [*flags, "-std=c++17", "-shared", "-fPIC", *extra]
     digest = hashlib.sha256(
         src.read_bytes() + " ".join(cmd_flags).encode()
     ).hexdigest()
@@ -155,6 +157,76 @@ def keymap_build_error() -> Optional[str]:
     """The keymap build failure (with compiler stderr), or None."""
     get_lib()
     return _build_error
+
+
+# ------------------------------------------------------------------ #
+# Wire-server library (native/wire_server.cpp): the C++ epoll front end
+# of the native RESP and HTTP transports (server/native_redis.py).
+
+_WS_SRC = _PKG.parent / "native" / "wire_server.cpp"
+_ws_lib: Optional[ctypes.CDLL] = None
+_ws_error: Optional[str] = None
+
+
+def _build_wire() -> Optional[ctypes.CDLL]:
+    global _ws_error
+    path, _ws_error = _compile(_WS_SRC, "libtkwire", extra=("-pthread",))
+    if path is None:
+        return None
+    lib = ctypes.CDLL(str(path))
+    lib.ws_create.restype = ctypes.c_void_p
+    lib.ws_create.argtypes = []
+    lib.ws_start.restype = ctypes.c_int
+    lib.ws_start.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_uint16, ctypes.c_int,
+    ]
+    for name in ("ws_set_metrics", "ws_set_health", "ws_set_stats"):
+        getattr(lib, name).argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64,
+        ]
+        getattr(lib, name).restype = None
+    lib.ws_port.restype = ctypes.c_uint16
+    lib.ws_port.argtypes = [ctypes.c_void_p]
+    lib.ws_stop.argtypes = [ctypes.c_void_p]
+    lib.ws_stop.restype = None
+    lib.ws_destroy.argtypes = [ctypes.c_void_p]
+    lib.ws_destroy.restype = None
+    lib.ws_next_batch.restype = ctypes.c_int64
+    lib.ws_next_batch.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_char_p,
+        ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p,
+    ]
+    lib.ws_respond.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    lib.ws_respond.restype = None
+    lib.ws_stats.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    lib.ws_stats.restype = None
+    lib.ws_queue_depth.restype = ctypes.c_int64
+    lib.ws_queue_depth.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+def get_wire_lib() -> Optional[ctypes.CDLL]:
+    global _ws_lib
+    with _lock:
+        if _ws_lib is None and _ws_error is None:
+            _ws_lib = _build_wire()
+        return _ws_lib
+
+
+def wire_available() -> bool:
+    return get_wire_lib() is not None
+
+
+def wire_build_error() -> Optional[str]:
+    """The wire-server build failure (with compiler stderr), or None."""
+    get_wire_lib()
+    return _ws_error
 
 
 # Flag bits returned by NativeKeyMap.prepare_batch (keymap.cpp TK_PREP_*).

@@ -1,7 +1,10 @@
-"""throttlecrab-tpu-torch server: micro-batching engine + HTTP transport.
+"""throttlecrab-tpu-torch server: micro-batching engine + HTTP and RESP
+transports.
 
 Requests are coalesced into windows and decided thousands per device
-launch (engine.py); the HTTP/JSON surface is the reference server's.
+launch (engine.py, or the native transports' driver thread over the C++
+wire server, native_redis.py); the HTTP/JSON and Redis/RESP surfaces are
+the reference server's.
 """
 
 from .config import Config

@@ -1,10 +1,11 @@
 """Server entry point: `python -m throttlecrab_tpu_torch.server --http ...`.
 
 Lifecycle as the reference's `main.rs:49-184`: parse config -> logging ->
-metrics -> limiter on the device + micro-batching engine -> HTTP transport
--> wait for SIGINT/SIGTERM -> shutdown.  SIGTERM drains first (stop
-accepting, flush queued requests with real decisions, bounded by
-DRAIN_TIMEOUT_S); SIGINT flushes and stops.
+metrics -> limiter on the device + micro-batching engine -> transports
+(HTTP and/or Redis/RESP, each on asyncio or the native C++ wire server)
+-> wait for SIGINT/SIGTERM or a transport failure -> shutdown.  SIGTERM
+drains first (de-route, flush queued requests with real decisions,
+bounded by DRAIN_TIMEOUT_S); SIGINT flushes and stops.
 """
 
 from __future__ import annotations
@@ -16,7 +17,6 @@ import sys
 
 from .config import Config, ConfigError
 from .engine import BatchingEngine
-from .http import HttpTransport
 from .metrics import Metrics
 from .store import create_cleanup_policy, create_limiter
 
@@ -31,6 +31,51 @@ LOG_LEVELS = {
 }
 
 DRAIN_TIMEOUT_S = 10.0
+
+
+def build_transports(config: Config, engine, metrics):
+    """One instance per enabled transport (main.rs:74-116).  The native
+    ones drive `engine.limiter` from their own threads under
+    `engine.limiter_lock`, with the engine's clock and cleanup policy,
+    so limits and sweeps are shared with the asyncio transports."""
+    native_kw = dict(
+        batch_size=config.batch_size,
+        max_linger_us=config.max_linger_us,
+        max_scan_depth=config.max_scan_depth,
+        cleanup_policy=engine.cleanup_policy,
+        limiter_lock=engine.limiter_lock,
+        now_fn=engine.now_fn,
+    )
+    transports = []
+    if config.http:
+        if config.http_backend == "native":
+            from .native_http import NativeHttpTransport
+
+            transports.append(NativeHttpTransport(
+                config.http_host, config.http_port, engine.limiter,
+                metrics, **native_kw,
+            ))
+        else:
+            from .http import HttpTransport
+
+            transports.append(HttpTransport(
+                config.http_host, config.http_port, engine, metrics
+            ))
+    if config.redis:
+        if config.redis_backend == "native":
+            from .native_redis import NativeRedisTransport
+
+            transports.append(NativeRedisTransport(
+                config.redis_host, config.redis_port, engine.limiter,
+                metrics, **native_kw,
+            ))
+        else:
+            from .redis import RedisTransport
+
+            transports.append(RedisTransport(
+                config.redis_host, config.redis_port, engine, metrics
+            ))
+    return transports
 
 
 async def run_server(config: Config) -> None:
@@ -48,10 +93,9 @@ async def run_server(config: Config) -> None:
         cleanup_policy=create_cleanup_policy(config),
         metrics=metrics,
     )
-    transport = HttpTransport(
-        config.http_host, config.http_port, engine, metrics
-    )
-    await transport.start()
+    transports = build_transports(config, engine, metrics)
+    for transport in transports:
+        await transport.start()
 
     loop = asyncio.get_running_loop()
     stop = asyncio.Event()
@@ -67,21 +111,30 @@ async def run_server(config: Config) -> None:
     for sig, graceful in ((signal.SIGINT, False), (signal.SIGTERM, True)):
         loop.add_signal_handler(sig, _signal_handler, graceful)
 
-    serve_task = asyncio.create_task(transport.serve_forever())
+    serve_tasks = {
+        asyncio.create_task(t.serve_forever(), name=f"transport-{t.name}"): t
+        for t in transports
+    }
     stop_task = asyncio.create_task(stop.wait())
+    # A transport ending with an error ends the process with an error,
+    # as the reference's JoinSet select does (main.rs:143-171).
     done, _ = await asyncio.wait(
-        [serve_task, stop_task], return_when=asyncio.FIRST_COMPLETED
+        [*serve_tasks, stop_task], return_when=asyncio.FIRST_COMPLETED
     )
-    failed = serve_task in done and serve_task.exception() is not None
-    if failed:
-        log.error("transport failed: %r", serve_task.exception())
+    failed = []
+    for task in done:
+        if task is not stop_task and task.exception() is not None:
+            failed.append(serve_tasks[task].name)
+            log.error("%s transport failed: %r", failed[-1],
+                      task.exception())
 
     log.info("shutting down")
     stop_task.cancel()
     if drain_requested and not failed:
         async def _drain() -> None:
             engine.begin_drain()
-            await transport.drain()
+            for transport in transports:
+                await transport.drain()
             await engine.drain()
 
         try:
@@ -90,11 +143,15 @@ async def run_server(config: Config) -> None:
         except asyncio.TimeoutError:
             log.warning("drain timed out after %.0fs", DRAIN_TIMEOUT_S)
     await engine.shutdown()
-    await transport.stop()
-    serve_task.cancel()
-    await asyncio.gather(serve_task, stop_task, return_exceptions=True)
+    for transport in transports:
+        await transport.stop()
+    for task in serve_tasks:
+        task.cancel()
+    await asyncio.gather(*serve_tasks, stop_task, return_exceptions=True)
     if failed:
-        raise TransportFailure("the HTTP transport ended with an error")
+        raise TransportFailure(
+            f"the {' and '.join(failed)} transport ended with an error"
+        )
 
 
 class TransportFailure(RuntimeError):

@@ -2,7 +2,8 @@
 
 The subset of `throttlecrab_tpu/server/config.py` this server serves,
 with the same precedence (CLI > env > default, `config.rs:356-361`):
-the HTTP transport, the store (which picks the cleanup policy) and its
+the HTTP and Redis/RESP transports and their backends (asyncio or the
+native C++ wire server), the store (which picks the cleanup policy) and its
 cleanup knobs, the micro-batching knobs, the keymap backend, and
 `--device` / THROTTLECRAB_DEVICE (default `cuda`; `cpu` runs the plain
 version).
@@ -23,6 +24,14 @@ _SPEC = [
     ("http", "THROTTLECRAB_HTTP", False, bool, "Enable HTTP transport"),
     ("http_host", "THROTTLECRAB_HTTP_HOST", "0.0.0.0", str, "HTTP host"),
     ("http_port", "THROTTLECRAB_HTTP_PORT", 8080, int, "HTTP port"),
+    ("http_backend", "THROTTLECRAB_HTTP_BACKEND", "python", str,
+     "HTTP transport backend: python (asyncio) or native (C++ epoll)"),
+    ("redis", "THROTTLECRAB_REDIS", False, bool,
+     "Enable Redis protocol transport"),
+    ("redis_host", "THROTTLECRAB_REDIS_HOST", "0.0.0.0", str, "Redis host"),
+    ("redis_port", "THROTTLECRAB_REDIS_PORT", 6379, int, "Redis port"),
+    ("redis_backend", "THROTTLECRAB_REDIS_BACKEND", "python", str,
+     "Redis transport backend: python (asyncio) or native (C++ epoll)"),
     ("store", "THROTTLECRAB_STORE", "periodic", str,
      "Store type: periodic, probabilistic, adaptive"),
     ("store_capacity", "THROTTLECRAB_STORE_CAPACITY", 100_000, int,
@@ -58,6 +67,11 @@ class Config:
     http: bool = False
     http_host: str = "0.0.0.0"
     http_port: int = 8080
+    http_backend: str = "python"
+    redis: bool = False
+    redis_host: str = "0.0.0.0"
+    redis_port: int = 6379
+    redis_backend: str = "python"
     store: str = "periodic"
     store_capacity: int = 100_000
     store_cleanup_interval: int = 300
@@ -85,10 +99,10 @@ class Config:
         return cfg
 
     def validate(self) -> None:
-        if not self.http:
+        if not (self.http or self.redis):
             raise ConfigError(
-                "At least one transport must be enabled. Use --http "
-                "(the only transport this server has)"
+                "At least one transport must be enabled. "
+                "Use --http or --redis"
             )
         if self.store not in STORE_TYPES:
             raise ConfigError(
@@ -97,6 +111,13 @@ class Config:
             )
         if self.batch_size <= 0:
             raise ConfigError("batch_size must be positive")
+        for name, backend in (("redis", self.redis_backend),
+                              ("http", self.http_backend)):
+            if backend not in ("python", "native"):
+                raise ConfigError(
+                    f"Invalid {name} backend: {backend!r} "
+                    "(expected python or native)"
+                )
         if self.max_scan_depth <= 0:
             raise ConfigError("max_scan_depth must be positive")
         if self.keymap not in ("auto", "python", "native"):

@@ -1,6 +1,6 @@
 """Server metrics with Prometheus text export.
 
-The counters the engine and the HTTP transport touch, under the metric
+The counters the engine and the transports touch, under the metric
 names of `throttlecrab_tpu/server/metrics.py` (the reference's names,
 `metrics.rs:233-310`, plus the `throttlecrab_tpu_*` launch/sweep
 extensions), so dashboards read either server unchanged.  Invariant:
@@ -71,6 +71,28 @@ class Metrics:
             if transport in self.requests_by_transport:
                 self.requests_by_transport[transport] += 1
             self.requests_errors += 1
+
+    def record_batch(
+        self, transport, n_allowed, n_denied, n_errors, denied_keys, batch,
+        launches: int = 1,
+    ) -> None:
+        """One aggregated update per window of a native transport's
+        driver thread (`launches=0`: a window answered without the
+        device, e.g. every row's deadline had lapsed).  `denied_keys`
+        feeds the top-denied leaderboard in the JAX package; the port
+        has none yet and ignores it."""
+        with self._lock:
+            n = n_allowed + n_denied + n_errors
+            self.requests_total += n
+            if transport in self.requests_by_transport:
+                self.requests_by_transport[transport] += n
+            self.requests_allowed += n_allowed
+            self.requests_denied += n_denied
+            self.requests_errors += n_errors
+            self.device_launches += launches
+            if launches:
+                self.batched_requests += batch
+                self.max_batch = max(self.max_batch, batch)
 
     def record_launch(self, batch_size: int) -> None:
         with self._lock:
