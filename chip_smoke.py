@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Nine phases, each printing its results; any failure raises and the script
+Ten phases, each printing its results; any failure raises and the script
 exits nonzero without its last line:
 
 1. card: the card's name and power limit (nvidia-smi), and the builds of
@@ -26,15 +26,20 @@ exits nonzero without its last line:
    path), then a sweep; the same traffic replayed on device="cpu" must
    give identical results and state, and the kernel's launch counter,
    zeroed just before, must have moved;
-4. server: `python -m throttlecrab_tpu_torch.server` on cuda, booted
-   twice: `--http --redis` (asyncio transports), then with
-   `--http-backend native --redis-backend native` (the C++ wire server).
-   Each boot answers 5 POST /throttle for one key (burst 3, 1 per hour)
-   as allowed x3 (remaining 2, 1, 0) then denied x2; RESP PING -> +PONG,
-   5 THROTTLE for another key -> :1 x3 (remaining 2, 1, 0) then :0 x2,
+4. server: `python -m throttlecrab_tpu_torch.server` on cuda with the
+   reference's `--buffer-size`, `--max-denied-keys 10`,
+   `--drain-timeout-ms`, `--deadline-default-ms` and `--snapshot-path`,
+   on `--http --redis` (asyncio transports), then with `--http-backend
+   native --redis-backend native` (the C++ wire server).  Each boot
+   answers 5 POST /throttle for one key (burst 3, 1 per hour) as allowed
+   x3 (remaining 2, 1, 0) then denied x2; RESP PING -> +PONG, 5
+   THROTTLE for another key -> :1 x3 (remaining 2, 1, 0) then :0 x2,
    QUIT -> +OK and a close; one key over both transports shares one
-   bucket; /health and /metrics (which counts both transports'
-   requests) answer, and SIGTERM gives exit 0;
+   bucket; /health and /metrics (which counts both transports' requests
+   and lists both denied keys under throttlecrab_top_denied_keys)
+   answer; 2 of a third key's 3 are taken, and SIGTERM gives exit 0 and
+   saves the snapshot.  A second boot on the same path answers that
+   key's third request with remaining 0 and denies its fourth;
 5. row kernels vs plain: row_gather / row_scatter (tpu/row_ops.py)
    against index_select / index_copy_ at N = 2^21 + 2^16, B = 4096,
    W = 4 and 6, rows 0 and N-1 included.  Tolerance: exact equality;
@@ -81,7 +86,20 @@ exits nonzero without its last line:
    over the run for each part (wait in ws_next_batch, capture,
    dispatch_wire_window, fetch, ws_respond) and its busy share,
    phase 7's in-process rate, and the profiled stretch's device time and
-   idle share.
+   idle share;
+10. snapshot at full size, with the python keymap and then the native
+   one: TorchRateLimiter(capacity=2^20) on cuda holds all 1M config-3
+   keys and decides one phase-3 window; save_snapshot gathers the live
+   rows with row_gather (the counter, zeroed just before, must read
+   ceil(1M / 65,536) = 16) and load_snapshot into a fresh cuda limiter
+   scatters them with row_scatter (16); a device="cpu" limiter loads the
+   same file.  Per-key tat/expiry of the original and both restores, and
+   the restores' certificates, must be equal; the row kernels at B =
+   65,536 equal their plain versions; the next phase-3 window decides
+   identically on the original and the cuda restore.  Prints the
+   export / gather / write / load / scatter ms (host clock), then each
+   row kernel's, its plain version's and the library call's time per
+   launch at B = 65,536, W = 4 and 6, beside the bound.
 
 The line before the last is the {"kernels": [...]} record; the last line
 is {"ok": true, "device": {...}}.
@@ -90,11 +108,13 @@ is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import os
 import re
 import signal
 import socket
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -463,34 +483,73 @@ def throttle_body(key, burst):
                        "count_per_period": 1, "period": 3600}).encode()
 
 
-def check_server(backend):
-    """Phase 4, one boot with both transports on `backend` ("python" or
-    "native")."""
+def boot_server(backend, extra=()):
+    """Start `python -m throttlecrab_tpu_torch.server` on cuda with HTTP
+    and RESP on `backend` ("python" or "native") plus `extra` flags, and
+    wait for /health; returns (process, http port, redis port)."""
     http_port, redis_port = free_port(), free_port()
     proc = subprocess.Popen(
         [sys.executable, "-m", "throttlecrab_tpu_torch.server", "--http",
          "--http-host", "127.0.0.1", "--http-port", str(http_port),
          "--http-backend", backend, "--redis", "--redis-host", "127.0.0.1",
-         "--redis-port", str(redis_port), "--redis-backend", backend],
+         "--redis-port", str(redis_port), "--redis-backend", backend,
+         *extra],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
     )
+    deadline = time.monotonic() + 180
+    while True:
+        if proc.poll() is not None:
+            raise AssertionError(
+                f"server exited {proc.returncode}:\n{proc.stdout.read()}"
+            )
+        try:
+            if http(http_port, "GET", "/health", timeout=2) == (200, b"OK"):
+                return proc, http_port, redis_port
+        except OSError:
+            pass
+        if time.monotonic() > deadline:
+            proc.kill()
+            raise AssertionError("server did not come up in 180 s")
+        time.sleep(0.25)
+
+
+def stop_server(proc) -> str:
+    """SIGTERM; the server must exit 0.  Returns its log."""
+    proc.send_signal(signal.SIGTERM)
+    out, _ = proc.communicate(timeout=60)
+    if proc.returncode != 0:
+        raise AssertionError(f"server exited {proc.returncode} on SIGTERM:"
+                             f"\n{out}")
+    return out
+
+
+def wait_metrics(http_port, want):
+    """/metrics once it holds every line of `want` (the native /metrics is
+    a snapshot pushed once a second)."""
+    deadline = time.monotonic() + 10
+    while True:
+        status, text = http(http_port, "GET", "/metrics")
+        if status == 200 and all(w in text for w in want):
+            return text
+        if time.monotonic() > deadline:
+            raise AssertionError(f"/metrics lacks {want}:\n{text.decode()}")
+        time.sleep(0.25)
+
+
+# The reference server's flags the port serves since it closed fault C1.
+SERVER_FLAGS = ("--buffer-size", "1000", "--max-denied-keys", "10",
+                "--drain-timeout-ms", "5000", "--deadline-default-ms",
+                "60000")
+
+
+def check_server(backend, snapshot_path):
+    """Phase 4, on `backend` ("python" or "native"): one boot with both
+    transports, the reference's flags and `--snapshot-path`; then a
+    second boot on the same path, which must continue the first's
+    buckets."""
+    extra = SERVER_FLAGS + ("--snapshot-path", snapshot_path)
+    proc, http_port, redis_port = boot_server(backend, extra)
     try:
-        deadline = time.monotonic() + 180
-        while True:
-            if proc.poll() is not None:
-                raise AssertionError(
-                    f"server exited {proc.returncode}:\n{proc.stdout.read()}"
-                )
-            try:
-                if http(http_port, "GET", "/health", timeout=2) == (
-                    200, b"OK"
-                ):
-                    break
-            except OSError:
-                pass
-            if time.monotonic() > deadline:
-                raise AssertionError("server did not come up in 180 s")
-            time.sleep(0.25)
         answers = [json.loads(http(http_port, "POST", "/throttle",
                                    throttle_body("smoke:1", 3))[1])
                    for _ in range(5)]
@@ -532,24 +591,44 @@ def check_server(backend):
                 raise AssertionError("QUIT did not answer +OK and close")
         print("  RESP PING/THROTTLE/QUIT as expected; one key shares one "
               "bucket over RESP and HTTP")
-        want = (b'transport="http"} 6', b'transport="redis"} 7',
-                b"throttlecrab_requests_allowed 8")
-        deadline = time.monotonic() + 10  # the native /metrics: 1 s pushes
-        while True:
-            status, text = http(http_port, "GET", "/metrics")
-            if status == 200 and all(w in text for w in want):
-                break
-            if time.monotonic() > deadline:
-                raise AssertionError(f"/metrics did not count both "
-                                     f"transports:\n{text.decode()}")
-            time.sleep(0.25)
+        text = wait_metrics(http_port, (
+            b'transport="http"} 6', b'transport="redis"} 7',
+            b"throttlecrab_requests_allowed 8",
+            b'throttlecrab_top_denied_keys{key="smoke:1",rank=',
+            b'throttlecrab_top_denied_keys{key="smoke:r",rank=',
+        ))
+        top = [line for line in text.decode().splitlines()
+               if line.startswith("throttlecrab_top_denied_keys{")]
         print(f"  /health 200 OK, /metrics 200 ({len(text)} bytes, counts "
-              "both transports)")
-        proc.send_signal(signal.SIGTERM)
-        rc = proc.wait(timeout=60)
-        if rc != 0:
-            raise AssertionError(f"server exited {rc} on SIGTERM")
-        print("  server exited 0 on SIGTERM")
+              f"both transports; top denied {top})")
+        snap = [json.loads(http(http_port, "POST", "/throttle",
+                                throttle_body("smoke:snap", 3))[1])
+                for _ in range(2)]
+        if [a["remaining"] for a in snap] != [2, 1]:
+            raise AssertionError(f"unexpected answers {snap}")
+        log = stop_server(proc)
+        if "saved" not in log:
+            raise AssertionError(f"no snapshot saved on SIGTERM:\n{log}")
+        print("  server exited 0 on SIGTERM and saved its snapshot: "
+              + next(line for line in log.splitlines() if "saved" in line))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    proc, http_port, _ = boot_server(backend, extra)
+    try:
+        after = [json.loads(http(http_port, "POST", "/throttle",
+                                 throttle_body("smoke:snap", 3))[1])
+                 for _ in range(2)]
+        if [(a["allowed"], a["remaining"]) for a in after] != [
+            (True, 0), (False, 0)
+        ]:
+            raise AssertionError(f"the second boot did not continue the "
+                                 f"snapshot's bucket: {after}")
+        log = stop_server(proc)
+        print("  second boot on the snapshot: the key's third request "
+              "answered remaining 0, its fourth denied; "
+              + next(line for line in log.splitlines() if "restored" in line))
     finally:
         if proc.poll() is None:
             proc.kill()
@@ -755,10 +834,12 @@ def time_kernel(device, rng, rounds=3):
     return result
 
 
-def time_row_kernels(device, rng, rounds=3):
+def time_row_kernels(device, rng, b=B, n=BYID_CAPACITY + (1 << 16),
+                     rounds=3):
     """{(name, W): {"kernel"|"plain"|"library": ms, "device_"...: ms,
-    "host_us_"...: µs}} per launch at B=4096 over the by-id table (N =
-    2^21 + 2^16 rows): CUDA-event medians of `rounds` rounds that
+    "host_us_"...: µs}} per launch of `b` rows over a table of `n` rows
+    (phase 8: B=4096 over the by-id table; phase 10: the snapshot's
+    65,536 over the serving table): CUDA-event medians of `rounds` rounds that
     alternate kernel, plain version and library call, then the
     profiler's device time, then the host time per call of the kernel's
     wrapper and of the library call.  Each call takes the next of 8 index
@@ -769,11 +850,10 @@ def time_row_kernels(device, rng, rounds=3):
 
     from throttlecrab_tpu_torch.tpu import row_ops
 
-    n = BYID_CAPACITY + (1 << 16)
     samples = {}
     for w in (4, 6):
-        table, _, rows = row_case(rng, n, B, w, device)
-        idxs = [row_case_idx(rng, n, B, device) for _ in range(8)]
+        table, _, rows = row_case(rng, n, b, w, device)
+        idxs = [row_case_idx(rng, n, b, device) for _ in range(8)]
         longs = [i.long() for i in idxs]
         nxt = itertools.cycle(range(8)).__next__
         fns = {
@@ -1471,6 +1551,148 @@ def run_native_resp(card, wire_rate):
     }
 
 
+# ---- snapshot at full size (phase 10) ------------------------------------ #
+
+
+def populate_config3(limiter, n_keys, now):
+    """Every config-3 key once (bench.py's names, per-key params derived
+    from the key id, quantity 1), K batches of B per dispatch_many."""
+    import numpy as np
+
+    batches = []
+    for lo in range(0, n_keys, B):
+        kid = np.arange(lo, min(lo + B, n_keys), dtype=np.int64)
+        batches.append(([f"bench:key:{i}" for i in kid.tolist()],
+                        5 + kid % 60, 50 + kid % 1000, 30 + kid % 120,
+                        np.ones(len(kid), np.int64), now))
+    for w in range(0, len(batches), K):
+        limiter.dispatch_many(batches[w:w + K], wire=True).fetch()
+
+
+def keyed_state(limiter):
+    """{key: (tat, expiry)} through the snapshot's export (row gathers;
+    callers read the launch counters before this)."""
+    from throttlecrab_tpu_torch.tpu import snapshot
+
+    keys, _, _, tat, exp, _, _ = snapshot.export_state(limiter)
+    return dict(zip(keys, zip(tat.tolist(), exp.tolist())))
+
+
+def certificates(limiter):
+    t = limiter.table
+    return bool(t.cur_safe), int(t.tol_hwm), int(t.now_hwm)
+
+
+def timed_sync(fn, sink):
+    """fn wrapped to add its seconds, the card waited for, to sink[0]."""
+    import torch
+
+    def run(*a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        sink[0] += time.perf_counter() - t
+        return out
+    return run
+
+
+def run_snapshot(keymap, windows, tmp):
+    """Phase 10 for one keymap: populate 1M keys on cuda, decide a config-3
+    window, save (16 row_gather launches), restore into a fresh cuda
+    limiter (16 row_scatter launches) and a cpu one; per-key state and
+    certificates must agree, and the next window must decide identically
+    on the original and the cuda restore.  Returns the launch counts and
+    the host-clock split of the save and the restore."""
+    import numpy as np
+    import torch
+
+    from throttlecrab_tpu_torch.tpu import row_ops, snapshot
+    from throttlecrab_tpu_torch.tpu.limiter import TorchRateLimiter
+
+    orig = TorchRateLimiter(capacity=CAPACITY, keymap=keymap)
+    populate_config3(orig, N_KEYS, T0)
+    orig.dispatch_many(windows[0], wire=True).fetch()
+    now = windows[0][-1][-1]
+    path = f"{tmp}/config3_{keymap}"
+    gather_s, scatter_s = [0.0], [0.0]
+    gather_fn, scatter_fn = snapshot.gather_rows, snapshot.scatter_rows
+    snapshot.gather_rows = timed_sync(gather_fn, gather_s)
+    snapshot.scatter_rows = timed_sync(scatter_fn, scatter_s)
+    try:
+        torch.cuda.synchronize()
+        row_ops.GATHER_LAUNCHES = row_ops.SCATTER_LAUNCHES = 0
+        t = time.perf_counter()
+        payload = snapshot.export_snapshot_payload(orig)
+        t_export = time.perf_counter() - t
+        gathers = row_ops.GATHER_LAUNCHES
+        t = time.perf_counter()
+        saved = snapshot.write_snapshot_payload(payload, path)
+        t_write = time.perf_counter() - t
+        restored = TorchRateLimiter(capacity=CAPACITY, keymap=keymap)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        n_cuda = snapshot.load_snapshot(restored, path, now)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t
+        scatters = row_ops.SCATTER_LAUNCHES
+    finally:
+        snapshot.gather_rows, snapshot.scatter_rows = gather_fn, scatter_fn
+    want = -(-N_KEYS // row_ops.MAX_BATCH)
+    if saved != N_KEYS or n_cuda != N_KEYS:
+        raise AssertionError(f"saved {saved}, restored {n_cuda} of {N_KEYS}")
+    if (gathers, scatters) != (want, want):
+        raise AssertionError(f"{gathers} row_gather and {scatters} "
+                             f"row_scatter launches; expected {want} each")
+    if not restored.table.state.is_cuda:
+        raise AssertionError("the restored table left the card")
+    on_cpu = TorchRateLimiter(capacity=CAPACITY, keymap=keymap, device="cpu")
+    if snapshot.load_snapshot(on_cpu, path, now) != N_KEYS:
+        raise AssertionError("the cpu restore lost keys")
+    want_state = dict(zip(payload["keys"], zip(payload["tat"].tolist(),
+                                               payload["expiry"].tolist())))
+    for name, lim in (("cuda", restored), ("cpu", on_cpu)):
+        if keyed_state(lim) != want_state:
+            raise AssertionError(f"the {name} restore's per-key state "
+                                 "differs from the original's")
+    if certificates(restored) != certificates(on_cpu):
+        raise AssertionError(
+            f"certificates differ: original {certificates(orig)}, cuda "
+            f"restore {certificates(restored)}, cpu restore "
+            f"{certificates(on_cpu)}")
+    # The row kernels at the path's shape against their plain versions.
+    idx = torch.from_numpy(np.asarray(payload["slots"][:row_ops.MAX_BATCH],
+                                      np.int32)).cuda()
+    err = {"row_gather": max_abs_err(
+        row_ops.row_gather(orig.table.state, idx).cpu().numpy(),
+        row_ops.row_gather_plain(orig.table.state, idx).cpu().numpy(),
+        True)}
+    rows = orig.table.state[:row_ops.MAX_BATCH].flip(0).contiguous()
+    a, b = orig.table.state.clone(), orig.table.state.clone()
+    row_ops.row_scatter(a, idx, rows)
+    row_ops.row_scatter_plain(b, idx, rows)
+    err["row_scatter"] = max_abs_err(a.cpu().numpy(), b.cpu().numpy(), True)
+    if any(err.values()):
+        raise AssertionError(f"row kernels differ from plain at B=65536: "
+                             f"{err}")
+    got = [orig.dispatch_many(windows[1], wire=True).fetch()]
+    want_next = [restored.dispatch_many(windows[1], wire=True).fetch()]
+    assert_same_results(got, want_next)
+    if keyed_state(orig) != keyed_state(restored):
+        raise AssertionError("state after the next window differs")
+    print(f"  keymap={keymap}: saved and restored {N_KEYS} keys; "
+          f"{gathers} row_gather + {scatters} row_scatter launches; cuda and "
+          f"cpu restores equal the original key for key, certificates "
+          f"{certificates(restored)}; the next window decides identically")
+    split = {"export_ms": t_export * 1e3, "gather_ms": gather_s[0] * 1e3,
+             "write_ms": t_write * 1e3, "load_ms": t_load * 1e3,
+             "scatter_ms": scatter_s[0] * 1e3}
+    print("  ms (host clock): " + ", ".join(
+        f"{k[:-3]} {v:.1f}" for k, v in split.items())
+        + f"; file {os.path.getsize(path + '.npz')} bytes")
+    return {"row_gather": gathers, "row_scatter": scatters}, err, split
+
+
 # ---- main ---------------------------------------------------------------- #
 
 
@@ -1569,8 +1791,9 @@ def main() -> int:
 
     for backend in ("python", "native"):
         print(f"[4] server on cuda, --http --redis on the {backend} "
-              "transports")
-        check_server(backend)
+              f"transports, {' '.join(SERVER_FLAGS)} --snapshot-path")
+        with tempfile.TemporaryDirectory() as tmp:
+            check_server(backend, f"{tmp}/state")
 
     print("[5] row kernels vs plain on the card: "
           f"N={BYID_CAPACITY + (1 << 16)} B={B} W=4,6")
@@ -1692,6 +1915,32 @@ def main() -> int:
           f"batch {B}, max_scan_depth {K}, {RESP_CONNS} client processes")
     resp = run_native_resp(card, wire_rate)
 
+    print(f"[10] snapshot at full size: save and restore {N_KEYS} config-3 "
+          f"keys through the row kernels, python and native keymaps "
+          f"({card})")
+    snap_launches = {"row_gather": 0, "row_scatter": 0}
+    snap_err = {"row_gather": 0, "row_scatter": 0}
+    snap_ms = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for keymap in ("python", "native"):
+            counts, err, split = run_snapshot(keymap, windows, tmp)
+            for name in snap_launches:
+                snap_launches[name] += counts[name]
+                snap_err[name] = max(snap_err[name], err[name])
+            snap_ms[keymap] = split
+    snap_b = row_ops.MAX_BATCH
+    snap_times = time_row_kernels(device, np.random.default_rng(10), b=snap_b,
+                                  n=CAPACITY + (1 << 16))
+    for (name, w), t in snap_times.items():
+        print(f"  {name} W={w}: kernel {t['kernel']:.5f} ms, plain "
+              f"{t['plain']:.5f} ms, library {t['library']:.5f} ms, bound "
+              f"{row_bound_ms(snap_b, w):.6f} ms per launch at B={snap_b} "
+              f"(medians); device time (profiler) kernel "
+              f"{t['device_kernel']} ms, plain {t['device_plain']} ms, "
+              f"library {t['device_library']} ms; host time per call "
+              f"kernel {t['host_us_kernel']:.1f} µs, library "
+              f"{t['host_us_library']:.1f} µs")
+
     print(f"card: {card_line()}")
     kernels = [{
         "name": "fused_window",
@@ -1737,33 +1986,47 @@ def main() -> int:
     }]
     for name, replaces in (("row_gather", "pallas_ops.py:128"),
                            ("row_scatter", "pallas_ops.py:162")):
-        t4, t6 = row_times[(name, 4)], row_times[(name, 6)]
+        t4, t6 = snap_times[(name, 4)], snap_times[(name, 6)]
+        b4, b6 = row_times[(name, 4)], row_times[(name, 6)]
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": "throttlecrab_tpu_torch/csrc/row_ops.cu",
             "replaces": f"throttlecrab_tpu/tpu/{replaces}",
-            "launches": composed_launches[name],
-            "max_abs_err": row_worst[name],
+            "path": "snapshot " + ("save (export)" if name == "row_gather"
+                                   else "restore (bulk insert)")
+                    + ", phase 10, python and native keymaps",
+            "launches": snap_launches[name],
+            "max_abs_err": max(snap_err[name], row_worst[name]),
             "ms": t4["kernel"],
             "plain_ms": t4["plain"],
-            "bound_ms": row_bound_ms(B, 4),
+            "bound_ms": row_bound_ms(snap_b, 4),
             "bound_by": "bytes",
             "library_ms": t4["library"],
-            "identical": row_worst[name] == 0,
-            "shape": f"B={B} W=4 N={BYID_CAPACITY + (1 << 16)} per launch",
+            "identical": snap_err[name] == row_worst[name] == 0,
+            "shape": f"B={snap_b} W=4 N={CAPACITY + (1 << 16)} per launch",
             "w6_ms": t6["kernel"],
             "w6_plain_ms": t6["plain"],
             "w6_library_ms": t6["library"],
-            "w6_bound_ms": row_bound_ms(B, 6),
+            "w6_bound_ms": row_bound_ms(snap_b, 6),
             "device_ms": t4["device_kernel"],
             "plain_device_ms": t4["device_plain"],
             "library_device_ms": t4["device_library"],
             "w6_device_ms": t6["device_kernel"],
-            "launches_per_window": byid_row_launches[name] // len(plan),
             "host_us_per_call": t4["host_us_kernel"],
             "library_host_us_per_call": t4["host_us_library"],
-            "w6_host_us_per_call": t6["host_us_kernel"],
+            "snapshot_ms": snap_ms,
+            "composed_scan_launches": composed_launches[name],
+            "b4096": {
+                "ms": b4["kernel"], "plain_ms": b4["plain"],
+                "library_ms": b4["library"],
+                "bound_ms": row_bound_ms(B, 4),
+                "device_ms": b4["device_kernel"],
+                "library_device_ms": b4["device_library"],
+                "w6_ms": b6["kernel"], "w6_device_ms": b6["device_kernel"],
+                "host_us_per_call": b4["host_us_kernel"],
+                "shape": f"B={B} W=4 N={BYID_CAPACITY + (1 << 16)}",
+            },
             "card": card,
         })
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain versions, on the card: the
 decision-window kernel (fused.py), also behind the table's by-id entry
 points and behind the native RESP transport's driver thread, and the row
-gather/scatter (row_ops.py, also through a composed by-id scan).
+gather/scatter (row_ops.py, also through a composed by-id scan and the
+snapshot's save and restore).
 
 Needs a CUDA card: the tests carry the `cuda` marker and skip elsewhere
 (decided in a fixture when they run).  The file imports nothing of jax,
@@ -24,7 +25,7 @@ import torch
 
 from throttlecrab_tpu_torch.server import native_redis
 from throttlecrab_tpu_torch.server.metrics import Metrics
-from throttlecrab_tpu_torch.tpu import fused, kernel, row_ops
+from throttlecrab_tpu_torch.tpu import fused, kernel, row_ops, snapshot
 from throttlecrab_tpu_torch.tpu.limiter import TorchRateLimiter
 from throttlecrab_tpu_torch.tpu.table import BucketTable
 from torch_windows import (
@@ -399,3 +400,67 @@ def test_native_resp_exact_path_on_card_answers_as_cpu(cuda_device):
     assert native_redis.EXACT_WINDOWS > exact
     _, want = _serve("cpu", [stream], 16, batch_size=64)
     assert got == want and got[0].endswith(b"+OK\r\n")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keymap", ["python", "native"])
+@pytest.mark.parametrize("insight", [False, True], ids=["w4", "w6"])
+def test_snapshot_round_trip_on_card(cuda_device, tmp_path, monkeypatch,
+                                     keymap, insight):
+    """5,000 keys saved from a cuda limiter and restored into a cuda and a
+    cpu one, with MAX_BATCH cut to 1,024: five row_gather and five
+    row_scatter launches; both restores hold the original's per-key
+    state and the same certificates, and decide the next batch alike."""
+    monkeypatch.setattr(row_ops, "MAX_BATCH", 1024)
+    keys = [f"card:{i}" for i in range(5000)]
+    kid = np.arange(5000, dtype=np.int64)
+    params = (5 + kid % 60, 50 + kid % 1000, 30 + kid % 120, 1)
+    lim = TorchRateLimiter(capacity=8192, keymap=keymap, insight=insight)
+    lim.rate_limit_batch(keys, *params, T0)
+    path = tmp_path / "snap"
+    gathers, scatters = row_ops.GATHER_LAUNCHES, row_ops.SCATTER_LAUNCHES
+    assert snapshot.save_snapshot(lim, path) == 5000
+    assert row_ops.GATHER_LAUNCHES - gathers == 5
+    restored = TorchRateLimiter(capacity=8192, keymap=keymap,
+                                insight=insight)
+    assert snapshot.load_snapshot(restored, path, T0) == 5000
+    assert row_ops.SCATTER_LAUNCHES - scatters == 5
+    on_cpu = TorchRateLimiter(capacity=8192, keymap=keymap, device="cpu",
+                              insight=insight)
+    assert snapshot.load_snapshot(on_cpu, path, T0) == 5000
+
+    def keyed(limiter):
+        ks, _, _, tat, exp, _, _ = snapshot.export_state(limiter)
+        return dict(zip(ks, zip(tat.tolist(), exp.tolist())))
+
+    want = keyed(lim)
+    assert keyed(restored) == want and keyed(on_cpu) == want
+    certs = [(t.cur_safe, t.tol_hwm, t.now_hwm)
+             for t in (restored.table, on_cpu.table)]
+    assert certs[0] == certs[1]
+    assert torch.equal(restored.table.state[:8192].cpu(),
+                       on_cpu.table.state[:8192])
+    got = restored.rate_limit_batch(keys, *params, T0 + NS)
+    ref = on_cpu.rate_limit_batch(keys, *params, T0 + NS)
+    for f in ("allowed", "limit", "remaining", "reset_after_ns",
+              "retry_after_ns", "status"):
+        assert np.array_equal(getattr(got, f), getattr(ref, f))
+
+
+@pytest.mark.cuda
+def test_snapshot_restore_of_two_keys_on_one_slot_on_card(cuda_device,
+                                                           tmp_path):
+    """"a" and b"a" from a python keymap both become b"a" in a native
+    one: the restore on the card keeps the last row, as on the CPU (and
+    as the JAX package's), and hands the kernel unique slots."""
+    src = TorchRateLimiter(capacity=64, device="cpu")
+    src.rate_limit_batch(["a"] + [b"a"] * 3, 5, 10, 3600, 1, T0)
+    path = tmp_path / "dup"
+    snapshot.save_snapshot(src, path)
+    got = TorchRateLimiter(capacity=64, keymap="native")
+    want = TorchRateLimiter(capacity=64, keymap="native", device="cpu")
+    assert snapshot.load_snapshot(got, path, T0) == 2
+    assert snapshot.load_snapshot(want, path, T0) == 2
+    assert torch.equal(got.table.state[:64].cpu(), want.table.state[:64])
+    _, _, _, tat, _, _, _ = snapshot.export_state(got)
+    assert tat.tolist() == [snapshot.export_state(src)[3][1]]

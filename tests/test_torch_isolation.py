@@ -10,7 +10,10 @@ explicitly or by default — raises instead of running on the CPU.  Last,
 the native keymap builds (g++, from native/keymap.cpp) and serves a batch,
 and the native RESP transport (the wire server built from
 native/wire_server.cpp) answers a THROTTLE over a socket, with still no
-jax and nothing of the JAX package loaded.
+jax and nothing of the JAX package loaded.  A second interpreter, with
+jax, grpc and protobuf all unimportable, boots the server with `--http`
+and `--snapshot-path`, and SIGTERM saves the snapshot: a server without
+`--grpc` never needs grpcio.
 """
 
 import os
@@ -113,6 +116,47 @@ def test_port_imports_without_jax_and_never_falls_back():
     r = subprocess.run(
         [sys.executable, "-c", _CODE], cwd=REPO, env=env,
         capture_output=True, text=True, timeout=300,
+    )
+    assert r.returncode == 0, r.stdout + r.stderr[-3000:]
+    assert r.stdout.strip().endswith("ok"), r.stdout
+
+
+_NO_GRPC_CODE = r"""
+import asyncio, os, signal, sys
+for name in ("jax", "grpc", "google.protobuf"):
+    sys.modules[name] = None
+from throttlecrab_tpu_torch.server.__main__ import run_server
+from throttlecrab_tpu_torch.server.config import Config
+
+path = sys.argv[1]
+cfg = Config.from_env_and_args([
+    "--http", "--http-host", "127.0.0.1", "--http-port", "0",
+    "--device", "cpu", "--store-capacity", "64", "--snapshot-path", path,
+])
+
+async def main():
+    task = asyncio.create_task(run_server(cfg))
+    await asyncio.sleep(1.0)
+    os.kill(os.getpid(), signal.SIGTERM)
+    await asyncio.wait_for(task, 60)
+
+asyncio.run(main())
+assert os.path.exists(path + ".npz")
+leaked = sorted(m for m in sys.modules if m.startswith(("throttlecrab_tpu.",
+                                                       "grpc.")))
+assert not leaked, leaked
+print("ok")
+"""
+
+
+def test_http_server_boots_and_saves_without_grpc(tmp_path):
+    env = {
+        k: v for k, v in os.environ.items() if not k.startswith("PYTEST")
+    }
+    env["PYTHONPATH"] = str(REPO)
+    r = subprocess.run(
+        [sys.executable, "-c", _NO_GRPC_CODE, str(tmp_path / "state")],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
     )
     assert r.returncode == 0, r.stdout + r.stderr[-3000:]
     assert r.stdout.strip().endswith("ok"), r.stdout

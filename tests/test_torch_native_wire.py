@@ -59,7 +59,8 @@ def _transport(side, protocol, capacity=1024, **kw):
         from throttlecrab_tpu.server.native_http import NativeHttpTransport
         from throttlecrab_tpu.server.native_redis import NativeRedisTransport
 
-        limiter, metrics = TpuRateLimiter(capacity=capacity), JaxMetrics()
+        limiter = TpuRateLimiter(capacity=capacity)
+        metrics = JaxMetrics(max_denied_keys=100)
     else:
         from throttlecrab_tpu_torch.server.native_http import (
             NativeHttpTransport,
@@ -70,7 +71,7 @@ def _transport(side, protocol, capacity=1024, **kw):
 
         limiter = TorchRateLimiter(capacity=capacity, keymap="native",
                                    device="cpu")
-        metrics = Metrics()
+        metrics = Metrics(max_denied_keys=100)
     cls = NativeHttpTransport if protocol == "http" else NativeRedisTransport
     return cls("127.0.0.1", 0, limiter, metrics, now_fn=lambda: T0, **kw)
 
@@ -253,8 +254,9 @@ def test_concurrent_clients_share_limits():
     # The metrics are read once the transport has stopped: a driver
     # records a window after it has sent the window's replies.
     want, got, _ = _on_both(client)
-    assert [(n, t.metrics.requests_total, t.metrics.requests_denied)
-            for n, t in (want, got)] == [(20, 40, 20)] * 2
+    assert [(n, t.metrics.requests_total, t.metrics.requests_denied,
+             t.metrics.top_denied.top()) for n, t in (want, got)] == [
+        (20, 40, 20, [("shared", 20)])] * 2
 
 
 def test_stop_wakes_parked_driver_within_a_second():
@@ -312,13 +314,16 @@ def test_http_throttle_error_and_health_answers_byte_identical():
         metrics = (await _http(t.bound_port, "GET", "/metrics")).decode()
         counts = sorted(line for line in metrics.splitlines()
                         if line.startswith(("throttlecrab_requests_total",
-                                            "throttlecrab_requests_by")))
+                                            "throttlecrab_requests_by",
+                                            "throttlecrab_top_denied")))
         return out, counts
 
     (want, want_counts), (got, got_counts), (wire, exact, errors) = (
         _on_both(client, protocol="http"))
     assert got == want
     assert got_counts == want_counts
+    assert any(line.startswith('throttlecrab_top_denied_keys{key="a\\"b\\nc"')
+               for line in got_counts), got_counts
     assert got[-1].endswith(b"\r\n\r\ndraining")
     assert got[-2].endswith(b"\r\n\r\nOK")
     assert wire >= 1 and exact == errors == 0
@@ -358,7 +363,7 @@ def test_config_counts_redis_as_a_transport():
     from throttlecrab_tpu_torch.server.config import Config, ConfigError
 
     Config(redis=True).validate()
-    with pytest.raises(ConfigError, match="--http or --redis"):
+    with pytest.raises(ConfigError, match="--http, --grpc, or --redis"):
         Config().validate()
     with pytest.raises(ConfigError, match="redis backend"):
         Config(redis=True, redis_backend="rust").validate()

@@ -115,7 +115,9 @@ STREAMS = {
 
 
 def _transports(clock, **kw):
-    jax_metrics, port_metrics = JaxMetrics(), Metrics()
+    # The servers' default leaderboard size.
+    jax_metrics = JaxMetrics(max_denied_keys=100)
+    port_metrics = Metrics(max_denied_keys=100)
     jax_engine = JaxEngine(TpuRateLimiter(capacity=256), now_fn=clock,
                            metrics=jax_metrics, **kw)
     port_engine = BatchingEngine(
@@ -143,7 +145,7 @@ async def _exchange(port, chunks):
 def _counts(metrics):
     return (metrics.requests_total, metrics.requests_allowed,
             metrics.requests_denied, metrics.requests_errors,
-            dict(metrics.requests_by_transport))
+            dict(metrics.requests_by_transport), metrics.top_denied.top())
 
 
 @pytest.mark.parametrize("name", sorted(STREAMS))

@@ -5,19 +5,32 @@ the plain version), with the same injected clock, and get the same
 `POST /throttle` bodies — valid requests, duplicate keys in one window,
 quantity-0 probes, invalid params, negative quantities, malformed JSON,
 client deadlines that lapse in the queue, requests after shutdown.  The
-HTTP status and the JSON body must be byte-identical.  `/health` and
-`/metrics` answer 200 over a real socket.
+HTTP status and the JSON body must be byte-identical.  Both servers'
+`Metrics` are built as each server builds them at its default config
+(the top-denied leaderboard at 100 keys), and their `/metrics` renders
+must match, apart from the gauges of modules the port has not ported.
+`/health` and `/metrics` answer 200 over a real socket.  Every flag of
+the JAX server that belongs to a ported module parses, from the command
+line and from its environment variable, to the same value in both.
 """
 
 import asyncio
 import json
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
+import pytest
 
+from throttlecrab_tpu.server import config as jax_config
 from throttlecrab_tpu.server.engine import BatchingEngine as JaxEngine
 from throttlecrab_tpu.server.http import HttpTransport as JaxHttp
 from throttlecrab_tpu.server.metrics import Metrics as JaxMetrics
 from throttlecrab_tpu.tpu.limiter import TpuRateLimiter
+from throttlecrab_tpu_torch.server import config as port_config
 from throttlecrab_tpu_torch.server.engine import BatchingEngine
 from throttlecrab_tpu_torch.server.http import HttpTransport
 from throttlecrab_tpu_torch.server.metrics import Metrics
@@ -35,8 +48,30 @@ class VirtualClock:
         return self.now
 
 
+# Gauges of JAX modules the port has not ported yet (front tier,
+# supervisor, fault injection, insight, control plane, persist).
+_UNPORTED = re.compile(
+    r"throttlecrab_tpu_(front|engine_state|supervisor|faults|insight|"
+    r"control|checkpoint)_?"
+)
+
+
+def _render(metrics):
+    """The /metrics lines, minus the unported gauges and the uptime
+    value (two clocks)."""
+    return [
+        line for line in metrics.export_prometheus().splitlines()
+        if not _UNPORTED.search(line)
+        and not line.startswith("throttlecrab_uptime_seconds ")
+    ]
+
+
 def _servers(clock, **kw):
-    jax_metrics, port_metrics = JaxMetrics(), Metrics()
+    # Each server's Metrics as its __main__ builds it at the default config.
+    jax_metrics = JaxMetrics(
+        max_denied_keys=jax_config.Config().max_denied_keys)
+    port_metrics = Metrics(
+        max_denied_keys=port_config.Config().max_denied_keys)
     jax_engine = JaxEngine(
         TpuRateLimiter(capacity=1024), now_fn=clock, metrics=jax_metrics,
         **kw,
@@ -100,6 +135,10 @@ def test_throttle_bodies_byte_identical():
             for b, got_j, got_t in zip(bodies, *results):
                 assert got_j == got_t, (step, b, got_j, got_t)
             clock.now += int(rng.integers(0, 3 * NS))
+        rendered = [_render(s.metrics) for s in servers]
+        assert rendered[0] == rendered[1]
+        assert any(line.startswith("throttlecrab_top_denied_keys{")
+                   for line in rendered[1])
 
     asyncio.run(main())
 
@@ -136,6 +175,34 @@ def test_deadline_and_shutdown_answers_byte_identical():
         assert health[0] == health[1] == (200, b"shutdown", "text/plain")
 
     asyncio.run(main())
+
+
+def test_default_deadline_stamped_as_in_jax():
+    """`deadline_default_ms` stamps requests that carry no deadline: one
+    queued past it answers 504 on both servers, one with its own header
+    deadline keeps that deadline."""
+    async def main():
+        clock = VirtualClock()
+        servers = _servers(clock, batch_size=64, max_linger_us=2000,
+                           deadline_default_ms=1)
+        body = json.dumps(
+            {"key": "dd", "max_burst": 2, "count_per_period": 1, "period": 9}
+        ).encode()
+        hdr = {"x-throttlecrab-deadline-ms": "50"}
+        tasks = [
+            asyncio.create_task(s._route("POST", "/throttle", body, h))
+            for s in servers for h in ({}, hdr)
+        ]
+        await asyncio.sleep(0)
+        clock.now += 2_000_000  # past the default, inside the header's
+        got = await asyncio.gather(*tasks)
+        for s in servers:
+            await s.engine.shutdown()
+        return got
+
+    j_default, j_header, p_default, p_header = asyncio.run(main())
+    assert (j_default, j_header) == (p_default, p_header)
+    assert p_default[0] == 504 and p_header[0] == 200
 
 
 async def _http(port, method, path, body=b""):
@@ -182,3 +249,102 @@ def test_real_socket_health_metrics_throttle():
             await server.stop()
 
     asyncio.run(main())
+
+
+# A value for each ported flag, different from its default.
+_FLAG_VALUES = {
+    "http_host": "127.0.0.2", "http_port": "18081", "http_backend": "native",
+    "grpc_host": "127.0.0.3", "grpc_port": "18071",
+    "redis_host": "127.0.0.4", "redis_port": "16380",
+    "redis_backend": "native", "store": "adaptive", "store_capacity": "77",
+    "store_cleanup_interval": "11", "store_cleanup_probability": "12",
+    "store_min_interval": "2", "store_max_interval": "99",
+    "store_max_operations": "1234", "buffer_size": "5",
+    "max_denied_keys": "5", "log_level": "debug", "batch_size": "64",
+    "max_linger_us": "300", "max_scan_depth": "4", "keymap": "python",
+    "snapshot_path": "/data/state", "drain_timeout_ms": "5",
+    "deadline_default_ms": "5",
+}
+_PORT_FLAGS = [
+    (name, env, typ) for name, env, _, typ, _ in port_config._SPEC
+    if name != "device"
+]
+
+
+@pytest.mark.parametrize(
+    "name,env,typ", _PORT_FLAGS, ids=[f[0] for f in _PORT_FLAGS]
+)
+def test_ported_flag_parses_as_in_jax(monkeypatch, name, env, typ):
+    """Each flag: its default, its command-line form and its environment
+    variable give the same value in both packages."""
+    flag = "--" + name.replace("_", "-")
+    assert name in {n for n, *_ in jax_config._SPEC}
+    base = ["--http"] if name != "http" else ["--redis"]
+    both = (jax_config.Config, port_config.Config)
+    monkeypatch.delenv(env, raising=False)
+    got = [getattr(c.from_env_and_args(base), name) for c in both]
+    assert got[0] == got[1]
+    argv = base + ([flag] if typ is bool else [flag, _FLAG_VALUES[name]])
+    got = [getattr(c.from_env_and_args(argv), name) for c in both]
+    assert got[0] == got[1]
+    monkeypatch.setenv(env, "0" if typ is bool else _FLAG_VALUES[name])
+    got = [getattr(c.from_env_and_args(base), name) for c in both]
+    assert got[0] == got[1]
+
+
+@pytest.mark.parametrize("argv", [
+    ["--max-denied-keys", "10001"], ["--max-denied-keys", "-1"],
+    ["--drain-timeout-ms", "-1"], ["--deadline-default-ms", "-1"],
+    [],
+], ids=["denied-keys-high", "denied-keys-negative", "drain-negative",
+        "deadline-negative", "no-transport"])
+def test_invalid_flags_refused_as_in_jax(argv):
+    for mod in (jax_config, port_config):
+        with pytest.raises(mod.ConfigError):
+            mod.Config.from_env_and_args(
+                argv + (["--grpc"] if argv else [])
+            )
+
+
+_DRAIN_CODE = r"""
+import asyncio, os, signal, sys
+from throttlecrab_tpu_torch.server import __main__ as entry
+from throttlecrab_tpu_torch.server.config import Config
+from throttlecrab_tpu_torch.server.engine import BatchingEngine
+
+drains = []
+begin = BatchingEngine.begin_drain
+BatchingEngine.begin_drain = lambda self: drains.append(1) or begin(self)
+cfg = Config.from_env_and_args([
+    "--http", "--http-host", "127.0.0.1", "--http-port", "0", "--device",
+    "cpu", "--keymap", "python", "--drain-timeout-ms", sys.argv[1],
+])
+started = asyncio.Event()
+built = entry.build_transports
+def build(*a):
+    started.set()
+    return built(*a)
+entry.build_transports = build
+
+async def main():
+    task = asyncio.create_task(entry.run_server(cfg))
+    await started.wait()
+    await asyncio.sleep(0.2)
+    os.kill(os.getpid(), signal.SIGTERM)
+    await asyncio.wait_for(task, 60)
+
+asyncio.run(main())
+print("drained", bool(drains))
+"""
+
+
+@pytest.mark.parametrize("budget,drained", [("0", False), ("5000", True)])
+def test_sigterm_drain_budget(budget, drained):
+    """SIGTERM drains within --drain-timeout-ms; a budget of 0 takes the
+    kill path (no drain), as the JAX server does."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("PYTEST")}
+    env["PYTHONPATH"] = str(Path(__file__).resolve().parent.parent)
+    r = subprocess.run([sys.executable, "-c", _DRAIN_CODE, budget], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.split()[-2:] == ["drained", str(drained)]

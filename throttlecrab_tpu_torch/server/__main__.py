@@ -1,19 +1,24 @@
 """Server entry point: `python -m throttlecrab_tpu_torch.server --http ...`.
 
 Lifecycle as the reference's `main.rs:49-184`: parse config -> logging ->
-metrics -> limiter on the device + micro-batching engine -> transports
-(HTTP and/or Redis/RESP, each on asyncio or the native C++ wire server)
+metrics -> limiter on the device (restored from `--snapshot-path` when the
+file exists) + micro-batching engine -> transports (HTTP, gRPC and/or
+Redis/RESP, HTTP and RESP each on asyncio or the native C++ wire server)
 -> wait for SIGINT/SIGTERM or a transport failure -> shutdown.  SIGTERM
 drains first (de-route, flush queued requests with real decisions,
-bounded by DRAIN_TIMEOUT_S); SIGINT flushes and stops.
+bounded by `--drain-timeout-ms`; 0 skips the drain); SIGINT flushes and
+stops.  With `--snapshot-path` the table is saved after the transports
+stop.
 """
 
 from __future__ import annotations
 
 import asyncio
 import logging
+import os
 import signal
 import sys
+import time
 
 from .config import Config, ConfigError
 from .engine import BatchingEngine
@@ -29,8 +34,6 @@ LOG_LEVELS = {
     "debug": logging.DEBUG,
     "trace": logging.DEBUG,
 }
-
-DRAIN_TIMEOUT_S = 10.0
 
 
 def build_transports(config: Config, engine, metrics):
@@ -61,6 +64,14 @@ def build_transports(config: Config, engine, metrics):
             transports.append(HttpTransport(
                 config.http_host, config.http_port, engine, metrics
             ))
+    if config.grpc:
+        # Imported only here: a server without --grpc needs neither
+        # grpcio nor protobuf.
+        from .grpc import GrpcTransport
+
+        transports.append(GrpcTransport(
+            config.grpc_host, config.grpc_port, engine, metrics
+        ))
     if config.redis:
         if config.redis_backend == "native":
             from .native_redis import NativeRedisTransport
@@ -78,13 +89,90 @@ def build_transports(config: Config, engine, metrics):
     return transports
 
 
+class SnapshotRefused(RuntimeError):
+    """Boot refused: the snapshot is corrupt and strict mode is on."""
+
+
+def restore_snapshot_on_boot(limiter, config: Config) -> int:
+    """Restore-on-boot with the THROTTLECRAB_SNAPSHOT_STRICT policy;
+    returns the number of keys restored (0 when there is no snapshot or
+    the non-strict path started cold).  Strict mode (the default) refuses
+    a corrupt snapshot with SnapshotRefused; non-strict logs it and
+    starts with an empty table."""
+    from ..tpu.snapshot import SnapshotError, _normalize, load_snapshot
+
+    if not config.snapshot_path:
+        return 0
+    if not os.path.exists(_normalize(config.snapshot_path)):
+        return 0
+    try:
+        restored = load_snapshot(limiter, config.snapshot_path, time.time_ns())
+        log.info(
+            "restored %d keys from snapshot %s",
+            restored, config.snapshot_path,
+        )
+        return restored
+    except SnapshotError as e:
+        if config.snapshot_strict:
+            raise SnapshotRefused(
+                f"refusing to start: {e} (set "
+                "THROTTLECRAB_SNAPSHOT_STRICT=0 to log and start with "
+                "an empty table instead)"
+            ) from e
+        log.error(
+            "snapshot %s is corrupt; starting with an empty table "
+            "(THROTTLECRAB_SNAPSHOT_STRICT=0): %s",
+            config.snapshot_path, e,
+        )
+    except Exception:
+        # Not corruption (e.g. capacity): soft state, a cold start.
+        log.exception(
+            "snapshot restore failed; starting cold (%s)",
+            config.snapshot_path,
+        )
+    # A partial restore may have populated the keymap: sweep everything
+    # so "cold" is real, not a table full of dead entries.
+    try:
+        limiter.sweep(1 << 62)
+    except Exception:
+        log.exception("post-restore-failure sweep failed")
+    return 0
+
+
+async def save_snapshot_on_shutdown(config: Config, engine) -> None:
+    """Save the table to `--snapshot-path`: the device export runs under
+    `engine.limiter_lock` (native driver threads share it), the .npz
+    write outside it, both on the executor."""
+    from ..tpu.snapshot import export_snapshot_payload, write_snapshot_payload
+
+    def locked_export() -> dict:
+        with engine.limiter_lock:
+            return export_snapshot_payload(engine.limiter)
+
+    loop = asyncio.get_running_loop()
+    try:
+        payload = await loop.run_in_executor(None, locked_export)
+        saved = await loop.run_in_executor(
+            None, write_snapshot_payload, payload, config.snapshot_path,
+        )
+        log.info("saved %d keys to snapshot %s", saved, config.snapshot_path)
+    except Exception:
+        log.exception("snapshot save failed (%s)", config.snapshot_path)
+
+
 async def run_server(config: Config) -> None:
-    metrics = Metrics()
+    metrics = Metrics(max_denied_keys=config.max_denied_keys)
     log.info(
         "starting rate limiter with %s store on %s", config.store,
         config.device,
     )
     limiter = create_limiter(config)
+    loop = asyncio.get_running_loop()
+    # The restore is a device bulk insert: executor, not the event loop,
+    # and done before any transport starts.
+    await loop.run_in_executor(
+        None, restore_snapshot_on_boot, limiter, config
+    )
     engine = BatchingEngine(
         limiter,
         batch_size=config.batch_size,
@@ -92,12 +180,12 @@ async def run_server(config: Config) -> None:
         max_scan_depth=config.max_scan_depth,
         cleanup_policy=create_cleanup_policy(config),
         metrics=metrics,
+        deadline_default_ms=config.deadline_default_ms,
     )
     transports = build_transports(config, engine, metrics)
     for transport in transports:
         await transport.start()
 
-    loop = asyncio.get_running_loop()
     stop = asyncio.Event()
     drain_requested = False
 
@@ -130,21 +218,28 @@ async def run_server(config: Config) -> None:
 
     log.info("shutting down")
     stop_task.cancel()
-    if drain_requested and not failed:
+    if drain_requested and config.drain_timeout_ms > 0 and not failed:
         async def _drain() -> None:
             engine.begin_drain()
             for transport in transports:
-                await transport.drain()
+                drain_hook = getattr(transport, "drain", None)
+                if drain_hook is not None:
+                    await drain_hook()
             await engine.drain()
 
         try:
-            await asyncio.wait_for(_drain(), DRAIN_TIMEOUT_S)
+            await asyncio.wait_for(_drain(), config.drain_timeout_ms / 1000.0)
             log.info("drain complete")
         except asyncio.TimeoutError:
-            log.warning("drain timed out after %.0fs", DRAIN_TIMEOUT_S)
+            log.warning(
+                "drain timed out after %dms; falling back to the kill "
+                "path", config.drain_timeout_ms,
+            )
     await engine.shutdown()
     for transport in transports:
         await transport.stop()
+    if config.snapshot_path:
+        await save_snapshot_on_shutdown(config, engine)
     for task in serve_tasks:
         task.cancel()
     await asyncio.gather(*serve_tasks, stop_task, return_exceptions=True)
@@ -172,6 +267,9 @@ def main(argv=None) -> int:
         asyncio.run(run_server(config))
     except KeyboardInterrupt:
         pass
+    except SnapshotRefused as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
     except TransportFailure:
         return 1
     return 0

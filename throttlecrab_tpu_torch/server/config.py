@@ -2,11 +2,13 @@
 
 The subset of `throttlecrab_tpu/server/config.py` this server serves,
 with the same precedence (CLI > env > default, `config.rs:356-361`):
-the HTTP and Redis/RESP transports and their backends (asyncio or the
-native C++ wire server), the store (which picks the cleanup policy) and its
-cleanup knobs, the micro-batching knobs, the keymap backend, and
-`--device` / THROTTLECRAB_DEVICE (default `cuda`; `cpu` runs the plain
-version).
+the HTTP, gRPC and Redis/RESP transports and their backends (asyncio or
+the native C++ wire server), the store (which picks the cleanup policy)
+and its cleanup knobs, the reference's buffer size (accepted, unused) and
+top-denied leaderboard size, the micro-batching knobs, the keymap
+backend, the boot/shutdown snapshot, the SIGTERM drain budget and the
+default request deadline, and `--device` / THROTTLECRAB_DEVICE (default
+`cuda`; `cpu` runs the plain version).
 """
 
 from __future__ import annotations
@@ -26,6 +28,9 @@ _SPEC = [
     ("http_port", "THROTTLECRAB_HTTP_PORT", 8080, int, "HTTP port"),
     ("http_backend", "THROTTLECRAB_HTTP_BACKEND", "python", str,
      "HTTP transport backend: python (asyncio) or native (C++ epoll)"),
+    ("grpc", "THROTTLECRAB_GRPC", False, bool, "Enable gRPC transport"),
+    ("grpc_host", "THROTTLECRAB_GRPC_HOST", "0.0.0.0", str, "gRPC host"),
+    ("grpc_port", "THROTTLECRAB_GRPC_PORT", 8070, int, "gRPC port"),
     ("redis", "THROTTLECRAB_REDIS", False, bool,
      "Enable Redis protocol transport"),
     ("redis_host", "THROTTLECRAB_REDIS_HOST", "0.0.0.0", str, "Redis host"),
@@ -46,6 +51,11 @@ _SPEC = [
      "Maximum cleanup interval for adaptive store (seconds)"),
     ("store_max_operations", "THROTTLECRAB_STORE_MAX_OPERATIONS", 1_000_000,
      int, "Maximum operations before cleanup for adaptive store"),
+    ("buffer_size", "THROTTLECRAB_BUFFER_SIZE", 100_000, int,
+     "Channel buffer size"),
+    ("max_denied_keys", "THROTTLECRAB_MAX_DENIED_KEYS", 100, int,
+     "Maximum number of denied keys to track in metrics "
+     "(0 to disable, max: 10000)"),
     ("log_level", "THROTTLECRAB_LOG_LEVEL", "info", str,
      "Log level: error, warn, info, debug, trace"),
     ("batch_size", "THROTTLECRAB_BATCH_SIZE", 4096, int,
@@ -56,6 +66,24 @@ _SPEC = [
      "Max backlog sub-batches decided in one device launch"),
     ("keymap", "THROTTLECRAB_KEYMAP", "auto", str,
      "Host key->slot backend: auto, python, native"),
+    ("snapshot_path", "THROTTLECRAB_SNAPSHOT_PATH", "", str,
+     "Snapshot file (.npz): restored at startup when present, written on "
+     "graceful shutdown (empty: disabled; state is soft either way)"),
+    ("snapshot_strict", "THROTTLECRAB_SNAPSHOT_STRICT", True, bool,
+     "Refuse to start when the boot snapshot is corrupt/truncated "
+     "(env 0 disables: log the corruption and start with an empty "
+     "table instead)"),
+    ("drain_timeout_ms", "THROTTLECRAB_DRAIN_TIMEOUT_MS", 10_000, int,
+     "SIGTERM drain budget in milliseconds: stop accepting, flush "
+     "in-flight batches with real decisions and snapshot; past the "
+     "budget the server falls back to the abrupt kill path.  0 skips "
+     "the drain entirely: SIGTERM behaves like SIGINT"),
+    ("deadline_default_ms", "THROTTLECRAB_DEADLINE_DEFAULT_MS", 0, int,
+     "Default per-request deadline stamped on requests that carry "
+     "none (milliseconds; 0, the default, stamps nothing).  Requests "
+     "still queued past their deadline are shed before device dispatch "
+     "with the timeout status (HTTP 504 / gRPC DEADLINE_EXCEEDED / "
+     "RESP -ERR)"),
     ("device", "THROTTLECRAB_DEVICE", "cuda", str,
      "Torch device of the bucket table: cuda (the CUDA kernel) or cpu "
      "(the plain version)"),
@@ -68,6 +96,9 @@ class Config:
     http_host: str = "0.0.0.0"
     http_port: int = 8080
     http_backend: str = "python"
+    grpc: bool = False
+    grpc_host: str = "0.0.0.0"
+    grpc_port: int = 8070
     redis: bool = False
     redis_host: str = "0.0.0.0"
     redis_port: int = 6379
@@ -79,11 +110,17 @@ class Config:
     store_min_interval: int = 5
     store_max_interval: int = 300
     store_max_operations: int = 1_000_000
+    buffer_size: int = 100_000
+    max_denied_keys: int = 100
     log_level: str = "info"
     batch_size: int = 4096
     max_linger_us: int = 200
     max_scan_depth: int = 16
     keymap: str = "auto"
+    snapshot_path: str = ""
+    snapshot_strict: bool = True
+    drain_timeout_ms: int = 10_000
+    deadline_default_ms: int = 0
     device: str = "cuda"
 
     @classmethod
@@ -99,16 +136,18 @@ class Config:
         return cfg
 
     def validate(self) -> None:
-        if not (self.http or self.redis):
+        if not (self.http or self.grpc or self.redis):
             raise ConfigError(
                 "At least one transport must be enabled. "
-                "Use --http or --redis"
+                "Use --http, --grpc, or --redis"
             )
         if self.store not in STORE_TYPES:
             raise ConfigError(
                 f"Invalid store type: {self.store!r} "
                 f"(expected one of {', '.join(STORE_TYPES)})"
             )
+        if not 0 <= self.max_denied_keys <= 10_000:
+            raise ConfigError("max_denied_keys must be in 0..=10000")
         if self.batch_size <= 0:
             raise ConfigError("batch_size must be positive")
         for name, backend in (("redis", self.redis_backend),
@@ -125,6 +164,10 @@ class Config:
                 f"Invalid keymap backend: {self.keymap!r} "
                 "(expected auto, python, or native)"
             )
+        if self.drain_timeout_ms < 0:
+            raise ConfigError("drain_timeout_ms must be >= 0")
+        if self.deadline_default_ms < 0:
+            raise ConfigError("deadline_default_ms must be >= 0")
         if self.device.split(":")[0] not in ("cuda", "cpu"):
             raise ConfigError(
                 f"Invalid device: {self.device!r} (expected cuda or cpu)"

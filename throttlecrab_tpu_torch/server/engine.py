@@ -77,11 +77,13 @@ class BatchingEngine:
         metrics=None,
         now_fn=None,
         max_scan_depth: int = 16,
+        deadline_default_ms: int = 0,
     ) -> None:
         """`limiter` is a TorchRateLimiter (or any object with
         rate_limit_batch + sweep).  `now_fn` injects time for tests (time
         is an input, never ambient).  `max_scan_depth` caps the backlog
-        sub-batches decided per launch."""
+        sub-batches decided per launch.  `deadline_default_ms` > 0 stamps
+        a deadline on requests that carry none."""
         import inspect
 
         self.limiter = limiter
@@ -104,6 +106,7 @@ class BatchingEngine:
         self.metrics = metrics
         self.now_fn = now_fn or time.time_ns
         self.max_scan_depth = max_scan_depth
+        self.deadline_default_ms = int(deadline_default_ms)
         # The flush pops whole windows from the left while transports
         # append on the right.
         self._pending: deque = deque()
@@ -126,6 +129,10 @@ class BatchingEngine:
             if self.metrics is not None:
                 self.metrics.record_drain_shed()
             raise OverloadError("server draining")
+        if request.deadline_ns is None and self.deadline_default_ms > 0:
+            request.deadline_ns = (
+                self.now_fn() + self.deadline_default_ms * 1_000_000
+            )
         loop = asyncio.get_running_loop()
         fut: asyncio.Future = loop.create_future()
         self._pending.append((request, fut))

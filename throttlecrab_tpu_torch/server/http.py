@@ -191,7 +191,9 @@ class HttpTransport(ConnTrackingMixin):
         except ThrottleError as e:
             self.metrics.record_error(self.name)
             return self._error(500, str(e))
-        self.metrics.record_request(self.name, response.allowed)
+        self.metrics.record_request_with_key(
+            self.name, response.allowed, request.key
+        )
         payload = json.dumps(
             {
                 "allowed": response.allowed,

@@ -3,15 +3,21 @@
 The counters the engine and the transports touch, under the metric
 names of `throttlecrab_tpu/server/metrics.py` (the reference's names,
 `metrics.rs:233-310`, plus the `throttlecrab_tpu_*` launch/sweep
-extensions), so dashboards read either server unchanged.  Invariant:
-allowed + denied + errors == total.
+extensions), so dashboards read either server unchanged, and the
+reference's top-denied leaderboard `throttlecrab_top_denied_keys{key,rank}`
+(`metrics.rs:24-76`).  Invariant: allowed + denied + errors == total.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Dict
+from typing import Dict, List, Optional, Tuple
+
+from ..insight.sketch import SpaceSavingSketch
+
+MAX_KEY_LENGTH = 256  # metrics.rs:21
+MAX_TRACKED_DENIED_KEYS = 10_000  # metrics.rs:119-121
 
 METRIC_NAMES = (
     "throttlecrab_uptime_seconds",
@@ -20,6 +26,7 @@ METRIC_NAMES = (
     "throttlecrab_requests_allowed",
     "throttlecrab_requests_denied",
     "throttlecrab_requests_errors",
+    "throttlecrab_top_denied_keys",
     "throttlecrab_tpu_device_launches",
     "throttlecrab_tpu_batched_requests",
     "throttlecrab_tpu_max_batch_size",
@@ -31,10 +38,33 @@ METRIC_NAMES = (
 )
 
 
-class Metrics:
-    """Request counters (thread-safe: worker threads write here too)."""
+class TopDeniedKeys:
+    """Bounded denied-key counter (metrics.rs:24-76) over the space-saving
+    sketch: exact while the distinct denied keys fit `max_keys`, then
+    bounded with a per-key error.  Keys are cut at 256 characters."""
 
-    def __init__(self) -> None:
+    def __init__(self, max_keys: int) -> None:
+        self.max_keys = max_keys
+        self._sketch = (
+            SpaceSavingSketch(max_keys) if max_keys > 0 else None
+        )
+
+    def record(self, key: str) -> None:
+        if self._sketch is None:
+            return
+        self._sketch.record(key[:MAX_KEY_LENGTH])
+
+    def top(self) -> List[Tuple[str, int]]:
+        if self._sketch is None:
+            return []
+        return self._sketch.top(self.max_keys)
+
+
+class Metrics:
+    """Request counters + optional top-denied-keys tracking (thread-safe:
+    worker threads write here too)."""
+
+    def __init__(self, max_denied_keys: int = 0) -> None:
         self._lock = threading.Lock()
         self.start_time = time.time()
         self.requests_total = 0
@@ -46,6 +76,10 @@ class Metrics:
         self.requests_allowed = 0
         self.requests_denied = 0
         self.requests_errors = 0
+        max_denied_keys = min(max_denied_keys, MAX_TRACKED_DENIED_KEYS)
+        self.top_denied: Optional[TopDeniedKeys] = (
+            TopDeniedKeys(max_denied_keys) if max_denied_keys > 0 else None
+        )
         self.device_launches = 0
         self.batched_requests = 0
         self.max_batch = 0
@@ -54,6 +88,10 @@ class Metrics:
         self.expired_hits = 0
         self.drain_shed = 0
         self.deadline_shed = 0
+
+    @classmethod
+    def builder(cls) -> "MetricsBuilder":
+        return MetricsBuilder()
 
     def record_request(self, transport: str, allowed: bool) -> None:
         with self._lock:
@@ -64,6 +102,15 @@ class Metrics:
                 self.requests_allowed += 1
             else:
                 self.requests_denied += 1
+
+    def record_request_with_key(
+        self, transport: str, allowed: bool, key: str
+    ) -> None:
+        """metrics.rs:162-173: denied keys feed the leaderboard."""
+        self.record_request(transport, allowed)
+        if not allowed and self.top_denied is not None:
+            with self._lock:
+                self.top_denied.record(key)
 
     def record_error(self, transport: str) -> None:
         with self._lock:
@@ -79,8 +126,7 @@ class Metrics:
         """One aggregated update per window of a native transport's
         driver thread (`launches=0`: a window answered without the
         device, e.g. every row's deadline had lapsed).  `denied_keys`
-        feeds the top-denied leaderboard in the JAX package; the port
-        has none yet and ignores it."""
+        feeds the top-denied leaderboard."""
         with self._lock:
             n = n_allowed + n_denied + n_errors
             self.requests_total += n
@@ -89,6 +135,9 @@ class Metrics:
             self.requests_allowed += n_allowed
             self.requests_denied += n_denied
             self.requests_errors += n_errors
+            if self.top_denied is not None:
+                for key in denied_keys:
+                    self.top_denied.record(key)
             self.device_launches += launches
             if launches:
                 self.batched_requests += batch
@@ -149,6 +198,18 @@ class Metrics:
                "counter", self.requests_denied)
         metric("throttlecrab_requests_errors", "Number of error responses",
                "counter", self.requests_errors)
+        if self.top_denied is not None:
+            out.append(
+                "# HELP throttlecrab_top_denied_keys "
+                "Top denied keys by count"
+            )
+            out.append("# TYPE throttlecrab_top_denied_keys gauge")
+            for rank, (key, count) in enumerate(self.top_denied.top(), 1):
+                escaped = escape_label_value(key)
+                out.append(
+                    f'throttlecrab_top_denied_keys{{key="{escaped}",'
+                    f'rank="{rank}"}} {count}'
+                )
         metric("throttlecrab_tpu_device_launches",
                "Number of device kernel launches", "counter",
                self.device_launches)
@@ -176,3 +237,24 @@ class Metrics:
                "lapsed before device dispatch", "counter",
                self.deadline_shed)
         return "\n".join(out) + "\n"
+
+
+def escape_label_value(value: str) -> str:
+    """Prometheus label escaping (metrics.rs:213-230)."""
+    return (
+        value.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+    )
+
+
+class MetricsBuilder:
+    """Builder mirroring metrics.rs:101-142."""
+
+    def __init__(self) -> None:
+        self._max_denied_keys = 0
+
+    def max_denied_keys(self, n: int) -> "MetricsBuilder":
+        self._max_denied_keys = n
+        return self
+
+    def build(self) -> Metrics:
+        return Metrics(max_denied_keys=self._max_denied_keys)

@@ -435,19 +435,26 @@ class NativeRedisTransport:
         # per-sub-batch calls would overcount launches by up to
         # max_scan_depth and wreck the coalescing ratio).
         tot_allowed = tot_denied = tot_errors = 0
-        for (_blob, offsets, _p, gen, fd, _b), res in zip(batches, results):
-            n_a, n_d, n_e = self._respond_one(offsets, gen, fd, res)
+        denied_keys: list = []
+        track_denied = (
+            self.metrics is not None
+            and self.metrics.top_denied is not None
+        )
+        for (blob, offsets, _p, gen, fd, _b), res in zip(batches, results):
+            n_a, n_d, n_e, dk = self._respond_one(
+                blob, offsets, gen, fd, res, track_denied
+            )
             tot_allowed += n_a
             tot_denied += n_d
             tot_errors += n_e
+            denied_keys.extend(dk)
         if self.metrics is not None and (any_launch or tot_errors):
             self.metrics.record_batch(
                 self.name,
                 n_allowed=tot_allowed,
                 n_denied=tot_denied,
                 n_errors=tot_errors,
-                # The top-denied leaderboard is not ported yet.
-                denied_keys=(),
+                denied_keys=denied_keys,
                 # Only requests that actually rode the launch count
                 # toward the batching/coalescing gauges.
                 batch=launched_n,
@@ -455,9 +462,12 @@ class NativeRedisTransport:
             )
         self._maybe_sweep(now_ns, sum(len(b[1]) - 1 for b in batches))
 
-    def _respond_one(self, offsets, cookie_gen, cookie_fd, res):
+    def _respond_one(
+        self, blob, offsets, cookie_gen, cookie_fd, res, track_denied
+    ):
         """Serialize one sub-batch's replies; returns (n_allowed,
-        n_denied, n_errors) for the caller's aggregate."""
+        n_denied, n_errors, denied_keys) for the caller's aggregate
+        (the keys only when `track_denied`)."""
         n = len(offsets) - 1
         results = np.zeros(5 * n, np.int64)
         if res is None:
@@ -482,10 +492,18 @@ class NativeRedisTransport:
         )
         ok = status == 0
         allowed_mask = results.reshape(n, 5)[:, 0] != 0
+        if track_denied:
+            denied_keys = [
+                blob[offsets[i]:offsets[i + 1]].decode("utf-8", "replace")
+                for i in np.flatnonzero(~allowed_mask & ok)
+            ]
+        else:
+            denied_keys = []
         return (
             int((allowed_mask & ok).sum()),
             int((~allowed_mask & ok).sum()),
             int((~ok).sum()),
+            denied_keys,
         )
 
     def _push_metrics(self) -> None:

@@ -156,15 +156,22 @@ class RedisTransport(ConnTrackingMixin):
         if command == "PING":
             return self._handle_ping(value.value), False
         if command == "THROTTLE":
+            key = None
+            if len(value.value) > 1:
+                arg = value.value[1]
+                if isinstance(arg, BulkString) and arg.value is not None:
+                    key = arg.value
             result = await self._handle_throttle(value.value)
-            # An error reply counts as a denial, as in the JAX transport
-            # (the top-denied leaderboard is not ported yet).
+            # An error reply counts as a denial, as in the JAX transport.
             allowed = (
                 isinstance(result, Array)
                 and len(result.value) >= 5
                 and result.value[0] == Integer(1)
             )
-            self.metrics.record_request(self.name, allowed)
+            if key is not None:
+                self.metrics.record_request_with_key(self.name, allowed, key)
+            else:
+                self.metrics.record_request(self.name, allowed)
             return result, False
         if command == "QUIT":
             return SimpleString("OK"), True

@@ -51,6 +51,20 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+# Stored-TAT bound of the compact="cur" output: the device emits
+# `cur * 2 + allowed` in i64 and a denied lane's cur can be the stored
+# TAT verbatim, so every live TAT must sit in [0, 2^62).
+CUR_TAT_BOUND = 1 << 62
+
+
+def tats_cur_safe(tats) -> bool:
+    """True iff every raw i64 TAT value is in [0, CUR_TAT_BOUND): the
+    condition under which compact="cur" launches are exact against state
+    holding them.  Snapshot restore re-derives `cur_safe` with it."""
+    tat = np.asarray(tats, np.int64)
+    return tat.size == 0 or bool(((tat >= 0) & (tat < CUR_TAT_BOUND)).all())
+
+
 def track_cur_safety(table, compact, params_cur_safe) -> None:
     """Cross-launch half of the compact="cur" certificate: the table's
     sticky `cur_safe` flag survives a launch iff its params are certified
