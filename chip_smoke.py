@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Ten phases, each printing its results; any failure raises and the script
-exits nonzero without its last line:
+Eleven phases, each printing its results; any failure raises and the
+script exits nonzero without its last line:
 
 1. card: the card's name and power limit (nvidia-smi), and the builds of
    the kernel libraries from csrc/ (one nvcc per source, started
@@ -37,9 +37,13 @@ exits nonzero without its last line:
    QUIT -> +OK and a close; one key over both transports shares one
    bucket; /health and /metrics (which counts both transports' requests
    and lists both denied keys under throttlecrab_top_denied_keys)
-   answer; 2 of a third key's 3 are taken, and SIGTERM gives exit 0 and
-   saves the snapshot.  A second boot on the same path answers that
-   key's third request with remaining 0 and denies its fourth;
+   answer; the default flags build the launch supervisor (state ok) and
+   the front tier (each key's second denial comes from the deny cache);
+   2 of a third key's 3 are taken, and SIGTERM gives exit 0 and saves
+   the snapshot.  A second boot on the same path, with `--faults
+   launch:count:1`, answers that key's third request with remaining 0
+   and denies its fourth, and its /metrics shows one supervisor retry
+   and one injected launch fault;
 5. row kernels vs plain: row_gather / row_scatter (tpu/row_ops.py)
    against index_select / index_copy_ at N = 2^21 + 2^16, B = 4096,
    W = 4 and 6, rows 0 and N-1 included.  Tolerance: exact equality;
@@ -99,7 +103,33 @@ exits nonzero without its last line:
    identically on the original and the cuda restore.  Prints the
    export / gather / write / load / scatter ms (host clock), then each
    row kernel's, its plain version's and the library call's time per
-   launch at B = 65,536, W = 4 and 6, beside the bound.
+   launch at B = 65,536, W = 4 and 6, beside the bound;
+11. failure domain and front tier at full width.  (a) A SupervisedLimiter
+   (3 retries, probe every 1,000 ms) over TorchRateLimiter(capacity=2^20)
+   on cuda holding all 1M config-3 keys decides 10 config-3 windows
+   (K=16 x B=4096, one timestamp per window, as the server stamps
+   one) through dispatch_many: 2 clean; one under
+   `launch:count:2` and one under `fetch:count:1`, both absorbed (state
+   ok); one under `launch:persistent`, which degrades to the host oracle
+   (the row_gather counter, zeroed just before, must read
+   ceil(1M / 65,536) = 16); 2 from the oracle (the window-kernel counter
+   must not move); then, healed and past the probe interval, one window
+   whose recovery makes exactly one probe window launch and re-promotes
+   the host-mutated keys with ceil(mutated / 65,536) row_scatter
+   launches (both read at the front tier's on_restore hook); then 2 on
+   the card.  Every wire field of every window, and each key's
+   tat/expiry from export_state (both lapsed, or equal), must equal an
+   uninterrupted, unsupervised device="cpu" run of the same traffic.
+   Prints retries, the ms in each state, the degrade's export and seed
+   ms, the oracle's decisions/s and the re-promotion's ms.  (b) Phase
+   9's harness over a FrontTier with the default knobs (deny cache
+   65,536, admission at 100,000 pending): 98,304 config-3 THROTTLEs
+   pipelined over 8 connections (fewer than the admission bound, so
+   nothing may be shed); every connection's bytes and the table state
+   must equal a no-front device="cpu" replay of the captured batches in
+   dispatch order, the deny cache must serve hits, and window launches
+   must not exceed windows.  Prints the hits and replies/s beside phase
+   9's.
 
 The line before the last is the {"kernels": [...]} record; the last line
 is {"ok": true, "device": {...}}.
@@ -601,6 +631,14 @@ def check_server(backend, snapshot_path):
                if line.startswith("throttlecrab_top_denied_keys{")]
         print(f"  /health 200 OK, /metrics 200 ({len(text)} bytes, counts "
               f"both transports; top denied {top})")
+        # Default flags build the supervisor and the front tier: each
+        # key's second denial is served from the deny cache.
+        hits = re.search(rb"throttlecrab_tpu_front_deny_hits (\d+)", text)
+        if (b"throttlecrab_tpu_engine_state 0" not in text or hits is None
+                or int(hits.group(1)) < 1):
+            raise AssertionError("default flags built no supervisor or no "
+                                 f"deny cache:\n{text.decode()}")
+        print(f"  supervisor state ok, deny-cache hits {int(hits.group(1))}")
         snap = [json.loads(http(http_port, "POST", "/throttle",
                                 throttle_body("smoke:snap", 3))[1])
                 for _ in range(2)]
@@ -615,7 +653,10 @@ def check_server(backend, snapshot_path):
         if proc.poll() is None:
             proc.kill()
             proc.wait()
-    proc, http_port, _ = boot_server(backend, extra)
+    # The second boot also arms one injected launch fault: the supervisor
+    # absorbs it with one retry and the answers do not change.
+    proc, http_port, _ = boot_server(
+        backend, extra + ("--faults", "launch:count:1"))
     try:
         after = [json.loads(http(http_port, "POST", "/throttle",
                                  throttle_body("smoke:snap", 3))[1])
@@ -625,6 +666,13 @@ def check_server(backend, snapshot_path):
         ]:
             raise AssertionError(f"the second boot did not continue the "
                                  f"snapshot's bucket: {after}")
+        wait_metrics(http_port, (
+            b"throttlecrab_tpu_supervisor_retries 1",
+            b'throttlecrab_tpu_faults_injected_total{site="launch"} 1',
+            b"throttlecrab_tpu_engine_state 0",
+        ))
+        print("  --faults launch:count:1: answers unchanged, /metrics shows "
+              "1 supervisor retry and 1 injected launch fault")
         log = stop_server(proc)
         print("  second boot on the snapshot: the key's third request "
               "answered remaining 0, its fourth denied; "
@@ -1316,10 +1364,11 @@ def run_resp_clients(port, kid, frames, tmp, tag):
                 proc.wait()
 
 
-def recording_transport(limiter):
-    """A NativeRedisTransport that records, in dispatch order, each
-    window's frames, cookies, timestamp and fetched results, and the
-    driver's seconds per part (SPLIT) of each window."""
+def recording_transport(limiter, metrics=None, front=None):
+    """A NativeRedisTransport (over `front` when given) that records, in
+    dispatch order, each window's captured frames (`full`), the frames
+    it sent to the device, cookies, timestamp and fetched results, and
+    the driver's seconds per part (SPLIT) of each window."""
     from throttlecrab_tpu_torch.server.metrics import Metrics
     from throttlecrab_tpu_torch.server.native_redis import (
         NativeRedisTransport,
@@ -1348,12 +1397,13 @@ def recording_transport(limiter):
 
         def _decide_frames(self, frames, now_ns):
             self._record.update(frames=frames, now_ns=now_ns)
-            results = super()._decide_frames(frames, now_ns)
+            results, seq = super()._decide_frames(frames, now_ns)
             self._record["results"] = results
-            return results
+            return results, seq
 
         def _decide_window(self, batches):
-            self._record = {"cookies": [(b[3], b[4]) for b in batches]}
+            self._record = {"cookies": [(b[3], b[4]) for b in batches],
+                            "full": [b[:3] for b in batches]}
             super()._decide_window(batches)
             self._record["split"] = self._parts
             self.windows.append(self._record)
@@ -1372,16 +1422,18 @@ def recording_transport(limiter):
         def __len__(self):
             return len(self._inner)
 
-        def dispatch_wire_window(self, frames, now_ns):
+        def dispatch_wire_window(self, frames, now_ns, collect_cur=False):
             handle = transport._timed(
-                "dispatch", self._inner.dispatch_wire_window, frames, now_ns)
+                "dispatch", self._inner.dispatch_wire_window, frames, now_ns,
+                collect_cur)
             if handle is not None:
                 fetch = handle.fetch
                 handle.fetch = lambda: transport._timed("fetch", fetch)
             return handle
 
-    transport = Recording("127.0.0.1", 0, TimedLimiter(limiter), Metrics(),
-                          batch_size=B, max_scan_depth=K)
+    transport = Recording("127.0.0.1", 0, TimedLimiter(limiter),
+                          metrics or Metrics(), batch_size=B,
+                          max_scan_depth=K, front=front)
     return transport
 
 
@@ -1414,10 +1466,10 @@ def resp_expected(windows, replay):
     replies, keys = {}, {}
     for w, results in zip(windows, replay):
         for (blob, offsets, _p), (gen, fd), res in zip(
-            w["frames"], w["cookies"], results
+            w["full"], w["cookies"], results
         ):
             if (res.status != 0).any():
-                raise AssertionError("a phase 9 request failed validation")
+                raise AssertionError("a RESP request failed validation")
             rows = np.stack([res.allowed.astype(np.int64), res.limit,
                              res.remaining, res.reset_after_s,
                              res.retry_after_s], 1).tolist()
@@ -1693,6 +1745,303 @@ def run_snapshot(keymap, windows, tmp):
     return {"row_gather": gathers, "row_scatter": scatters}, err, split
 
 
+# ---- failure domain and front tier (phase 11) ---------------------------- #
+
+
+DRILL_WINDOWS = 10  # 2 clean, 2 absorbed faults, degrade, 2 oracle, 3 card
+PROBE_INTERVAL_MS = 1000  # the supervisor's default
+FRONT_WINDOWS_OF_B = 24  # phase 11b's commands: 24 x 4096 = 98,304
+
+
+class StateClock:
+    """The supervisor's state transitions on the host clock: wraps its
+    two state writers, so every entry into a state is stamped."""
+
+    def __init__(self, sup):
+        self.log = [(sup.state, time.perf_counter())]
+        set_state, cas_state = sup._set_state, sup._cas_state
+
+        def set_(state):
+            set_state(state)
+            self._note(sup.state)
+
+        def cas(expect, state):
+            cas_state(expect, state)
+            self._note(sup.state)
+
+        sup._set_state, sup._cas_state = set_, cas
+
+    def _note(self, state):
+        if state != self.log[-1][0]:
+            self.log.append((state, time.perf_counter()))
+
+    def ms_in_states(self):
+        """[(state, ms)] in order; the last state runs to now."""
+        stamps = self.log + [(None, time.perf_counter())]
+        return [(a, (tb - ta) * 1e3)
+                for (a, ta), (_, tb) in zip(stamps, stamps[1:])]
+
+
+def drill_windows(rng):
+    """Phase 3's config-3 traffic, DRILL_WINDOWS windows of K x B with
+    quantity 1, each window stamped with one timestamp (its last batch's),
+    as the server's engine and native driver stamp a window; the last
+    three are moved past the probe interval.  (The supervisor probes and
+    re-promotes at a window's last timestamp, as the JAX one does, so a
+    window whose earlier batches carry earlier timestamps can see a
+    bucket the re-promotion dropped as lapsed: ROADMAP C5.)"""
+    windows = config3_windows(rng, N_KEYS, DRILL_WINDOWS, K, B, -1)
+    shift = (PROBE_INTERVAL_MS + 100) * 1_000_000
+    return [
+        [(*b[:5], w[-1][5] + (shift if i >= 7 else 0)) for b in w]
+        for i, w in enumerate(windows)
+    ]
+
+
+def run_drill(card):
+    """Phase 11a: the launch supervisor over the 1M-key cuda limiter,
+    against an uninterrupted, unsupervised device="cpu" run of the same
+    traffic.  Returns its record for the kernels line."""
+    import numpy as np
+    import torch
+
+    from throttlecrab_tpu_torch import faults
+    from throttlecrab_tpu_torch.server import supervisor as sup_mod
+    from throttlecrab_tpu_torch.tpu import fused, row_ops, snapshot
+    from throttlecrab_tpu_torch.tpu.limiter import TorchRateLimiter
+
+    windows = drill_windows(np.random.default_rng(11))
+    limiter = TorchRateLimiter(capacity=CAPACITY)
+    populate_config3(limiter, N_KEYS, T0)
+    sup = sup_mod.SupervisedLimiter(
+        limiter, retries=3, probe_interval_ms=PROBE_INTERVAL_MS)
+    clock = StateClock(sup)
+    split = {"export": [0.0], "seed": [0.0], "bulk_insert": [0.0]}
+    mutated = []
+    export_fn, seed_fn = snapshot.export_state, sup_mod.HostOracle.seed
+    bulk_fn = snapshot._bulk_insert
+    snapshot.export_state = timed_sync(export_fn, split["export"])
+    sup_mod.HostOracle.seed = lambda self, *a: timed_sync(
+        lambda: seed_fn(self, *a), split["seed"])()
+
+    def bulk(lim, keys, tats, exps):
+        mutated.append(len(keys))
+        return timed_sync(bulk_fn, split["bulk_insert"])(lim, keys, tats,
+                                                         exps)
+
+    snapshot._bulk_insert = bulk
+
+    class RepromoteProbe:
+        """Stands in for the front tier: the supervisor calls on_restore
+        right after the re-promotion's bulk insert, so the counters read
+        here cover exactly the probe and the re-promotion."""
+
+        seen = None
+
+        def on_restore(self):
+            RepromoteProbe.seen = (fused.LAUNCHES, row_ops.SCATTER_LAUNCHES)
+
+    got, seconds, steps = [], [], []
+
+    def window(w, label):
+        t = time.perf_counter()
+        got.append(sup.dispatch_many(windows[w], wire=True).fetch())
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t)
+        steps.append((label, sup.state, sup.retry_count))
+
+    try:
+        window(0, "clean")
+        window(1, "clean")
+        faults.arm(faults.FaultInjector(faults.parse_spec("launch:count:2")))
+        window(2, "launch:count:2")
+        if (sup.state, sup.retry_count) != ("ok", 2):
+            raise AssertionError(f"launch:count:2 not absorbed: {steps}")
+        faults.arm(faults.FaultInjector(faults.parse_spec("fetch:count:1")))
+        window(3, "fetch:count:1")
+        if (sup.state, sup.retry_count) != ("ok", 3):
+            raise AssertionError(f"fetch:count:1 not absorbed: {steps}")
+        injector = faults.FaultInjector(
+            faults.parse_spec("launch:persistent"))
+        faults.arm(injector)
+        torch.cuda.synchronize()
+        row_ops.GATHER_LAUNCHES = 0
+        window(4, "launch:persistent")
+        degrade_gathers = row_ops.GATHER_LAUNCHES
+        want_gathers = -(-N_KEYS // row_ops.MAX_BATCH)
+        if sup.state != "degraded" or degrade_gathers != want_gathers:
+            raise AssertionError(
+                f"degrade: state {sup.state}, {degrade_gathers} row_gather "
+                f"launches, expected {want_gathers}")
+        fused.LAUNCHES = 0
+        t = time.perf_counter()
+        window(5, "degraded")
+        window(6, "degraded")
+        oracle_rate = 2 * K * B / (time.perf_counter() - t)
+        if fused.LAUNCHES != 0:
+            raise AssertionError(f"{fused.LAUNCHES} window launches while "
+                                 "serving from the host oracle")
+        injector.heal()
+        sup.front = RepromoteProbe()
+        fused.LAUNCHES = row_ops.SCATTER_LAUNCHES = 0
+        t = time.perf_counter()
+        window(7, "healed, past the probe interval")
+        recover_ms = (time.perf_counter() - t) * 1e3
+        after_recover = fused.LAUNCHES
+        window(8, "card")
+        window(9, "card")
+    finally:
+        faults.disarm()
+        snapshot.export_state, sup_mod.HostOracle.seed = export_fn, seed_fn
+        snapshot._bulk_insert = bulk_fn
+    want_scatters = -(-mutated[0] // row_ops.MAX_BATCH) if mutated else -1
+    if RepromoteProbe.seen != (1, want_scatters) or after_recover != 2 or (
+            sup.state, sup.degrade_count, sup.repromote_count) != (
+                "ok", 1, 1):
+        raise AssertionError(
+            f"recovery: (probe launches, scatters) at re-promotion "
+            f"{RepromoteProbe.seen}, expected (1, {want_scatters}); "
+            f"{after_recover} window launches with the window; state "
+            f"{sup.state}, degrades {sup.degrade_count}, re-promotions "
+            f"{sup.repromote_count}")
+    if fused.LAUNCHES != 4 or not limiter.table.state.is_cuda:
+        raise AssertionError(f"{fused.LAUNCHES} window launches over the "
+                             "recovery and two card windows, expected 4")
+    ref = TorchRateLimiter(capacity=CAPACITY, device="cpu")
+    populate_config3(ref, N_KEYS, T0)
+    want = [ref.dispatch_many(w, wire=True).fetch() for w in windows]
+    assert_same_results(got, want)
+    final = keyed_state(sup)
+    if final.pop(sup_mod.PROBE_KEY, None) is None:
+        raise AssertionError("the recovery probe's key is not in the table")
+    # A bucket whose TTL lapsed is absent to every decision: the
+    # re-promotion skips host buckets that lapsed while degraded (as the
+    # JAX supervisor does), so such a key keeps its older, also lapsed,
+    # device row.  Every other key's tat/expiry must be equal.
+    now = windows[-1][-1][-1]
+    want_state = keyed_state(ref)
+    lapsed = 0
+    for key, (tat, exp) in want_state.items():
+        have = final.get(key)
+        if have == (tat, exp):
+            continue
+        if have is not None and have[1] <= now and exp <= now:
+            lapsed += 1
+            continue
+        raise AssertionError(f"{key}: tat/expiry {have} after the drill, "
+                             f"{(tat, exp)} in the uninterrupted cpu run")
+    if len(final) != len(want_state):
+        raise AssertionError("the drill's table holds other keys")
+    states = clock.ms_in_states()
+    print(f"  windows (step, state after, retries so far): {steps}")
+    print(f"  every wire field of the {DRILL_WINDOWS} windows and the final "
+          f"per-key tat/expiry of {N_KEYS} keys equal the uninterrupted "
+          f"device='cpu' run (the probe key aside; {lapsed} keys lapsed in "
+          "both, with different lapsed rows)")
+    print(f"  retries {sup.retry_count}; degrade: {degrade_gathers} "
+          f"row_gather launches, export {split['export'][0] * 1e3:.1f} ms, "
+          f"oracle seed {split['seed'][0] * 1e3:.1f} ms; host oracle "
+          f"{oracle_rate:.0f} decisions/s; recovery: 1 probe window launch, "
+          f"{mutated[0]} host-mutated keys re-promoted by "
+          f"{want_scatters} row_scatter launches in "
+          f"{split['bulk_insert'][0] * 1e3:.1f} ms, the recovering window "
+          f"{recover_ms:.1f} ms ({card})")
+    print("  ms in each state, in order: " + ", ".join(
+        f"{st} {ms:.1f}" for st, ms in states))
+    print("  ms per window: " + ", ".join(f"{x * 1e3:.1f}" for x in seconds))
+    return {
+        "retries": sup.retry_count,
+        "degrade_row_gather_launches": degrade_gathers,
+        "repromote_row_scatter_launches": want_scatters,
+        "repromoted_keys": mutated[0],
+        "lapsed_keys": lapsed,
+        "probe_window_launches": RepromoteProbe.seen[0],
+        "export_ms": split["export"][0] * 1e3,
+        "seed_ms": split["seed"][0] * 1e3,
+        "bulk_insert_ms": split["bulk_insert"][0] * 1e3,
+        "recovering_window_ms": recover_ms,
+        "oracle_decisions_per_s": oracle_rate,
+        "ms_in_states": states,
+        "window_ms": [x * 1e3 for x in seconds],
+    }
+
+
+def run_front_resp(card, resp_rate):
+    """Phase 11b: phase 9's harness over a FrontTier with the default
+    knobs (deny cache 65,536, admission at 100,000 pending).  Returns its
+    record for the kernels line."""
+    import asyncio
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from throttlecrab_tpu_torch.server import native_redis
+    from throttlecrab_tpu_torch.server.config import Config
+    from throttlecrab_tpu_torch.server.metrics import Metrics
+    from throttlecrab_tpu_torch.server.store import create_front_tier
+    from throttlecrab_tpu_torch.tpu import fused
+    from throttlecrab_tpu_torch.tpu.limiter import TorchRateLimiter
+
+    n = FRONT_WINDOWS_OF_B * B
+    kid, frames = resp_commands(np.random.default_rng(12), n)
+    limiter = TorchRateLimiter(capacity=CAPACITY, keymap="native")
+    metrics = Metrics()
+    front = create_front_tier(Config(), metrics, limiter)
+    if front.deny_cache.capacity != 65536 or (
+            front.admission.max_pending != 100_000):
+        raise AssertionError("the front tier's defaults changed")
+    transport = recording_transport(limiter, metrics, front)
+    loop = asyncio.new_event_loop()
+    loop.run_until_complete(transport.start())
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            fused.LAUNCHES = 0
+            runs = run_resp_clients(transport.bound_port, kid, frames, tmp,
+                                    "front")
+            torch.cuda.synchronize()
+            launches = fused.LAUNCHES
+    finally:
+        loop.run_until_complete(transport.stop())
+        loop.close()
+    windows = transport.windows
+    hits = front.deny_cache.hits
+    ref = TorchRateLimiter(capacity=CAPACITY, keymap="native", device="cpu")
+    replay = []
+    for w in windows:
+        handle = ref.dispatch_wire_window(w["full"], w["now_ns"])
+        if handle is None:
+            raise AssertionError("the cpu replay left the wire route")
+        replay.append(handle.fetch())
+    check_resp_replies(runs, windows, replay)
+    if not torch.equal(limiter.table.state[:CAPACITY].cpu(),
+                       ref.table.state[:CAPACITY]):
+        raise AssertionError("table state differs from the no-front replay")
+    if hits <= 0 or not 0 < launches <= len(windows):
+        raise AssertionError(f"{hits} deny-cache hits, {launches} launches "
+                             f"for {len(windows)} windows")
+    shed = front.admission.shed_peek + front.admission.shed_consume
+    clocks = [c for _, _, c in runs]
+    span = max(c["end"] for c in clocks) - min(c["start"] for c in clocks)
+    rate = n / span
+    print(f"  {n} commands over {RESP_CONNS} connections: every "
+          "connection's bytes equal the no-front device='cpu' replay of "
+          "the captured batches; table state equal")
+    print(f"  deny-cache hits {hits} ({hits / n:.1%} of requests), "
+          f"{len(front.deny_cache)} live entries, {shed} shed; "
+          f"{launches} window launches for {len(windows)} windows; "
+          f"{rate:.0f} replies/s (clients' clock) against phase 9's "
+          f"{resp_rate:.0f} in this run ({card})")
+    return {
+        "front_deny_hits": hits,
+        "front_requests": n,
+        "front_windows": len(windows),
+        "front_launches": launches,
+        "front_shed": shed,
+        "front_replies_per_s": rate,
+    }
+
+
 # ---- main ---------------------------------------------------------------- #
 
 
@@ -1941,6 +2290,16 @@ def main() -> int:
               f"kernel {t['host_us_kernel']:.1f} µs, library "
               f"{t['host_us_library']:.1f} µs")
 
+    print(f"[11a] failure domain at full width: SupervisedLimiter over "
+          f"TorchRateLimiter(capacity=2^20) on cuda, {N_KEYS} config-3 "
+          f"keys, K={K} B={B}; launch and fetch faults, a degrade to the "
+          f"host oracle and a re-promotion ({card})")
+    drill = run_drill(card)
+    print(f"[11b] front tier over native RESP: phase 9's harness with the "
+          f"default deny cache and admission, {FRONT_WINDOWS_OF_B * B} "
+          f"config-3 THROTTLEs ({card})")
+    front_resp = run_front_resp(card, resp["resp_replies_per_s"])
+
     print(f"card: {card_line()}")
     kernels = [{
         "name": "fused_window",
@@ -1982,6 +2341,9 @@ def main() -> int:
         "byid_window_ms": byid_split,
         "byid_window_profile": byid_profile,
         **resp,
+        "supervisor_probe_launches": drill["probe_window_launches"],
+        "supervisor_drill": drill,
+        **front_resp,
         "card": card,
     }]
     for name, replaces in (("row_gather", "pallas_ops.py:128"),
@@ -2017,6 +2379,12 @@ def main() -> int:
             "library_host_us_per_call": t4["host_us_library"],
             "snapshot_ms": snap_ms,
             "composed_scan_launches": composed_launches[name],
+            "supervisor_path": "degrade export (phase 11a)"
+                               if name == "row_gather" else
+                               "re-promotion bulk insert (phase 11a)",
+            "supervisor_launches": drill[
+                "degrade_row_gather_launches" if name == "row_gather"
+                else "repromote_row_scatter_launches"],
             "b4096": {
                 "ms": b4["kernel"], "plain_ms": b4["plain"],
                 "library_ms": b4["library"],

@@ -297,9 +297,9 @@ class _Recording(native_redis.NativeRedisTransport):
     windows = None
 
     def _decide_frames(self, frames, now_ns):
-        results = super()._decide_frames(frames, now_ns)
+        results, seq = super()._decide_frames(frames, now_ns)
         self.windows[-1].update(frames=frames, now_ns=now_ns, results=results)
-        return results
+        return results, seq
 
     def _decide_window(self, batches):
         self.windows.append({"cookies": [(b[3], b[4]) for b in batches]})
@@ -464,3 +464,149 @@ def test_snapshot_restore_of_two_keys_on_one_slot_on_card(cuda_device,
     assert torch.equal(got.table.state[:64].cpu(), want.table.state[:64])
     _, _, _, tat, _, _, _ = snapshot.export_state(got)
     assert tat.tolist() == [snapshot.export_state(src)[3][1]]
+
+
+# ---- the launch supervisor and the front tier on the card ----------------- #
+
+
+def _drill_windows(rng, n_keys, n_windows, k, b):
+    """Zipf-1.1 config-3 style windows over `n_keys` keys, quantity 1,
+    one timestamp per window."""
+    p = np.arange(1, n_keys + 1, dtype=np.float64) ** -1.1
+    cdf = np.cumsum(p / p.sum())
+    now, windows = T0 + NS, []
+    for _ in range(n_windows):
+        batches = []
+        for _ in range(k):
+            kid = np.minimum(np.searchsorted(cdf, rng.random(b)),
+                             n_keys - 1).astype(np.int64)
+            batches.append(([f"card:{i}" for i in kid.tolist()],
+                            5 + kid % 60, 50 + kid % 1000, 30 + kid % 120,
+                            np.ones(b, np.int64), now))
+        # One timestamp per window, as the server stamps one.
+        now += int(rng.integers(2_000_000, 30_000_000))
+        windows.append(batches)
+    return windows
+
+
+@pytest.mark.cuda
+def test_supervisor_drill_on_card(cuda_device, monkeypatch):
+    """Phase 11a of chip_smoke.py at 5,000 keys (MAX_BATCH cut to 1,024):
+    absorbed launch and fetch faults, a degrade that exports the table
+    with 5 row_gather launches, two windows from the host oracle with no
+    window launch, then exactly one probe launch and a re-promotion by
+    ceil(mutated / 1,024) row_scatter launches.  Every result and every
+    live bucket equal an uninterrupted device="cpu" run."""
+    from throttlecrab_tpu_torch import faults
+    from throttlecrab_tpu_torch.server import supervisor as sup_mod
+
+    monkeypatch.setattr(row_ops, "MAX_BATCH", 1024)
+    n_keys = 5000
+    windows = _drill_windows(np.random.default_rng(5), n_keys, 8, 4, 256)
+    windows[6:] = [[(*b[:5], b[5] + 2 * NS) for b in w] for w in windows[6:]]
+    kid = np.arange(n_keys, dtype=np.int64)
+    populate = ([f"card:{i}" for i in kid.tolist()], 5 + kid % 60,
+                50 + kid % 1000, 30 + kid % 120, 1, T0)
+    lim = TorchRateLimiter(capacity=8192)
+    ref = TorchRateLimiter(capacity=8192, device="cpu")
+    for limiter in (lim, ref):
+        limiter.rate_limit_batch(*populate, wire=True)
+    sup = sup_mod.SupervisedLimiter(lim, retries=2, sleep_fn=lambda s: None)
+    seen = []
+
+    class Probe:
+        def on_restore(self):
+            seen.append((fused.LAUNCHES, row_ops.SCATTER_LAUNCHES))
+
+    sup.front = Probe()
+    got = []
+    try:
+        for w, spec in enumerate([None, "launch:count:2", "fetch:count:1",
+                                  "launch:persistent", None, None, "heal",
+                                  None]):
+            if spec == "heal":
+                faults.disarm()
+                fused.LAUNCHES = row_ops.SCATTER_LAUNCHES = 0
+            elif spec is not None:
+                faults.arm(faults.FaultInjector(faults.parse_spec(spec)))
+            if spec == "launch:persistent":
+                row_ops.GATHER_LAUNCHES = 0
+            if w == 4:
+                fused.LAUNCHES = 0
+            got.append(sup.dispatch_many(windows[w], wire=True).fetch())
+            if spec == "launch:persistent":
+                assert sup.state == "degraded"
+                assert row_ops.GATHER_LAUNCHES == 5
+            if w == 5:
+                assert fused.LAUNCHES == 0
+    finally:
+        faults.disarm()
+    assert (sup.retry_count, sup.degrade_count, sup.repromote_count,
+            sup.state) == (2 + 1 + 3, 1, 1, "ok")
+    assert len(seen) == 1 and seen[0][0] == 1 and seen[0][1] >= 1
+    want = [ref.dispatch_many(w, wire=True).fetch() for w in windows]
+    for a_list, b_list in zip(got, want):
+        for a, b in zip(a_list, b_list):
+            for f in ("allowed", "limit", "remaining", "reset_after_s",
+                      "retry_after_s", "status"):
+                assert np.array_equal(getattr(a, f), getattr(b, f))
+
+    def keyed(limiter):
+        ks, _, _, tat, exp, _, _ = snapshot.export_state(limiter)
+        return dict(zip(ks, zip(tat.tolist(), exp.tolist())))
+
+    now = windows[-1][-1][-1]
+    have, ref_state = keyed(sup), keyed(ref)
+    assert have.pop(sup_mod.PROBE_KEY) is not None
+    assert have.keys() == ref_state.keys()
+    for key, row in ref_state.items():
+        assert have[key] == row or (have[key][1] <= now and row[1] <= now)
+
+
+@pytest.mark.cuda
+def test_front_tier_native_resp_on_card_matches_no_front_cpu(cuda_device):
+    """Phase 11b of chip_smoke.py at a small size: one pipelined
+    connection of hot-key abuse into the native RESP driver over a front
+    tier with the default knobs on the card answers byte for byte as a
+    driver without a front tier on the CPU; the deny cache served hits
+    and the card saw no more launches than windows."""
+    from throttlecrab_tpu_torch.server.config import Config
+    from throttlecrab_tpu_torch.server.store import create_front_tier
+
+    rng = np.random.default_rng(8)
+    kid = np.minimum(rng.zipf(1.3, 4000), 60) - 1
+    stream = b"".join(_resp(b"hot:%d" % k, 2 + k % 3, 1 + k % 5, 60)
+                      for k in kid.tolist()) + b"*1\r\n$4\r\nQUIT\r\n"
+    metrics = Metrics()
+    lim = TorchRateLimiter(capacity=4096, keymap="native")
+    front = create_front_tier(Config(), metrics, lim)
+    t = native_redis.NativeRedisTransport(
+        "127.0.0.1", 0, lim, metrics, now_fn=lambda: T0, batch_size=256,
+        front=front)
+    out = []
+
+    def client():
+        with socket.create_connection(("127.0.0.1", t.bound_port), 30) as s:
+            s.sendall(stream)
+            data = b""
+            while chunk := s.recv(1 << 16):
+                data += chunk
+            out.append(data)
+
+    async def main():
+        await t.start()
+        try:
+            th = threading.Thread(target=client)
+            th.start()
+            await asyncio.get_running_loop().run_in_executor(
+                None, th.join, 60)
+        finally:
+            await t.stop()
+
+    before = fused.LAUNCHES
+    asyncio.run(main())
+    launches = fused.LAUNCHES - before
+    _, want = _serve("cpu", [stream], 4096, batch_size=256)
+    assert out == want
+    assert front.deny_cache.hits > 0
+    assert 0 < launches <= metrics.device_launches

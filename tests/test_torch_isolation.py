@@ -5,7 +5,11 @@ Runs in a fresh interpreter with `sys.modules["jax"] = None` (any jax
 import raises), imports every module of throttlecrab_tpu_torch, and
 checks that no module named `throttlecrab_tpu` or `throttlecrab_tpu.*`
 got loaded (`throttlecrab_tpu_torch` shares the prefix, so the check is
-exact).  Then the device contract: without a card, asking for `cuda` —
+exact); the failure domain and the front tier (faults/, front/,
+server/supervisor.py) are among them, and a supervised limiter degrades
+to its host oracle under an injected fault and re-promotes, with a deny
+cache certifying from its results, still with no jax.  Then the device
+contract: without a card, asking for `cuda` —
 explicitly or by default — raises instead of running on the CPU.  Last,
 the native keymap builds (g++, from native/keymap.cpp) and serves a batch,
 and the native RESP transport (the wire server built from
@@ -38,7 +42,35 @@ leaked = sorted(
 )
 assert not leaked, leaked
 assert sys.modules.get("jax") is None
+for name in (
+    "throttlecrab_tpu_torch.faults", "throttlecrab_tpu_torch.faults.injector",
+    "throttlecrab_tpu_torch.front", "throttlecrab_tpu_torch.front.admission",
+    "throttlecrab_tpu_torch.front.deny_cache",
+    "throttlecrab_tpu_torch.server.supervisor",
+):
+    assert name in names, name
 print("imported", len(names))
+
+from throttlecrab_tpu_torch import faults
+from throttlecrab_tpu_torch.front import DenyCache, FrontTier
+from throttlecrab_tpu_torch.server.supervisor import SupervisedLimiter
+from throttlecrab_tpu_torch.tpu.limiter import TorchRateLimiter as _TRL
+inj = faults.FaultInjector(faults.parse_spec("launch:persistent"))
+faults.arm(inj)
+sup = SupervisedLimiter(_TRL(capacity=64, device="cpu"), retries=1,
+                        probe_interval_ms=1, sleep_fn=lambda s: None)
+sup.front = FrontTier(DenyCache(16), None)
+t = 10**18
+assert sup.rate_limit_batch(["k"], 2, 1, 60, 1, t).allowed[0]
+assert sup.state == "degraded" and inj.stats() == {"launch": 2}
+inj.heal()
+res = sup.rate_limit_batch(["k"], 2, 1, 60, 1, t + 2 * 10**6, wire=True,
+                           collect_cur=True)
+assert sup.state == "ok" and sup.repromote_count == 1
+assert res.allowed[0] and res.cur_ns is not None
+faults.disarm()
+assert sys.modules.get("jax") is None
+print("supervisor and front tier run without jax")
 
 import torch
 from throttlecrab_tpu_torch.tpu.limiter import TorchRateLimiter

@@ -8,7 +8,8 @@ client deadlines that lapse in the queue, requests after shutdown.  The
 HTTP status and the JSON body must be byte-identical.  Both servers'
 `Metrics` are built as each server builds them at its default config
 (the top-denied leaderboard at 100 keys), and their `/metrics` renders
-must match, apart from the gauges of modules the port has not ported.
+must match, apart from the gauges of modules the port has not ported
+(insight, control plane, checkpoints).
 `/health` and `/metrics` answer 200 over a real socket.  Every flag of
 the JAX server that belongs to a ported module parses, from the command
 line and from its environment variable, to the same value in both.
@@ -48,12 +49,9 @@ class VirtualClock:
         return self.now
 
 
-# Gauges of JAX modules the port has not ported yet (front tier,
-# supervisor, fault injection, insight, control plane, persist).
-_UNPORTED = re.compile(
-    r"throttlecrab_tpu_(front|engine_state|supervisor|faults|insight|"
-    r"control|checkpoint)_?"
-)
+# Gauges of JAX modules the port has not ported yet (insight, control
+# plane, persist).
+_UNPORTED = re.compile(r"throttlecrab_tpu_(insight|control|checkpoint)_?")
 
 
 def _render(metrics):
@@ -263,7 +261,12 @@ _FLAG_VALUES = {
     "max_denied_keys": "5", "log_level": "debug", "batch_size": "64",
     "max_linger_us": "300", "max_scan_depth": "4", "keymap": "python",
     "snapshot_path": "/data/state", "drain_timeout_ms": "5",
-    "deadline_default_ms": "5",
+    "deadline_default_ms": "5", "front_deny_cache": "17",
+    "front_max_pending": "18", "front_max_wait_us": "19",
+    "front_peek_frac": "0.5", "supervisor_retries": "7",
+    "supervisor_backoff_us": "11", "supervisor_backoff_max_us": "12",
+    "supervisor_probe_interval_ms": "13", "supervisor_mode": "fail",
+    "faults": "launch:count:2,fetch:transient:0.5", "faults_seed": "9",
 }
 _PORT_FLAGS = [
     (name, env, typ) for name, env, _, typ, _ in port_config._SPEC
@@ -295,9 +298,19 @@ def test_ported_flag_parses_as_in_jax(monkeypatch, name, env, typ):
 @pytest.mark.parametrize("argv", [
     ["--max-denied-keys", "10001"], ["--max-denied-keys", "-1"],
     ["--drain-timeout-ms", "-1"], ["--deadline-default-ms", "-1"],
-    [],
+    [], ["--front-deny-cache", "-1"], ["--front-max-pending", "-1"],
+    ["--front-max-wait-us", "-1"], ["--front-peek-frac", "0"],
+    ["--front-peek-frac", "1.5"], ["--supervisor-mode", "explode"],
+    ["--supervisor-retries", "-1"], ["--supervisor-backoff-us", "-1"],
+    ["--supervisor-backoff-max-us", "-1"],
+    ["--supervisor-probe-interval-ms", "0"], ["--faults", "nope:persistent"],
+    ["--faults", "launch:transient:2"], ["--faults", "launch"],
 ], ids=["denied-keys-high", "denied-keys-negative", "drain-negative",
-        "deadline-negative", "no-transport"])
+        "deadline-negative", "no-transport", "deny-cache-negative",
+        "max-pending-negative", "max-wait-negative", "peek-frac-zero",
+        "peek-frac-high", "supervisor-mode", "retries-negative",
+        "backoff-negative", "backoff-max-negative", "probe-interval-zero",
+        "faults-site", "faults-probability", "faults-shape"])
 def test_invalid_flags_refused_as_in_jax(argv):
     for mod in (jax_config, port_config):
         with pytest.raises(mod.ConfigError):

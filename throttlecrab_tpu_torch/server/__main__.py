@@ -1,10 +1,12 @@
 """Server entry point: `python -m throttlecrab_tpu_torch.server --http ...`.
 
 Lifecycle as the reference's `main.rs:49-184`: parse config -> logging ->
-metrics -> limiter on the device (restored from `--snapshot-path` when the
-file exists) + micro-batching engine -> transports (HTTP, gRPC and/or
-Redis/RESP, HTTP and RESP each on asyncio or the native C++ wire server)
--> wait for SIGINT/SIGTERM or a transport failure -> shutdown.  SIGTERM
+metrics -> fault injection when `--faults` is set -> limiter on the
+device, wrapped in the launch supervisor -> front tier (deny cache +
+admission control) -> restore from `--snapshot-path` when the file exists
+-> micro-batching engine -> transports (HTTP, gRPC and/or Redis/RESP,
+HTTP and RESP each on asyncio or the native C++ wire server) -> wait for
+SIGINT/SIGTERM or a transport failure -> shutdown.  SIGTERM
 drains first (de-route, flush queued requests with real decisions,
 bounded by `--drain-timeout-ms`; 0 skips the drain); SIGINT flushes and
 stops.  With `--snapshot-path` the table is saved after the transports
@@ -20,10 +22,16 @@ import signal
 import sys
 import time
 
+from ..faults import FaultInjector, arm, parse_spec
 from .config import Config, ConfigError
 from .engine import BatchingEngine
 from .metrics import Metrics
-from .store import create_cleanup_policy, create_limiter
+from .store import (
+    create_cleanup_policy,
+    create_front_tier,
+    create_limiter,
+    create_supervised_limiter,
+)
 
 log = logging.getLogger("throttlecrab")
 
@@ -48,6 +56,7 @@ def build_transports(config: Config, engine, metrics):
         cleanup_policy=engine.cleanup_policy,
         limiter_lock=engine.limiter_lock,
         now_fn=engine.now_fn,
+        front=engine.front,
     )
     transports = []
     if config.http:
@@ -93,12 +102,13 @@ class SnapshotRefused(RuntimeError):
     """Boot refused: the snapshot is corrupt and strict mode is on."""
 
 
-def restore_snapshot_on_boot(limiter, config: Config) -> int:
+def restore_snapshot_on_boot(limiter, config: Config, front=None) -> int:
     """Restore-on-boot with the THROTTLECRAB_SNAPSHOT_STRICT policy;
     returns the number of keys restored (0 when there is no snapshot or
     the non-strict path started cold).  Strict mode (the default) refuses
     a corrupt snapshot with SnapshotRefused; non-strict logs it and
-    starts with an empty table."""
+    starts with an empty table.  `front`'s deny cache is cleared by the
+    restore."""
     from ..tpu.snapshot import SnapshotError, _normalize, load_snapshot
 
     if not config.snapshot_path:
@@ -106,7 +116,9 @@ def restore_snapshot_on_boot(limiter, config: Config) -> int:
     if not os.path.exists(_normalize(config.snapshot_path)):
         return 0
     try:
-        restored = load_snapshot(limiter, config.snapshot_path, time.time_ns())
+        restored = load_snapshot(
+            limiter, config.snapshot_path, time.time_ns(), front=front
+        )
         log.info(
             "restored %d keys from snapshot %s",
             restored, config.snapshot_path,
@@ -166,20 +178,37 @@ async def run_server(config: Config) -> None:
         "starting rate limiter with %s store on %s", config.store,
         config.device,
     )
-    limiter = create_limiter(config)
+    if config.faults:
+        # Deterministic injected faults at the failure surfaces (faults/).
+        arm(FaultInjector(parse_spec(config.faults),
+                          seed=config.faults_seed))
+        log.warning("fault injection armed: %s", config.faults)
+    # Every transport drives the same supervised limiter, so retry /
+    # degrade / re-promote decisions are made once, under the shared
+    # limiter lock.
+    supervisor = create_supervised_limiter(
+        config, create_limiter(config), metrics
+    )
+    metrics.set_engine_state_provider(lambda: supervisor.state)
+    # The front tier is shared by the engine and the native transports;
+    # a re-promotion rewrites bucket state, so the supervisor invalidates
+    # the deny cache through it.
+    front = create_front_tier(config, metrics, supervisor)
+    supervisor.front = front
     loop = asyncio.get_running_loop()
     # The restore is a device bulk insert: executor, not the event loop,
     # and done before any transport starts.
     await loop.run_in_executor(
-        None, restore_snapshot_on_boot, limiter, config
+        None, restore_snapshot_on_boot, supervisor, config, front
     )
     engine = BatchingEngine(
-        limiter,
+        supervisor,
         batch_size=config.batch_size,
         max_linger_us=config.max_linger_us,
         max_scan_depth=config.max_scan_depth,
         cleanup_policy=create_cleanup_policy(config),
         metrics=metrics,
+        front=front,
         deadline_default_ms=config.deadline_default_ms,
     )
     transports = build_transports(config, engine, metrics)

@@ -6,9 +6,10 @@ the HTTP, gRPC and Redis/RESP transports and their backends (asyncio or
 the native C++ wire server), the store (which picks the cleanup policy)
 and its cleanup knobs, the reference's buffer size (accepted, unused) and
 top-denied leaderboard size, the micro-batching knobs, the keymap
-backend, the boot/shutdown snapshot, the SIGTERM drain budget and the
-default request deadline, and `--device` / THROTTLECRAB_DEVICE (default
-`cuda`; `cpu` runs the plain version).
+backend, the front tier (deny cache and admission control), the boot/
+shutdown snapshot, the launch supervisor and fault injection, the SIGTERM
+drain budget and the default request deadline, and `--device` /
+THROTTLECRAB_DEVICE (default `cuda`; `cpu` runs the plain version).
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import os
 import sys
 from dataclasses import dataclass
 from typing import List, Optional
+
+from ..faults import parse_spec
 
 STORE_TYPES = ("periodic", "probabilistic", "adaptive")
 
@@ -66,6 +69,20 @@ _SPEC = [
      "Max backlog sub-batches decided in one device launch"),
     ("keymap", "THROTTLECRAB_KEYMAP", "auto", str,
      "Host key->slot backend: auto, python, native"),
+    # --- front tier (exact deny cache + admission control) -------------
+    ("front_deny_cache", "THROTTLECRAB_FRONT_DENY_CACHE", 65536, int,
+     "Deny-cache capacity in entries: provably exact repeat denials "
+     "answer without a device launch (0 disables)"),
+    ("front_max_pending", "THROTTLECRAB_FRONT_MAX_PENDING", 100_000, int,
+     "Admission control: shed new arrivals with an overload status once "
+     "this many requests are already queued (0 disables; the reference's "
+     "full-channel backpressure, surfaced instead of silently awaited)"),
+    ("front_max_wait_us", "THROTTLECRAB_FRONT_MAX_WAIT_US", 0, int,
+     "Admission control: shed when the EWMA-estimated queue wait exceeds "
+     "this many microseconds (0 disables)"),
+    ("front_peek_frac", "THROTTLECRAB_FRONT_PEEK_FRAC", 0.9, float,
+     "Fraction of each admission bound at which quantity-0 peek probes "
+     "shed (they consume nothing; keep headroom for consuming checks)"),
     ("snapshot_path", "THROTTLECRAB_SNAPSHOT_PATH", "", str,
      "Snapshot file (.npz): restored at startup when present, written on "
      "graceful shutdown (empty: disabled; state is soft either way)"),
@@ -73,6 +90,31 @@ _SPEC = [
      "Refuse to start when the boot snapshot is corrupt/truncated "
      "(env 0 disables: log the corruption and start with an empty "
      "table instead)"),
+    # --- failure-domain supervision (server/supervisor.py, faults/) ----
+    ("supervisor_retries", "THROTTLECRAB_SUPERVISOR_RETRIES", 3, int,
+     "Max retries of a transient (UNAVAILABLE-shaped) device "
+     "launch/fetch fault before the device is declared down"),
+    ("supervisor_backoff_us", "THROTTLECRAB_SUPERVISOR_BACKOFF_US",
+     2000, int,
+     "Initial retry backoff in microseconds (doubles per retry)"),
+    ("supervisor_backoff_max_us",
+     "THROTTLECRAB_SUPERVISOR_BACKOFF_MAX_US", 50_000, int,
+     "Retry backoff ceiling in microseconds"),
+    ("supervisor_probe_interval_ms",
+     "THROTTLECRAB_SUPERVISOR_PROBE_INTERVAL_MS", 1000, int,
+     "Degraded mode: milliseconds between device recovery probes"),
+    ("supervisor_mode", "THROTTLECRAB_SUPERVISOR_MODE", "degrade", str,
+     "On persistent device failure: degrade (keep serving from the "
+     "host scalar oracle, re-promote on recovery) or fail (error the "
+     "affected batches)"),
+    ("faults", "THROTTLECRAB_FAULTS", "", str,
+     "Fault injection spec site:mode[:arg],... — sites launch, fetch, "
+     "keymap, snapshot (peer, migrate, leave parse but have no site "
+     "here); modes transient:p, persistent, count:n, hang:seconds, "
+     "truncate:frac, fsyncfail (empty: off; see "
+     "throttlecrab_tpu_torch/faults/)"),
+    ("faults_seed", "THROTTLECRAB_FAULTS_SEED", 0, int,
+     "Seed for the deterministic fault-injection probability stream"),
     ("drain_timeout_ms", "THROTTLECRAB_DRAIN_TIMEOUT_MS", 10_000, int,
      "SIGTERM drain budget in milliseconds: stop accepting, flush "
      "in-flight batches with real decisions and snapshot; past the "
@@ -117,8 +159,19 @@ class Config:
     max_linger_us: int = 200
     max_scan_depth: int = 16
     keymap: str = "auto"
+    front_deny_cache: int = 65536
+    front_max_pending: int = 100_000
+    front_max_wait_us: int = 0
+    front_peek_frac: float = 0.9
     snapshot_path: str = ""
     snapshot_strict: bool = True
+    supervisor_retries: int = 3
+    supervisor_backoff_us: int = 2000
+    supervisor_backoff_max_us: int = 50_000
+    supervisor_probe_interval_ms: int = 1000
+    supervisor_mode: str = "degrade"
+    faults: str = ""
+    faults_seed: int = 0
     drain_timeout_ms: int = 10_000
     deadline_default_ms: int = 0
     device: str = "cuda"
@@ -164,6 +217,28 @@ class Config:
                 f"Invalid keymap backend: {self.keymap!r} "
                 "(expected auto, python, or native)"
             )
+        if self.front_deny_cache < 0:
+            raise ConfigError("front_deny_cache must be >= 0")
+        if self.front_max_pending < 0 or self.front_max_wait_us < 0:
+            raise ConfigError("front admission bounds must be >= 0")
+        if not 0.0 < self.front_peek_frac <= 1.0:
+            raise ConfigError("front_peek_frac must be in (0, 1]")
+        if self.supervisor_mode not in ("degrade", "fail"):
+            raise ConfigError(
+                f"Invalid supervisor mode: {self.supervisor_mode!r} "
+                "(expected degrade or fail)"
+            )
+        if self.supervisor_retries < 0:
+            raise ConfigError("supervisor_retries must be >= 0")
+        if self.supervisor_backoff_us < 0 or self.supervisor_backoff_max_us < 0:
+            raise ConfigError("supervisor backoffs must be >= 0")
+        if self.supervisor_probe_interval_ms <= 0:
+            raise ConfigError("supervisor_probe_interval_ms must be > 0")
+        if self.faults:
+            try:
+                parse_spec(self.faults)
+            except ValueError as e:
+                raise ConfigError(f"invalid --faults spec: {e}") from e
         if self.drain_timeout_ms < 0:
             raise ConfigError("drain_timeout_ms must be >= 0")
         if self.deadline_default_ms < 0:

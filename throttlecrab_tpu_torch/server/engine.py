@@ -16,6 +16,16 @@ before window N's results are fetched.
 
 Cleanup runs between windows: the engine consults a `CleanupPolicy`
 (tpu/cleanup.py) and triggers the expiry sweep on the device.
+
+With a front tier (front/) a request first consults the exact deny cache
+(a provable repeat denial answers without a launch), then admission
+control (OverloadError when shed); decided windows feed the cache back.
+Launch supervision lives in the limiter wrapper (server/supervisor.py):
+a launch exception reaching this engine means the supervisor already
+retried transient faults and either degraded to the host oracle (then
+no exception arrives) or classified the failure as deterministic, so
+failing the window's futures is the terminal answer.  `health_state()`
+surfaces the supervisor's state machine (GET /health).
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ import time
 from collections import deque
 from typing import Optional
 
+from ..front import OverloadError  # re-exported for the transports
 from ..tpu.cleanup import CleanupPolicy, feed_expired_hits
 from ..tpu.limiter import (
     STATUS_DEADLINE,
@@ -34,6 +45,7 @@ from ..tpu.limiter import (
     STATUS_NEGATIVE_QUANTITY,
     STATUS_OK,
 )
+from .supervisor import supervisor_state
 from .types import ThrottleRequest, ThrottleResponse
 
 __all__ = [
@@ -58,13 +70,6 @@ class DeadlineError(ThrottleError):
     device dispatch (HTTP 504)."""
 
 
-class OverloadError(Exception):
-    """The server refuses new work (draining): HTTP 503."""
-
-    def __init__(self, message: str = "server overloaded") -> None:
-        super().__init__(message)
-
-
 class BatchingEngine:
     """Coalesces transport requests into device windows."""
 
@@ -77,18 +82,26 @@ class BatchingEngine:
         metrics=None,
         now_fn=None,
         max_scan_depth: int = 16,
+        front=None,
         deadline_default_ms: int = 0,
     ) -> None:
-        """`limiter` is a TorchRateLimiter (or any object with
-        rate_limit_batch + sweep).  `now_fn` injects time for tests (time
-        is an input, never ambient).  `max_scan_depth` caps the backlog
-        sub-batches decided per launch.  `deadline_default_ms` > 0 stamps
-        a deadline on requests that carry none."""
+        """`limiter` is a TorchRateLimiter, or its SupervisedLimiter (or
+        any object with rate_limit_batch + sweep).  `now_fn` injects time
+        for tests (time is an input, never ambient).  `max_scan_depth`
+        caps the backlog sub-batches decided per launch.  `front` is an
+        optional front.FrontTier: requests pass its deny cache and
+        admission control before they reach the pending queue.
+        `deadline_default_ms` > 0 stamps a deadline on requests that
+        carry none."""
         import inspect
 
         self.limiter = limiter
+        self.front = front
         # Serializes device access across worker threads.
         self.limiter_lock = threading.Lock()
+        # A deny cache certifies entries from the exact observed TAT
+        # (result.cur_ns): ask limiters that can give it for it.
+        want_cur = front is not None and front.deny_cache is not None
 
         def wire_kw(fn):
             # Serving wants the wire fast path where the limiter has it.
@@ -96,7 +109,10 @@ class BatchingEngine:
                 params = inspect.signature(fn).parameters
             except (TypeError, ValueError):
                 return {}
-            return {"wire": True} if "wire" in params else {}
+            kw = {"wire": True} if "wire" in params else {}
+            if want_cur and "collect_cur" in params:
+                kw["collect_cur"] = True
+            return kw
 
         self._wire_kw = wire_kw(limiter.rate_limit_batch)
         self._wire_many_kw = wire_kw(getattr(limiter, "rate_limit_many", None))
@@ -122,7 +138,12 @@ class BatchingEngine:
     # ------------------------------------------------------------------ #
 
     async def throttle(self, request: ThrottleRequest) -> ThrottleResponse:
-        """Decide one request; resolves when its window comes back."""
+        """Decide one request; resolves when its window comes back.
+
+        With a front tier, a provably exact repeat denial returns from
+        the deny cache at once (no queue slot, no launch; hits bypass
+        admission, they never occupy the queue it protects), else
+        admission control may shed the request with OverloadError."""
         if self._closed:
             raise ThrottleError("engine is shut down")
         if self._draining:
@@ -133,6 +154,25 @@ class BatchingEngine:
             request.deadline_ns = (
                 self.now_fn() + self.deadline_default_ms * 1_000_000
             )
+        front = self.front
+        if front is not None:
+            hit = front.lookup(
+                request.key, request.max_burst, request.count_per_period,
+                request.period, request.quantity, self.now_fn(),
+            )
+            if hit is not None:
+                return ThrottleResponse(
+                    allowed=False,
+                    limit=hit.limit,
+                    remaining=hit.remaining,
+                    reset_after=hit.reset_after_s,
+                    retry_after=hit.retry_after_s,
+                )
+            if not front.admit(len(self._pending), request.quantity == 0):
+                raise OverloadError()
+            # Until this request's result is observed, same-key lookups
+            # must miss (it may mutate the bucket).
+            front.begin_inflight(request.key)
         loop = asyncio.get_running_loop()
         fut: asyncio.Future = loop.create_future()
         self._pending.append((request, fut))
@@ -190,7 +230,7 @@ class BatchingEngine:
                 return
 
             loop = asyncio.get_running_loop()
-            in_flight = None  # (windows, handle, now_ns)
+            in_flight = None  # (windows, handle, now_ns, seq)
             while self._pending or in_flight is not None:
                 windows = self._take_windows(can_scan)
                 launched = None
@@ -199,14 +239,18 @@ class BatchingEngine:
 
                     def do_dispatch(ws=windows, t=now_ns):
                         with self.limiter_lock:
-                            return self.limiter.dispatch_many(
+                            # The deny cache's dispatch-order stamp, under
+                            # the lock that orders launches.
+                            return self._next_seq(), self.limiter.dispatch_many(
                                 [self._columns(w, t) for w in ws],
                                 **self._wire_many_kw,
                             )
 
                     try:
-                        handle = await loop.run_in_executor(None, do_dispatch)
-                        launched = (windows, handle, now_ns)
+                        seq, handle = await loop.run_in_executor(
+                            None, do_dispatch
+                        )
+                        launched = (windows, handle, now_ns, seq)
                     except Exception as exc:
                         self._fail_windows(windows, exc)
 
@@ -237,12 +281,19 @@ class BatchingEngine:
             shed = []
             for r, fut in flat:
                 if r.deadline_ns is not None and r.deadline_ns <= now_ns:
-                    shed.append(fut)
+                    shed.append((r, fut))
                 else:
                     live.append((r, fut))
             if shed and self.metrics is not None:
                 self.metrics.record_deadline_shed(len(shed))
-            for fut in shed:
+            front = self.front
+            if shed and front is not None and front.deny_cache is not None:
+                # The rows never reach a launch: release their holds.
+                front.release_window([
+                    k for r, _ in shed
+                    if (k := front._norm_key(r.key)) is not None
+                ])
+            for _, fut in shed:
                 if not fut.done():
                     fut.set_exception(
                         DeadlineError(STATUS_MESSAGES[STATUS_DEADLINE])
@@ -253,33 +304,91 @@ class BatchingEngine:
             for i in range(0, len(flat), self.batch_size)
         ]
 
-    @staticmethod
-    def _fail_windows(windows, exc) -> None:
+    def _next_seq(self) -> int:
+        return self.front.next_seq() if self.front is not None else 0
+
+    def _fail_windows(self, windows, exc) -> None:
+        front = self.front
+        if front is not None and front.deny_cache is not None:
+            # The launch may have COMMITTED before the failure (a fetch
+            # error lands here too): release the holds and drop the keys'
+            # cached denials and write records.
+            front.fail_window([r.key for w in windows for r, _ in w])
         for window in windows:
             for _, fut in window:
                 if not fut.done():
                     fut.set_exception(ThrottleError(str(exc)))
 
-    async def _finish_windows(self, windows, results, now_ns) -> None:
-        """Resolve the futures of decided windows, then account."""
+    async def _finish_windows(self, windows, results, now_ns, seq,
+                              elapsed) -> None:
+        """Resolve the futures of decided windows, feed the front tier,
+        then account."""
+        front = self.front
+        observe = front is not None and front.deny_cache is not None
         total = 0
         for window, result in zip(windows, results):
             total += len(window)
             self._complete(window, result)
+            if observe:
+                self._observe_window(window, result, now_ns, seq)
+        if front is not None:
+            front.record_launch(total, elapsed)
         if self.metrics is not None:
             self.metrics.record_launch(total)
         await self._maybe_sweep(now_ns, total)
 
+    def _observe_window(self, window, result, now_ns, seq) -> None:
+        """Feed one decided window's rows to the deny cache in arrival
+        order: allowed rows invalidate and refresh write records, denied
+        rows may certify entries, every row releases its hold."""
+        front = self.front
+        cur = getattr(result, "cur_ns", None)
+        status_l = result.status.tolist()
+        allowed_l = result.allowed.tolist()
+        cur_l = cur.tolist() if cur is not None else None
+        if cur_l is not None or hasattr(result, "reset_after_s"):
+            # Bulk: a row's cur_ns is None off the cur tier (allowed rows
+            # still invalidate, denials cannot certify); a non-OK row
+            # rides along as an uncertifiable denial to release its hold.
+            rows = []
+            for i, (r, _) in enumerate(window):
+                k = front._norm_key(r.key)
+                if k is None:
+                    continue  # begin_inflight was a no-op for it too
+                ok = status_l[i] == STATUS_OK
+                rows.append((
+                    k, r.max_burst, r.count_per_period, r.period,
+                    r.quantity, ok and bool(allowed_l[i]),
+                    cur_l[i] if (ok and cur_l is not None) else None,
+                ))
+            front.observe_window(rows, now_ns, seq)
+            return
+        # Nanosecond planes: the exact TAT comes from reset/retry, per row.
+        for i, (r, _) in enumerate(window):
+            try:
+                if status_l[i] != STATUS_OK:
+                    continue
+                front.observe(
+                    r.key, r.max_burst, r.count_per_period, r.period,
+                    r.quantity, now_ns, bool(allowed_l[i]), seq,
+                    reset_after_ns=int(result.reset_after_ns[i]),
+                    retry_after_ns=int(result.retry_after_ns[i]),
+                )
+            finally:
+                front.end_inflight(r.key)
+
     async def _fetch_complete(self, in_flight) -> None:
         """Fetch an in-flight launch's results and resolve its futures."""
-        windows, handle, now_ns = in_flight
+        windows, handle, now_ns, seq = in_flight
         loop = asyncio.get_running_loop()
+        t_fetch = time.monotonic()
         try:
             results = await loop.run_in_executor(None, handle.fetch)
         except Exception as exc:
             self._fail_windows(windows, exc)
             return
-        await self._finish_windows(windows, results, now_ns)
+        await self._finish_windows(windows, results, now_ns, seq,
+                                   time.monotonic() - t_fetch)
 
     async def _decide_many(self, windows) -> None:
         """Backlog path: K sub-batches, one launch, shared timestamp."""
@@ -288,17 +397,19 @@ class BatchingEngine:
 
         def launch():
             with self.limiter_lock:
-                return self.limiter.rate_limit_many(
+                return self._next_seq(), self.limiter.rate_limit_many(
                     [self._columns(w, now_ns) for w in windows],
                     **self._wire_many_kw,
                 )
 
+        t0 = time.monotonic()
         try:
-            results = await loop.run_in_executor(None, launch)
+            seq, results = await loop.run_in_executor(None, launch)
         except Exception as exc:
             self._fail_windows(windows, exc)
             return
-        await self._finish_windows(windows, results, now_ns)
+        await self._finish_windows(windows, results, now_ns, seq,
+                                   time.monotonic() - t0)
 
     async def _decide(self, batch) -> None:
         """One batch, one launch."""
@@ -307,16 +418,18 @@ class BatchingEngine:
 
         def launch():
             with self.limiter_lock:
-                return self.limiter.rate_limit_batch(
+                return self._next_seq(), self.limiter.rate_limit_batch(
                     *self._columns(batch, now_ns), **self._wire_kw
                 )
 
+        t0 = time.monotonic()
         try:
-            result = await loop.run_in_executor(None, launch)
+            seq, result = await loop.run_in_executor(None, launch)
         except Exception as exc:  # internal failure fails the whole batch
             self._fail_windows([batch], exc)
             return
-        await self._finish_windows([batch], [result], now_ns)
+        await self._finish_windows([batch], [result], now_ns, seq,
+                                   time.monotonic() - t0)
 
     @staticmethod
     def _complete(batch, result) -> None:
@@ -406,6 +519,10 @@ class BatchingEngine:
                 return freed, drained
 
         freed, drained = await loop.run_in_executor(None, locked_policy_step)
+        if freed is not None and self.front is not None:
+            # Swept buckets are gone even for a later regressed clock:
+            # drop the deny-cache entries they backed.
+            self.front.on_sweep(now_ns)
         if self.metrics is not None:
             if drained:
                 self.metrics.record_expired_hits(drained)
@@ -413,12 +530,14 @@ class BatchingEngine:
                 self.metrics.record_sweep(freed)
 
     def health_state(self) -> str:
-        """The state for GET /health: "ok", "draining" or "shutdown"."""
+        """The state for GET /health: the supervisor's "ok" | "retrying"
+        | "degraded" | "recovering" ("ok" for an unsupervised limiter),
+        or "draining" / "shutdown"."""
         if self._closed:
             return "shutdown"
         if self._draining:
             return "draining"
-        return "ok"
+        return supervisor_state(self.limiter)
 
     def begin_drain(self) -> None:
         """New requests shed with OverloadError, /health says "draining",

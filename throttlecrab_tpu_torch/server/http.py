@@ -3,10 +3,11 @@
 Same wire surface as the reference's router (`http.rs:103-163`) and as
 `throttlecrab_tpu/server/http.py`: `POST /throttle` with `{key, max_burst,
 count_per_period, period, quantity?}` (quantity defaults to 1), `GET
-/health` returning "OK", and `GET /metrics` returning Prometheus text.
-Timestamps are always server-side.  Errors return `{"error": ...}` with
-400 (malformed request), 500 (validation), 503 (draining) or 504 (client
-deadline lapsed in the queue).
+/health` returning "OK" (or the serving state's name), and `GET /metrics`
+returning Prometheus text.  Timestamps are always server-side.  Errors
+return `{"error": ...}` with 400 (malformed request), 500 (validation),
+503 (draining, or shed by the front tier's admission control) or 504
+(client deadline lapsed in the queue).
 
 A deliberately minimal HTTP/1.1 server (keep-alive, Content-Length
 bodies) on asyncio streams.
@@ -143,7 +144,9 @@ class HttpTransport(ConnTrackingMixin):
             return await self._handle_throttle(body, headers or {})
         if method == "GET" and path == "/health":
             # "OK" in the ok state (reference-compatible), else the
-            # engine's state name ("draining", "shutdown").
+            # state name: the supervisor's ("retrying", "degraded",
+            # "recovering") or the engine's ("draining", "shutdown").
+            # Always 200: a degraded node still answers, from the host.
             state = self.engine.health_state()
             return 200, b"OK" if state == "ok" else state.encode(), "text/plain"
         if method == "GET" and path == "/metrics":

@@ -2,10 +2,11 @@
 
 The counters the engine and the transports touch, under the metric
 names of `throttlecrab_tpu/server/metrics.py` (the reference's names,
-`metrics.rs:233-310`, plus the `throttlecrab_tpu_*` launch/sweep
-extensions), so dashboards read either server unchanged, and the
-reference's top-denied leaderboard `throttlecrab_top_denied_keys{key,rank}`
-(`metrics.rs:24-76`).  Invariant: allowed + denied + errors == total.
+`metrics.rs:233-310`, plus the `throttlecrab_tpu_*` launch/sweep,
+front-tier, supervisor and fault-injection extensions), so dashboards
+read either server unchanged, and the reference's top-denied leaderboard
+`throttlecrab_top_denied_keys{key,rank}` (`metrics.rs:24-76`).
+Invariant: allowed + denied + errors == total.
 """
 
 from __future__ import annotations
@@ -14,7 +15,9 @@ import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
+from ..faults import active_injector
 from ..insight.sketch import SpaceSavingSketch
+from .supervisor import STATE_GAUGE
 
 MAX_KEY_LENGTH = 256  # metrics.rs:21
 MAX_TRACKED_DENIED_KEYS = 10_000  # metrics.rs:119-121
@@ -33,8 +36,17 @@ METRIC_NAMES = (
     "throttlecrab_tpu_sweeps",
     "throttlecrab_tpu_expired_hits",
     "throttlecrab_tpu_slots_freed",
+    "throttlecrab_tpu_front_deny_hits",
+    "throttlecrab_tpu_front_shed",
+    "throttlecrab_tpu_front_stale_evictions",
+    "throttlecrab_tpu_front_deny_cache_size",
+    "throttlecrab_tpu_engine_state",
+    "throttlecrab_tpu_supervisor_retries",
+    "throttlecrab_tpu_supervisor_degrades",
+    "throttlecrab_tpu_supervisor_repromotes",
     "throttlecrab_tpu_drain_shed_total",
     "throttlecrab_tpu_deadline_shed_total",
+    "throttlecrab_tpu_faults_injected_total",
 )
 
 
@@ -86,6 +98,17 @@ class Metrics:
         self.sweeps = 0
         self.slots_freed = 0
         self.expired_hits = 0
+        # Front tier (deny cache + admission control).
+        self.front_deny_hits = 0
+        self.front_shed_peek = 0
+        self.front_shed_consume = 0
+        self.front_stale_evictions = 0
+        self._front_stats = None
+        # Failure-domain supervision (server/supervisor.py).
+        self.supervisor_retries = 0
+        self.supervisor_degrades = 0
+        self.supervisor_repromotes = 0
+        self._engine_state = None
         self.drain_shed = 0
         self.deadline_shed = 0
 
@@ -158,6 +181,55 @@ class Metrics:
         with self._lock:
             self.expired_hits += n
 
+    def record_front_hit(self) -> None:
+        """A denial served exactly from the deny cache (no launch)."""
+        with self._lock:
+            self.front_deny_hits += 1
+
+    def record_front_hits(self, n: int) -> None:
+        """Bulk form: one window's deny-cache hit count."""
+        with self._lock:
+            self.front_deny_hits += n
+
+    def record_front_shed(self, peek: bool) -> None:
+        """A request shed by admission control, by priority class."""
+        with self._lock:
+            if peek:
+                self.front_shed_peek += 1
+            else:
+                self.front_shed_consume += 1
+
+    def record_front_stale(self, n: int) -> None:
+        """Deny-cache entries evicted because their proven window (or
+        their bucket's TTL) lapsed."""
+        with self._lock:
+            self.front_stale_evictions += n
+
+    def record_supervisor_retry(self, n: int = 1) -> None:
+        """A transient device fault absorbed by a launch/fetch retry."""
+        with self._lock:
+            self.supervisor_retries += n
+
+    def record_supervisor_degrade(self) -> None:
+        """Persistent device failure: serving fell back to the host
+        scalar oracle."""
+        with self._lock:
+            self.supervisor_degrades += 1
+
+    def record_supervisor_repromote(self) -> None:
+        """Device recovery: host-mutated state re-promoted on-device."""
+        with self._lock:
+            self.supervisor_repromotes += 1
+
+    def set_engine_state_provider(self, provider) -> None:
+        """`provider()` -> "ok"|"retrying"|"degraded"|"recovering";
+        exported as the throttlecrab_tpu_engine_state gauge."""
+        self._engine_state = provider
+
+    def set_front_stats_provider(self, provider) -> None:
+        """`provider()` -> {"deny_cache_size": n} (FrontTier.stats)."""
+        self._front_stats = provider
+
     def record_drain_shed(self, n: int = 1) -> None:
         with self._lock:
             self.drain_shed += n
@@ -228,6 +300,37 @@ class Metrics:
         metric("throttlecrab_tpu_slots_freed",
                "Slots freed by compaction sweeps", "counter",
                self.slots_freed)
+        metric("throttlecrab_tpu_front_deny_hits",
+               "Denials served exactly from the deny cache "
+               "(no engine round trip)", "counter", self.front_deny_hits)
+        out.append("# HELP throttlecrab_tpu_front_shed Requests shed by "
+                   "admission control, by priority class")
+        out.append("# TYPE throttlecrab_tpu_front_shed counter")
+        out.append('throttlecrab_tpu_front_shed{class="peek"} '
+                   f"{self.front_shed_peek}")
+        out.append('throttlecrab_tpu_front_shed{class="consume"} '
+                   f"{self.front_shed_consume}")
+        metric("throttlecrab_tpu_front_stale_evictions",
+               "Deny-cache entries evicted after their proven window "
+               "or bucket TTL lapsed", "counter",
+               self.front_stale_evictions)
+        front_stats = self._front_stats() if self._front_stats else {}
+        metric("throttlecrab_tpu_front_deny_cache_size",
+               "Live deny-cache entries", "gauge",
+               front_stats.get("deny_cache_size", 0))
+        state = self._engine_state() if self._engine_state else "ok"
+        metric("throttlecrab_tpu_engine_state",
+               "Serving state: 0=ok 1=retrying 2=degraded 3=recovering",
+               "gauge", STATE_GAUGE.get(state, 0))
+        metric("throttlecrab_tpu_supervisor_retries",
+               "Transient device faults absorbed by launch/fetch retries",
+               "counter", self.supervisor_retries)
+        metric("throttlecrab_tpu_supervisor_degrades",
+               "Transitions into host-oracle degraded mode", "counter",
+               self.supervisor_degrades)
+        metric("throttlecrab_tpu_supervisor_repromotes",
+               "Recoveries that re-promoted host state onto the device",
+               "counter", self.supervisor_repromotes)
         metric("throttlecrab_tpu_drain_shed_total",
                "Arrivals refused while draining (balancers should have "
                "de-routed; the stragglers get 503)", "counter",
@@ -236,6 +339,17 @@ class Metrics:
                "Requests shed host-side because their client deadline "
                "lapsed before device dispatch", "counter",
                self.deadline_shed)
+        # Per-site fired counts of the armed injector (faults/).
+        out.append("# HELP throttlecrab_tpu_faults_injected_total Injected "
+                   "faults fired, by site (0 lines when disarmed)")
+        out.append("# TYPE throttlecrab_tpu_faults_injected_total counter")
+        injector = active_injector()
+        fault_stats = injector.stats() if injector is not None else {}
+        for site, fired in sorted(fault_stats.items()):
+            out.append("throttlecrab_tpu_faults_injected_total"
+                       f'{{site="{escape_label_value(site)}"}} {fired}')
+        if not fault_stats:
+            out.append("throttlecrab_tpu_faults_injected_total 0")
         return "\n".join(out) + "\n"
 
 

@@ -15,6 +15,15 @@ dispatch and one fetch, and one `ws_respond` per batch in it.
 Same command semantics and hardening as the asyncio transport (redis.py);
 the two are interchangeable via `--redis-backend {python,native}`.
 
+With a front tier (front/, shared with the asyncio engine) each captured
+frame first passes the deny cache and admission control: hits get their
+exact denial, shed rows the overload status (`-ERR server overloaded`,
+HTTP 503), and only the remaining rows are compacted into the frames the
+device decides; their results feed the cache back.  A supervised limiter
+(server/supervisor.py) returns None from `dispatch_wire_window` while
+degraded, and the exact path below then decides on the wrapper, which
+routes it to the host oracle.
+
 Shared state: pass the same limiter (and `limiter_lock`) used by the
 asyncio engine so limits hold across every transport; the lock serializes
 device access between the engine's executor thread and this driver.
@@ -29,6 +38,7 @@ raised while deciding a window.
 from __future__ import annotations
 
 import ctypes
+import inspect
 import logging
 import threading
 import time
@@ -37,6 +47,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..front import STATUS_OVERLOADED
 from ..native import get_wire_lib
 from ..tpu.cleanup import feed_expired_hits
 from ..tpu.limiter import (
@@ -45,8 +56,11 @@ from ..tpu.limiter import (
     WireBatchResult,
     limiter_uses_bytes_keys,
 )
+from .supervisor import supervisor_state
 
 log = logging.getLogger("throttlecrab.redis.native")
+
+NS_PER_SEC = 1_000_000_000
 
 #: Windows decided through limiter.dispatch_wire_window (one launch each).
 WIRE_WINDOWS = 0
@@ -84,6 +98,7 @@ class NativeRedisTransport:
         limiter_lock: Optional[threading.Lock] = None,
         now_fn=None,
         max_scan_depth: int = 16,
+        front=None,
     ) -> None:
         lib = get_wire_lib()
         if lib is None:
@@ -93,6 +108,25 @@ class NativeRedisTransport:
         self.port = port
         self.limiter = limiter
         self.metrics = metrics
+        # The front tier, shared with the asyncio engine, so a denial
+        # cached on one transport serves (and is invalidated by) all.
+        self.front = front
+        # Ask for the observed-TAT plane (the cur tier) only when a deny
+        # cache is attached (see engine.py).
+        def cur_kw(method_name):
+            if front is None or front.deny_cache is None:
+                return {}
+            try:
+                params = inspect.signature(
+                    getattr(limiter, method_name)
+                ).parameters
+            except (AttributeError, TypeError, ValueError):
+                return {}
+            return {"collect_cur": True} if "collect_cur" in params else {}
+
+        self._collect_cur_kw = cur_kw("dispatch_wire_window")
+        self._collect_cur_many_kw = cur_kw("rate_limit_many")
+        self._collect_cur_batch_kw = cur_kw("rate_limit_batch")
         self.batch_size = batch_size
         self.max_linger_us = max_linger_us
         self.max_scan_depth = max_scan_depth
@@ -284,41 +318,141 @@ class NativeRedisTransport:
                 if not self._running:
                     return
 
-    def _deadline_plan(self, batch):
-        """For a batch carrying expired rows: expired budgets answer
-        status 6 (`-ERR deadline exceeded`, HTTP 504), live rows compact
-        into the device frame (None when every row expired)."""
+    def _front_filter(self, batch, now_ns, depth):
+        """Run one captured frame through the front tier BEFORE batch
+        prep: deny-cache hits get their exact denial, admission-shed rows
+        the overload status, and only the surviving misses are compacted
+        into a (blob, offsets, params) frame for the device.  The cache
+        is consulted first: a hit never occupies the queue admission
+        protects.  Miss keys are marked in-flight until observed.  Rows
+        whose deadline budget expired before pop are shed first (status
+        6): the client stopped waiting."""
         blob, offsets, params, _gen, _fd, budgets = batch
         n = len(offsets) - 1
+        front = self.front
+        admission = front.admission
+        status_pre = np.zeros(n, np.uint8)
+        hit_vals = np.zeros((n, 5), np.int64)
+        q_col = params[:, 3].tolist()
+        miss_pos: list = []
+        miss_keys: list = []
+        miss_norm: list = []
+        if front.deny_cache is not None:
+            raw = [blob[offsets[i] : offsets[i + 1]] for i in range(n)]
+            # The cache's key identity is the keymap's: bytes for the
+            # native keymap (no copy), decoded like the transports do
+            # for a str-keyed one.
+            if front.bytes_keys:
+                norm = raw
+            else:
+                norm = [k.decode("utf-8", "surrogateescape") for k in raw]
+            # One lock and one computation per distinct (key, params, q);
+            # misses are marked in-flight until _observe_plan releases
+            # them.
+            rows, _ = front.lookup_window(
+                norm, params[:, 0], params[:, 1], params[:, 2],
+                params[:, 3], now_ns,
+            )
+            shed_norm: list = []
+            for i in range(n):
+                if budgets[i] < 0:
+                    status_pre[i] = STATUS_DEADLINE
+                    if rows[i] is None:
+                        # Marked in-flight but never observed: release.
+                        shed_norm.append(norm[i])
+                    continue
+                hit = rows[i]
+                if hit is not None:
+                    status_pre[i] = 255  # marker: row served from cache
+                    hit_vals[i] = (
+                        0, hit[0], hit[1], hit[2] // NS_PER_SEC,
+                        hit[3] // NS_PER_SEC,
+                    )
+                    continue
+                if admission is not None and not front.admit(
+                    depth, q_col[i] == 0
+                ):
+                    status_pre[i] = STATUS_OVERLOADED
+                    shed_norm.append(norm[i])
+                    continue
+                miss_pos.append(i)
+                miss_keys.append(raw[i])
+                miss_norm.append(norm[i])
+            if shed_norm:
+                front.release_window(shed_norm)
+        else:
+            # Admission only: no key slices or decodes are needed.
+            for i in range(n):
+                if budgets[i] < 0:
+                    status_pre[i] = STATUS_DEADLINE
+                elif admission is not None and not front.admit(
+                    depth, q_col[i] == 0
+                ):
+                    status_pre[i] = STATUS_OVERLOADED
+                else:
+                    miss_pos.append(i)
+            if len(miss_pos) != n:
+                miss_keys = [
+                    blob[offsets[i] : offsets[i + 1]] for i in miss_pos
+                ]
+        plan = self._plan(batch, status_pre, np.asarray(miss_pos, np.int64),
+                          miss_keys)
+        plan["hit_vals"] = hit_vals
+        plan["miss_norm"] = miss_norm
+        return plan
+
+    def _deadline_plan(self, batch):
+        """No-front twin of _front_filter for a batch carrying expired
+        rows: expired budgets answer status 6 (`-ERR deadline exceeded`,
+        HTTP 504), live rows compact into the device frame."""
+        blob, offsets, _params, _gen, _fd, budgets = batch
         expired = budgets < 0
         status_pre = np.where(expired, STATUS_DEADLINE, 0).astype(np.uint8)
         miss_idx = np.flatnonzero(~expired)
+        keys = [blob[offsets[i] : offsets[i + 1]] for i in miss_idx]
+        return self._plan(batch, status_pre, miss_idx, keys)
+
+    @staticmethod
+    def _plan(batch, status_pre, miss_idx, miss_keys):
+        """The plan _merge_plan consumes: the rows at `miss_idx` (keys
+        `miss_keys`, needed only when not every row goes) compacted into
+        one device frame, None when no row goes."""
+        blob, offsets, params = batch[:3]
+        n = len(offsets) - 1
         m = len(miss_idx)
         if m == n:
             miss_frame = (blob, offsets, params)
+            miss_params = params
         elif m:
-            keys = [blob[offsets[i] : offsets[i + 1]] for i in miss_idx]
             offsets_m = np.zeros(m + 1, np.int64)
-            np.cumsum([len(k) for k in keys], out=offsets_m[1:])
+            np.cumsum([len(k) for k in miss_keys], out=offsets_m[1:])
             miss_params = np.ascontiguousarray(params[miss_idx])
-            miss_frame = (b"".join(keys), offsets_m, miss_params)
+            miss_frame = (b"".join(miss_keys), offsets_m, miss_params)
         else:
             miss_frame = None
+            miss_params = None
         return {
             "n": n,
             "status_pre": status_pre,
+            "hit_vals": None,
             "miss_idx": miss_idx,
+            "miss_norm": [],
             "miss_frame": miss_frame,
+            "miss_params": miss_params,
         }
 
     @staticmethod
     def _merge_plan(plan, res):
-        """Fold a live sub-frame's device results back into the full
-        frame beside the shed rows; returns the WireBatchResult-shaped
-        object _respond_one serializes."""
+        """Fold a miss sub-frame's device results back into the full
+        frame beside cached hits and shed rows; returns the
+        WireBatchResult-shaped object _respond_one serializes."""
         n = plan["n"]
         out = np.zeros((n, 5), np.int64)
         status = plan["status_pre"].copy()
+        served = status == 255  # cache-hit marker: status OK on the wire
+        if bool(served.any()):
+            out[served] = plan["hit_vals"][served]
+            status[served] = 0
         mi = plan["miss_idx"]
         if len(mi):
             if res is None:
@@ -336,13 +470,43 @@ class NativeRedisTransport:
             status=status,
         )
 
+    def _observe_plan(self, plan, res, now_ns, seq) -> None:
+        """Feed the miss rows' decisions to the deny cache and release
+        their in-flight holds, in bulk (the native twin of
+        engine._observe_window)."""
+        front = self.front
+        norm = plan["miss_norm"]
+        if res is None:
+            # Post-launch failure: the writes may have committed, so drop
+            # the keys' cached denials and write records with the holds.
+            front.deny_cache.fail_window(norm)
+            return
+        cur = getattr(res, "cur_ns", None)
+        status = res.status.tolist()
+        allowed_col = res.allowed.tolist()
+        cur_l = cur.tolist() if cur is not None else None
+        params_l = plan["miss_params"].tolist()
+        rows = []
+        for i, key in enumerate(norm):
+            ok = status[i] == 0
+            # Without the exact observed TAT (cur tier) a denial cannot
+            # certify, but an allowed row must still invalidate.
+            c = cur_l[i] if (ok and cur_l is not None) else None
+            p = params_l[i]
+            rows.append((key, p[0], p[1], p[2], p[3],
+                         ok and bool(allowed_col[i]), c))
+        front.observe_window(rows, now_ns, seq)
+
     def _decide_frames(self, frames, now_ns):
         """Decide a window of (blob, offsets, params) frames on the
-        device; returns one WireBatchResult (or None after a post-launch
-        failure) per frame."""
+        device; returns (results, seq): one WireBatchResult (or None
+        after a post-launch failure) per frame, and the deny cache's
+        dispatch-order stamp."""
         if not frames:
-            return []
+            return [], 0
         results = None
+        seq = 0
+        front = self.front
         # Fast path: hand the raw wire frames to the fully native prep —
         # one C++ call per frame validates, derives the GCRA params, and
         # writes the packed launch rows (limiter.dispatch_wire_window).
@@ -351,7 +515,12 @@ class NativeRedisTransport:
         if wire_dispatch is not None:
             try:
                 with self.limiter_lock:
-                    handle = wire_dispatch(frames, now_ns)
+                    # Dispatch-order stamp under the lock that orders
+                    # launches across transports.
+                    seq = front.next_seq() if front is not None else 0
+                    handle = wire_dispatch(
+                        frames, now_ns, **self._collect_cur_kw
+                    )
             except Exception:
                 # Failed BEFORE any launch committed state: the exact
                 # path below may safely re-decide.
@@ -374,6 +543,7 @@ class NativeRedisTransport:
             _count(exact=1)
             try:
                 with self.limiter_lock:
+                    seq = front.next_seq() if front is not None else 0
                     # wire=True: whole-second outputs straight off the
                     # device — the RESP/HTTP reply units.
                     windows = [
@@ -389,23 +559,36 @@ class NativeRedisTransport:
                         and len(windows) > 1
                     ):
                         results = self.limiter.rate_limit_many(
-                            windows, wire=True
+                            windows, wire=True, **self._collect_cur_many_kw
                         )
                     else:
                         results = [
-                            self.limiter.rate_limit_batch(*w, wire=True)
+                            self.limiter.rate_limit_batch(
+                                *w, wire=True, **self._collect_cur_batch_kw
+                            )
                             for w in windows
                         ]
             except Exception:
                 log.exception("native %s decide failed", self.name)
                 _count(errors=1)
                 results = [None] * len(frames)
-        return results
+        return results, seq
 
     def _decide_window(self, batches) -> None:
         now_ns = self.now_fn()
+        front = self.front
+        use_front = front is not None and (
+            front.deny_cache is not None or front.admission is not None
+        )
         n_expired = sum(int((b[5] < 0).sum()) for b in batches)
-        if n_expired:
+        if use_front:
+            depth = int(self._lib.ws_queue_depth(self._h))
+            plans = [self._front_filter(b, now_ns, depth) for b in batches]
+            frames = [
+                p["miss_frame"] for p in plans
+                if p["miss_frame"] is not None
+            ]
+        elif n_expired:
             plans = [self._deadline_plan(b) for b in batches]
             frames = [
                 p["miss_frame"] for p in plans
@@ -417,17 +600,22 @@ class NativeRedisTransport:
         if n_expired and self.metrics is not None:
             self.metrics.record_deadline_shed(n_expired)
         launched_n = sum(len(f[1]) - 1 for f in frames)
-        results = self._decide_frames(frames, now_ns)
+        t0 = time.monotonic()
+        results, seq = self._decide_frames(frames, now_ns)
+        if frames and front is not None:
+            front.record_launch(launched_n, time.monotonic() - t0)
         any_launch = bool(frames)
         if plans is not None:
-            # Re-align the live rows' results with their plans and merge
-            # them with the shed rows per frame.
+            # Re-align the miss rows' results with their plans, observe
+            # them, and merge hits, shed rows and decisions per frame.
             merged = []
             it = iter(results)
             for plan in plans:
                 res = (
                     next(it) if plan["miss_frame"] is not None else None
                 )
+                if front is not None and front.deny_cache is not None:
+                    self._observe_plan(plan, res, now_ns, seq)
                 merged.append(self._merge_plan(plan, res))
             results = merged
         # Metrics: ONE aggregated record for the whole window — it was
@@ -448,6 +636,9 @@ class NativeRedisTransport:
             tot_denied += n_d
             tot_errors += n_e
             denied_keys.extend(dk)
+            # A merged plan is never None: a window answered wholly from
+            # the deny cache still counts its requests (launches=0).
+            any_launch = any_launch or res is not None
         if self.metrics is not None and (any_launch or tot_errors):
             self.metrics.record_batch(
                 self.name,
@@ -515,9 +706,11 @@ class NativeRedisTransport:
         if self.metrics is not None:
             text = self.metrics.export_prometheus().encode()
             self._lib.ws_set_metrics(self._h, text, len(text))
-        # "OK" while serving, as the JAX package answers for a limiter
-        # without a supervisor; "draining" after drain().
-        body = b"draining" if self._draining else b"OK"
+        # "OK" while serving, else the supervisor's state name, or
+        # "draining" after drain().
+        state = "draining" if self._draining else supervisor_state(
+            self.limiter)
+        body = b"OK" if state == "ok" else state.encode()
         self._lib.ws_set_health(self._h, body, len(body))
 
     def _maybe_sweep(self, now_ns: int, n_ops: int) -> None:
@@ -551,6 +744,10 @@ class NativeRedisTransport:
                     )
                 freed = self.limiter.sweep(now_ns)
                 policy.after_sweep(now_ns, freed, live)
+        if freed is not None and self.front is not None:
+            # Swept buckets are gone even for a later regressed clock:
+            # drop the deny-cache entries they backed.
+            self.front.on_sweep(now_ns)
         if self.metrics is not None:
             if n_hits:
                 self.metrics.record_expired_hits(n_hits)

@@ -1,13 +1,23 @@
 """Limiter/policy factory: config -> engine parts (reference: store.rs:57-87).
 
 The "store" choice selects the cleanup policy; the bucket table itself is
-always the device table of `TorchRateLimiter`.
+always the device table of `TorchRateLimiter`.  The launch supervisor and
+the front tier wrap and front it as the JAX server's factories do
+(`throttlecrab_tpu/server/store.py`).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import inspect
+import logging
+
+from ..front import AdmissionController, DenyCache, FrontTier
 from ..tpu.cleanup import CleanupPolicy, make_policy
-from ..tpu.limiter import TorchRateLimiter
+from ..tpu.limiter import TorchRateLimiter, limiter_uses_bytes_keys
+from .supervisor import SupervisedLimiter
+
+log = logging.getLogger("throttlecrab.store")
 
 
 def create_limiter(config) -> TorchRateLimiter:
@@ -18,6 +28,76 @@ def create_limiter(config) -> TorchRateLimiter:
         keymap=config.keymap,
         device=config.device,
     )
+
+
+def create_supervised_limiter(config, limiter, metrics=None):
+    """Wrap the device limiter in the failure-domain supervisor: transient
+    launch/fetch faults retry with bounded backoff, persistent device
+    failure degrades to the host scalar oracle
+    (THROTTLECRAB_SUPERVISOR_MODE=degrade), and recovery re-promotes.
+    One wrapper supervises every transport, because they all share the
+    same limiter."""
+    return SupervisedLimiter(
+        limiter,
+        retries=config.supervisor_retries,
+        backoff_us=config.supervisor_backoff_us,
+        backoff_max_us=config.supervisor_backoff_max_us,
+        probe_interval_ms=config.supervisor_probe_interval_ms,
+        mode=config.supervisor_mode,
+        metrics=metrics,
+    )
+
+
+def create_front_tier(config, metrics, limiter):
+    """The front tier (exact deny cache + admission control) from the
+    THROTTLECRAB_FRONT_* knobs, or None when both halves are disabled.
+    One instance is shared by the asyncio engine and every native
+    transport driving the same limiter."""
+    # Probe the DEVICE limiter, not a supervision wrapper, whose uniform
+    # signatures would make a cur-less limiter look certifiable.
+    limiter = getattr(limiter, "inner", limiter)
+    # A deny cache certifies entries only from the exact observed TAT:
+    # the cur tier (collect_cur) or, for non-wire limiters, the full-ns
+    # result planes.  Without either only admission is built.
+    try:
+        params = inspect.signature(limiter.rate_limit_batch).parameters
+    except (AttributeError, TypeError, ValueError):
+        params = {}
+    certifiable = "collect_cur" in params or "wire" not in params
+    if config.front_deny_cache > 0 and not certifiable:
+        default = next(f.default for f in dataclasses.fields(type(config))
+                       if f.name == "front_deny_cache")
+        emit = (log.info if config.front_deny_cache == default
+                else log.warning)
+        emit(
+            "front-tier deny cache configured "
+            "(THROTTLECRAB_FRONT_DENY_CACHE=%d) but this limiter "
+            "cannot certify entries (no exact observed-TAT surface); "
+            "building admission control only — set "
+            "THROTTLECRAB_FRONT_DENY_CACHE=0 to silence",
+            config.front_deny_cache,
+        )
+    deny = (
+        DenyCache(config.front_deny_cache)
+        if config.front_deny_cache > 0 and certifiable
+        else None
+    )
+    admission = None
+    if config.front_max_pending or config.front_max_wait_us:
+        admission = AdmissionController(
+            max_pending=config.front_max_pending,
+            max_wait_us=config.front_max_wait_us,
+            peek_frac=config.front_peek_frac,
+        )
+    if deny is None and admission is None:
+        return None
+    front = FrontTier(
+        deny, admission, metrics=metrics,
+        bytes_keys=limiter_uses_bytes_keys(limiter),
+    )
+    if metrics is not None:
+        metrics.set_front_stats_provider(front.stats)
+    return front
 
 
 def create_cleanup_policy(config) -> CleanupPolicy:

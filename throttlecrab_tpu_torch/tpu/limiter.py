@@ -18,6 +18,13 @@ Exactness notes vs the scalar contract:
 - `now_ns` is one server-side timestamp per batch; the scalar-compat
   wrapper applies the pre-epoch clock-skew fallback per call.
 - Emission intervals are clamped to i64::MAX ns.
+
+Fault sites (faults/, at the JAX limiter's places): "keymap" after the
+first key resolve, "launch" after the host prep and before anything is
+enqueued on the stream or written to the table's certificate marks (so
+a retried launch never applies a window twice), and "fetch" at the top
+of each deferred fetch, which reads the same device output again on a
+retry.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from typing import Optional
 import numpy as np
 
 from ..core.errors import InternalError, InvalidRateLimit, NegativeQuantity
+from ..faults import maybe_fail
 from ..core.rate_limiter import RateLimitResult, normalize_now_ns
 from .kernel import (
     PACK_WIDTH,
@@ -288,6 +296,7 @@ class _PendingLaunch:
         self._w32 = w32
 
     def fetch(self) -> list:
+        maybe_fail("fetch")
         out = self._out_dev.cpu().numpy()
         wire = self._wire
         results = []
@@ -353,6 +362,7 @@ class _PendingWireLaunch:
         self._w32 = w32
 
     def fetch(self) -> list:
+        maybe_fail("fetch")
         out = self._out_dev.cpu().numpy()
         results = []
         for j, (packed, status, params) in enumerate(self._prepared):
@@ -469,6 +479,7 @@ class TorchRateLimiter(ScalarCompatMixin):
          slots, rank0, is_last0, rounds) = self._prepare_one(
             keys, max_burst, count_per_period, period, quantity, now_ns
         )
+        maybe_fail("launch")
         degen = has_degenerate(valid, emission, tolerance, quantity)
         with_degen = not wire or degen
         params_cur_safe = cur_wire_safe(valid, tolerance, now_ns)
@@ -567,6 +578,7 @@ class TorchRateLimiter(ScalarCompatMixin):
             prepare_batch(n, max_burst, count_per_period, period, quantity)
         )
         slots, rank0, is_last0, n_full = self.keymap.resolve(keys, valid)
+        maybe_fail("keymap")
         while n_full:
             if not self.auto_grow:
                 raise InternalError("bucket table full")
@@ -699,6 +711,7 @@ class TorchRateLimiter(ScalarCompatMixin):
             and params_cur_safe
             and self.table.cur_safe
         )
+        maybe_fail("launch")
         out_dev = self.table.check_many_packed(
             packed, now_s,
             with_degen=not wire or any_degen,
@@ -794,6 +807,7 @@ class TorchRateLimiter(ScalarCompatMixin):
             and self.table.cur_safe
             and hasattr(km, "finish")
         )
+        maybe_fail("launch")
         out_dev = self.table.check_many_packed(
             stack,
             np.full(K_pad, now_ns, np.int64),

@@ -16,6 +16,12 @@ with `row_ops.row_scatter`, chunked the same way.
 Snapshots are best-effort soft state: keys whose TTL lapsed between
 snapshot and restore are dropped, so a stale snapshot degrades to an
 empty table, never to wrong decisions.
+
+The launch supervisor (server/supervisor.py) uses both halves: a degrade
+seeds its host oracle from :func:`export_state` (the gathers), and a
+re-promotion writes the host-mutated buckets back with
+:func:`_bulk_insert` (the scatters).  The file I/O carries the
+"snapshot" fault site (faults/) where the JAX package has it.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from typing import Union
 import numpy as np
 import torch
 
+from ..faults import fsync_with_faults, maybe_fail
 from . import row_ops
 from .kernel import pack_state
 from .limiter import limiter_uses_bytes_keys
@@ -100,7 +107,27 @@ def export_state(limiter):
 
     Returns ``(keys, slots, shard, tat, expiry, capacity, n_shards)``:
     the key objects as the keymap holds them (str or bytes) plus i64
-    tat/expiry columns; `shard` is all zero and `n_shards` 1."""
+    tat/expiry columns; `shard` is all zero and `n_shards` 1.
+
+    A degraded SupervisedLimiter exports its host oracle's state (the
+    device copy is stale once the oracle takes over; slots are -1);
+    otherwise the wrapped limiter's table is gathered."""
+    degraded = getattr(limiter, "export_degraded_state", None)
+    if degraded is not None:  # SupervisedLimiter
+        host = degraded()
+        if host is not None:
+            keys, tats, exps = host
+            n = len(keys)
+            return (
+                list(keys),
+                np.full(n, -1, np.int64),
+                np.zeros(n, np.int32),
+                np.asarray(tats, np.int64),
+                np.asarray(exps, np.int64),
+                int(getattr(limiter, "total_capacity", 1 << 62)),
+                1,
+            )
+        limiter = limiter.inner
     items = limiter.keymap.items()
     keys = [k for k, _ in items]
     slots = np.asarray([s for _, s in items], np.int64)
@@ -203,6 +230,7 @@ def write_snapshot_payload(payload: dict, path: Union[str, Path]) -> int:
     if keys:
         np.cumsum([len(k) for k in keys], out=offsets[1:])
     key_blob = b"".join(keys)
+    maybe_fail("snapshot")
     tmp = path.with_name(path.name + ".tmp")
     try:
         with open(tmp, "wb") as f:
@@ -225,7 +253,7 @@ def write_snapshot_payload(payload: dict, path: Union[str, Path]) -> int:
                 ),
             )
             f.flush()
-            os.fsync(f.fileno())
+            fsync_with_faults("snapshot", f.fileno())
     except BaseException:
         try:
             os.unlink(tmp)
@@ -245,15 +273,22 @@ def save_snapshot(limiter, path: Union[str, Path]) -> int:
     return write_snapshot_payload(export_snapshot_payload(limiter), path)
 
 
-def load_snapshot(limiter, path: Union[str, Path], now_ns: int) -> int:
+def load_snapshot(
+    limiter, path: Union[str, Path], now_ns: int, front=None
+) -> int:
     """Restore a snapshot into an empty limiter; returns #keys restored.
 
     Entries already expired at `now_ns` are skipped (the TTL contract
-    holds across restarts).  Every corruption of the file surfaces as
+    holds across restarts).  `front` (an optional front.FrontTier) is
+    fully invalidated: the restore rewrites bucket state out from under
+    any cached denials.  Every corruption of the file surfaces as
     SnapshotError."""
+    if front is not None:
+        front.on_restore()
     if len(limiter) != 0:
         raise ValueError("restore requires an empty limiter")
     path = _normalize(path)
+    maybe_fail("snapshot")
     # A truncated npz raises BadZipFile/EOFError/zlib.error depending on
     # where the cut landed, a damaged member ValueError, a missing
     # column KeyError: all become one SnapshotError.
@@ -332,10 +367,13 @@ def load_snapshot(limiter, path: Union[str, Path], now_ns: int) -> int:
     )
 
 
-def _bulk_insert(limiter, keys, tat_arr, exp_arr) -> int:
+def _bulk_insert(limiter, keys, tats, expiries) -> int:
     """Allocate slots for `keys` and write their state rows; returns the
     number of keys inserted (duplicates included, as the JAX package
-    counts them)."""
+    counts them).  `tats` / `expiries` are any i64 sequences (the
+    supervisor's re-promotion hands over lists)."""
+    tat_arr = np.asarray(tats, np.int64)
+    exp_arr = np.asarray(expiries, np.int64)
     table = limiter.table
     # Restored TATs are foreign state: the compact="cur" certificate
     # survives only if every one sits in the proven-safe range.
