@@ -128,8 +128,11 @@ script exits nonzero without its last line:
    nothing may be shed); every connection's bytes and the table state
    must equal a no-front device="cpu" replay of the captured batches in
    dispatch order, the deny cache must serve hits, and window launches
-   must not exceed windows.  Prints the hits and replies/s beside phase
-   9's.
+   must not exceed windows.  The same commands also run twice through
+   the same harness without a front tier, alternating with the two
+   front runs (off, on, off, on), each run on a fresh limiter and
+   checked the same way.  Prints the hits and the replies/s of every
+   run, with and without the front, beside phase 9's.
 
 The line before the last is the {"kernels": [...]} record; the last line
 is {"ok": true, "device": {...}}.
@@ -1750,6 +1753,9 @@ def run_snapshot(keymap, windows, tmp):
 
 DRILL_WINDOWS = 10  # 2 clean, 2 absorbed faults, degrade, 2 oracle, 3 card
 PROBE_INTERVAL_MS = 1000  # the supervisor's default
+# The supervisor's states over the drill, each entry stamped once.
+DRILL_STATES = ["ok", "retrying", "ok", "retrying", "ok", "retrying",
+                "degraded", "recovering", "ok"]
 FRONT_WINDOWS_OF_B = 24  # phase 11b's commands: 24 x 4096 = 98,304
 
 
@@ -1904,6 +1910,14 @@ def run_drill(card):
             f"{after_recover} window launches with the window; state "
             f"{sup.state}, degrades {sup.degrade_count}, re-promotions "
             f"{sup.repromote_count}")
+    # The timings come from wrappers patched over the names _degrade and
+    # _try_recover import when they run, and over the state writers: a
+    # wrapper that never ran leaves its time at 0 or a state unseen.
+    states = [st for st, _ in clock.log]
+    if len(mutated) != 1 or min(v[0] for v in split.values()) <= 0 or \
+            states != DRILL_STATES:
+        raise AssertionError(f"the drill's probes missed a step: {split}, "
+                             f"{len(mutated)} bulk inserts, states {states}")
     if fused.LAUNCHES != 4 or not limiter.table.state.is_cuda:
         raise AssertionError(f"{fused.LAUNCHES} window launches over the "
                              "recovery and two card windows, expected 4")
@@ -1943,7 +1957,7 @@ def run_drill(card):
           f"oracle seed {split['seed'][0] * 1e3:.1f} ms; host oracle "
           f"{oracle_rate:.0f} decisions/s; recovery: 1 probe window launch, "
           f"{mutated[0]} host-mutated keys re-promoted by "
-          f"{want_scatters} row_scatter launches in "
+          f"{RepromoteProbe.seen[1]} row_scatter launches in "
           f"{split['bulk_insert'][0] * 1e3:.1f} ms, the recovering window "
           f"{recover_ms:.1f} ms ({card})")
     print("  ms in each state, in order: " + ", ".join(
@@ -1952,7 +1966,7 @@ def run_drill(card):
     return {
         "retries": sup.retry_count,
         "degrade_row_gather_launches": degrade_gathers,
-        "repromote_row_scatter_launches": want_scatters,
+        "repromote_row_scatter_launches": RepromoteProbe.seen[1],
         "repromoted_keys": mutated[0],
         "lapsed_keys": lapsed,
         "probe_window_launches": RepromoteProbe.seen[0],
@@ -1966,46 +1980,42 @@ def run_drill(card):
     }
 
 
-def run_front_resp(card, resp_rate):
-    """Phase 11b: phase 9's harness over a FrontTier with the default
-    knobs (deny cache 65,536, admission at 100,000 pending).  Returns its
-    record for the kernels line."""
+def serve_front_resp(kid, frames, tmp, tag, with_front):
+    """One run of 11b's commands through phase 9's harness on a fresh
+    cuda limiter, over a default FrontTier or none, checked against a
+    no-front device="cpu" replay of the captured batches; returns
+    (replies/s on the clients' clock, deny-cache hits, launches,
+    windows, shed)."""
     import asyncio
-    import tempfile
 
-    import numpy as np
     import torch
 
-    from throttlecrab_tpu_torch.server import native_redis
     from throttlecrab_tpu_torch.server.config import Config
     from throttlecrab_tpu_torch.server.metrics import Metrics
     from throttlecrab_tpu_torch.server.store import create_front_tier
     from throttlecrab_tpu_torch.tpu import fused
     from throttlecrab_tpu_torch.tpu.limiter import TorchRateLimiter
 
-    n = FRONT_WINDOWS_OF_B * B
-    kid, frames = resp_commands(np.random.default_rng(12), n)
     limiter = TorchRateLimiter(capacity=CAPACITY, keymap="native")
     metrics = Metrics()
-    front = create_front_tier(Config(), metrics, limiter)
-    if front.deny_cache.capacity != 65536 or (
-            front.admission.max_pending != 100_000):
-        raise AssertionError("the front tier's defaults changed")
+    front = None
+    if with_front:
+        front = create_front_tier(Config(), metrics, limiter)
+        if front.deny_cache.capacity != 65536 or (
+                front.admission.max_pending != 100_000):
+            raise AssertionError("the front tier's defaults changed")
     transport = recording_transport(limiter, metrics, front)
     loop = asyncio.new_event_loop()
     loop.run_until_complete(transport.start())
     try:
-        with tempfile.TemporaryDirectory() as tmp:
-            fused.LAUNCHES = 0
-            runs = run_resp_clients(transport.bound_port, kid, frames, tmp,
-                                    "front")
-            torch.cuda.synchronize()
-            launches = fused.LAUNCHES
+        fused.LAUNCHES = 0
+        runs = run_resp_clients(transport.bound_port, kid, frames, tmp, tag)
+        torch.cuda.synchronize()
+        launches = fused.LAUNCHES
     finally:
         loop.run_until_complete(transport.stop())
         loop.close()
     windows = transport.windows
-    hits = front.deny_cache.hits
     ref = TorchRateLimiter(capacity=CAPACITY, keymap="native", device="cpu")
     replay = []
     for w in windows:
@@ -2017,28 +2027,57 @@ def run_front_resp(card, resp_rate):
     if not torch.equal(limiter.table.state[:CAPACITY].cpu(),
                        ref.table.state[:CAPACITY]):
         raise AssertionError("table state differs from the no-front replay")
-    if hits <= 0 or not 0 < launches <= len(windows):
+    hits = front.deny_cache.hits if front else 0
+    shed = (front.admission.shed_peek + front.admission.shed_consume
+            if front else 0)
+    if front is None and launches != len(windows):
+        raise AssertionError(f"{launches} launches for {len(windows)} "
+                             "windows without a front tier")
+    if front is not None and (hits <= 0 or not 0 < launches <= len(windows)):
         raise AssertionError(f"{hits} deny-cache hits, {launches} launches "
                              f"for {len(windows)} windows")
-    shed = front.admission.shed_peek + front.admission.shed_consume
     clocks = [c for _, _, c in runs]
     span = max(c["end"] for c in clocks) - min(c["start"] for c in clocks)
-    rate = n / span
-    print(f"  {n} commands over {RESP_CONNS} connections: every "
-          "connection's bytes equal the no-front device='cpu' replay of "
-          "the captured batches; table state equal")
-    print(f"  deny-cache hits {hits} ({hits / n:.1%} of requests), "
-          f"{len(front.deny_cache)} live entries, {shed} shed; "
-          f"{launches} window launches for {len(windows)} windows; "
-          f"{rate:.0f} replies/s (clients' clock) against phase 9's "
-          f"{resp_rate:.0f} in this run ({card})")
+    return len(kid) / span, hits, launches, len(windows), shed
+
+
+def run_front_resp(card, resp_rate):
+    """Phase 11b: phase 9's harness over a FrontTier with the default
+    knobs (deny cache 65,536, admission at 100,000 pending), and the same
+    commands without a front tier, alternately (off, on, off, on).
+    Returns its record for the kernels line."""
+    import tempfile
+
+    import numpy as np
+
+    n = FRONT_WINDOWS_OF_B * B
+    kid, frames = resp_commands(np.random.default_rng(12), n)
+    runs = {False: [], True: []}
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, with_front in enumerate((False, True, False, True)):
+            runs[with_front].append(serve_front_resp(
+                kid, frames, tmp, f"front{i}", with_front))
+    off = [r[0] for r in runs[False]]
+    on = [r[0] for r in runs[True]]
+    _, hits, launches, n_windows, shed = runs[True][-1]
+    print(f"  {n} commands over {RESP_CONNS} connections, 4 runs: every "
+          "connection's bytes and the table state equal the no-front "
+          "device='cpu' replay of the captured batches")
+    print(f"  with the default front tier: deny-cache hits {hits} "
+          f"({hits / n:.1%} of requests), {shed} shed, {launches} window "
+          f"launches for {n_windows} windows (last run); replies/s "
+          f"(clients' clock) without the front {off}, with it {on}: "
+          f"front / no-front {sum(on) / sum(off):.3f}; phase 9's "
+          f"{resp_rate:.0f} at 655,360 commands in this run ({card})")
     return {
         "front_deny_hits": hits,
         "front_requests": n,
-        "front_windows": len(windows),
+        "front_windows": n_windows,
         "front_launches": launches,
         "front_shed": shed,
-        "front_replies_per_s": rate,
+        "front_replies_per_s": on,
+        "front_off_replies_per_s": off,
+        "front_on_over_off": sum(on) / sum(off),
     }
 
 
@@ -2297,7 +2336,8 @@ def main() -> int:
     drill = run_drill(card)
     print(f"[11b] front tier over native RESP: phase 9's harness with the "
           f"default deny cache and admission, {FRONT_WINDOWS_OF_B * B} "
-          f"config-3 THROTTLEs ({card})")
+          f"config-3 THROTTLEs, and the same without a front tier, "
+          f"alternately ({card})")
     front_resp = run_front_resp(card, resp["resp_replies_per_s"])
 
     print(f"card: {card_line()}")

@@ -610,3 +610,18 @@ def test_front_tier_native_resp_on_card_matches_no_front_cpu(cuda_device):
     assert out == want
     assert front.deny_cache.hits > 0
     assert 0 < launches <= metrics.device_launches
+
+
+@pytest.mark.cuda
+def test_serving_ab_times_this_checkout(cuda_device, monkeypatch):
+    """serving_ab.py (the repo root's A/B of the RESP serving path) times
+    this checkout's native RESP transport at a small size, with and
+    without the default front tier, through chip_smoke.py's clients."""
+    from pathlib import Path
+
+    monkeypatch.syspath_prepend(str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    import serving_ab
+
+    for front in (False, True):
+        assert serving_ab.resp_rate(chip_smoke, 4096, front) > 0

@@ -402,18 +402,101 @@ def test_deterministic_error_not_retried_not_degraded_as_in_jax():
     assert ps.retry_count == 0 and ps.state == "ok"
 
 
+# Real CUDA runtime messages: the first carries no JAX marker; the other
+# two carry one ("UNAVAILABLE", "FAILED TO CONNECT").
+_CUDA_ERRORS = (
+    "CUDA error: an illegal memory access was encountered",
+    "CUDA error: CUDA-capable device(s) is/are busy or unavailable",
+    "CUDA error: MPS client failed to connect to the MPS control daemon "
+    "or the MPS server",
+)
+
+
 def test_cuda_errors_classify_as_deterministic():
-    """The JAX markers unchanged: a CUDA runtime error carries none, so
-    it re-raises (sticky context: no retry can help)."""
-    err = RuntimeError("CUDA error: an illegal memory access was "
-                       "encountered")
-    assert port_sup.classify_exception(err) == jax_sup.classify_exception(
-        err) == "deterministic"
+    """The JAX markers unchanged, so `classify_exception` agrees with
+    JAX on every CUDA message, markers and all; on a card the
+    supervisor treats each as deterministic (sticky context: no retry
+    can help), which the stub test below drives."""
+    want = ("deterministic", "transient", "transient")
+    for msg, kind in zip(_CUDA_ERRORS, want):
+        err = RuntimeError(msg)
+        assert port_sup.classify_exception(err) == \
+            jax_sup.classify_exception(err) == kind
     assert port_sup._TRANSIENT_MARKERS == jax_sup._TRANSIENT_MARKERS
     for exc in (ConnectionError("x"), TimeoutError("x"),
                 RuntimeError("deadline exceeded"), ValueError("bad")):
         assert port_sup.classify_exception(exc) == \
             jax_sup.classify_exception(exc)
+
+
+class _CardStub:
+    """A limiter whose table claims a CUDA device and whose every launch
+    (or, with `at_fetch`, every fetch) raises `exc`."""
+
+    def __init__(self, exc, at_fetch=False):
+        import types
+
+        import torch
+
+        self.table = types.SimpleNamespace(device=torch.device("cuda"))
+        self.keymap = types.SimpleNamespace(BYTES_KEYS=False,
+                                            items=lambda: [])
+        self.exc, self.at_fetch, self.calls = exc, at_fetch, 0
+
+    def _raise(self):
+        self.calls += 1
+        raise self.exc
+
+    def rate_limit_batch(self, keys, max_burst, count_per_period, period,
+                         quantity, now_ns, wire=False, collect_cur=False):
+        self._raise()
+
+    def dispatch_many(self, batches, wire=False, collect_cur=False):
+        if not self.at_fetch:
+            self._raise()
+        stub = self
+
+        class Handle:
+            def fetch(self):
+                stub._raise()
+
+        return Handle()
+
+    def __len__(self):
+        return 0
+
+
+@pytest.mark.parametrize("path", ["batch", "dispatch", "fetch"])
+@pytest.mark.parametrize("msg", _CUDA_ERRORS)
+def test_real_cuda_error_on_card_never_reaches_the_oracle(msg, path):
+    """On a card a real CUDA error re-raises on its first attempt, with
+    or without a JAX marker: no retry, no degrade, no host oracle."""
+    err = RuntimeError(msg)
+    stub = _CardStub(err, at_fetch=(path == "fetch"))
+    sup = port_sup.SupervisedLimiter(stub, retries=3,
+                                     sleep_fn=lambda s: None)
+    batch = (["k"], 5, 10, 60, 1, T0)
+    with pytest.raises(RuntimeError) as e:
+        if path == "batch":
+            sup.rate_limit_batch(*batch)
+        else:
+            sup.dispatch_many([batch]).fetch()
+    assert e.value is err and stub.calls == 1
+    assert (sup.state, sup.retry_count, sup.degrade_count) == ("ok", 0, 0)
+    assert sup._oracle is None and not sup.degraded
+
+
+def test_injected_fault_on_card_still_degrades():
+    """The gate above passes injected faults: the drill's path."""
+    err = port_faults.InjectedDeviceError(
+        "UNAVAILABLE: injected launch fault (persistent)")
+    stub = _CardStub(err)
+    sup = port_sup.SupervisedLimiter(stub, retries=2,
+                                     sleep_fn=lambda s: None)
+    res = sup.rate_limit_batch(["k"], 5, 10, 60, 1, T0)
+    assert stub.calls == 3 and sup.retry_count == 3
+    assert sup.state == "degraded" and sup.degrade_count == 1
+    assert bool(res.allowed[0]) and len(sup) == 1
 
 
 def test_supervisor_state_helper_walks_wrappers_as_in_jax():
@@ -630,7 +713,8 @@ def test_recovery_at_a_window_with_earlier_batches_matches_jax():
     ref.rate_limit("warm", *params, T0)
     ref.rate_limit("k", *params, T0 + 50 * ms)
     _heal()
-    window = [(["k"], *params, T0 + 600 * ms), (["x"], *params, T0 + 1100 * ms)]
+    window = [(["k"], *params, T0 + 600 * ms),
+              (["x"], *params, T0 + 1100 * ms)]
     got = [sup.dispatch_many(window, wire=True).fetch() for sup in (js, ps)]
     for a, b in zip(*got):
         _same_result(a, b, True, "recovering window")

@@ -75,9 +75,9 @@ class InjectedDeviceError(RuntimeError):
     Deliberately a plain RuntimeError subclass: the launch supervisor
     must classify it by *message*, as it classifies any runtime error —
     so injection exercises the production classification path, not a
-    test-only shortcut.  (A real CUDA error is a RuntimeError without
-    the marker: it classifies as deterministic, see
-    server/supervisor.py.)
+    test-only shortcut.  (On a card the supervisor also requires this
+    type before it retries or degrades, since a real CUDA error is
+    sticky and some carry a marker; see server/supervisor.py.)
     """
 
 

@@ -38,13 +38,15 @@ once supervises every transport (they all share the same limiter and
 what serializes state transitions with decisions).
 
 The classifier keys on the message markers the JAX package keys on, and
-on nothing else.  A real CUDA error ("CUDA error: ...", a RuntimeError
-or ``torch.AcceleratorError``) carries none of them, so it classifies as
-deterministic and re-raises, as any non-UNAVAILABLE error does in JAX:
-a CUDA fault is sticky (the context is lost), so retrying or probing
-the same process cannot bring the card back.  Injected faults
-(faults/injector.py) carry the ``UNAVAILABLE`` shape and drive the full
-state machine.
+on nothing else.  A CUDA fault is sticky (the context is lost), so
+retrying or probing the same process cannot bring the card back — yet
+two real CUDA runtime messages do carry a marker ("CUDA-capable
+device(s) is/are busy or unavailable", "MPS client failed to connect
+..."). So when the wrapped table lives on a card, only an injected fault
+(faults/injector.py ``InjectedDeviceError``, ``UNAVAILABLE``-shaped)
+earns a retry or a degrade; any other error re-raises, as a
+deterministic one does, and never reaches the host oracle.  Off the
+card the JAX package's classification holds unchanged.
 """
 
 from __future__ import annotations
@@ -56,6 +58,7 @@ from typing import Optional
 import numpy as np
 
 from ..core.store.mapstore import MapStore
+from ..faults import InjectedDeviceError
 
 log = logging.getLogger("throttlecrab.supervisor")
 
@@ -111,6 +114,12 @@ def classify_exception(exc: BaseException) -> str:
     if any(marker in msg for marker in _TRANSIENT_MARKERS):
         return TRANSIENT
     return DETERMINISTIC
+
+
+def _on_card(limiter) -> bool:
+    """Whether `limiter`'s bucket table lives on a CUDA device."""
+    device = getattr(getattr(limiter, "table", None), "device", None)
+    return getattr(device, "type", None) == "cuda"
 
 
 def supervisor_of(limiter):
@@ -331,6 +340,7 @@ class SupervisedLimiter:
         self.metrics = metrics
         self.front = front
         self._sleep = sleep_fn or time.sleep
+        self._on_card = _on_card(inner)
         self._mu = threading.Lock()  # supervisor state (health reads race)
         self._state = STATE_OK
         self._oracle: Optional[HostOracle] = None
@@ -442,6 +452,14 @@ class SupervisedLimiter:
 
     # -- supervised call core ------------------------------------------- #
 
+    def _transient(self, exc) -> bool:
+        """Whether a retry, and after it the degrade, may help: the JAX
+        classification, except that on a card only an injected fault
+        qualifies (a real CUDA error is sticky; see the module doc)."""
+        if classify_exception(exc) != TRANSIENT:
+            return False
+        return not self._on_card or isinstance(exc, InjectedDeviceError)
+
     def _note_retry(self, exc, attempt) -> None:
         self.retry_count += 1
         if self.metrics is not None:
@@ -476,7 +494,7 @@ class SupervisedLimiter:
                 self._cas_state((STATE_RETRYING,), STATE_OK)
                 return out
             except Exception as exc:
-                if classify_exception(exc) != TRANSIENT:
+                if not self._transient(exc):
                     raise
                 last_exc = exc
                 self._cas_state((STATE_OK, STATE_RETRYING), STATE_RETRYING)
@@ -699,7 +717,7 @@ class SupervisedLimiter:
                 self._cas_state((STATE_RETRYING,), STATE_OK)
                 return out
             except Exception as exc:
-                if classify_exception(exc) != TRANSIENT:
+                if not self._transient(exc):
                     raise
                 self._cas_state((STATE_OK, STATE_RETRYING), STATE_RETRYING)
                 self._note_retry(exc, attempt)
