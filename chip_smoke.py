@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Eleven phases, each printing its results; any failure raises and the
+Thirteen phases, each printing its results; any failure raises and the
 script exits nonzero without its last line:
 
 1. card: the card's name and power limit (nvidia-smi), and the builds of
@@ -43,7 +43,14 @@ script exits nonzero without its last line:
    the snapshot.  A second boot on the same path, with `--faults
    launch:count:1`, answers that key's third request with remaining 0
    and denies its fourth, and its /metrics shows one supervisor retry
-   and one injected launch fault;
+   and one injected launch fault.  The default server runs the insight
+   tier (6-wide rows): after a poll, GET /stats counts the boot's 14
+   requests (9 allowed, 5 denied, the deny cache's among them).  The
+   native backend then boots with `--checkpoint-dir D
+   --checkpoint-interval-ms 200`, exhausts a key, waits for two
+   generations after it (/health carries the checkpoint age), is
+   SIGKILLed and boots again on D: the key is still denied and /metrics
+   counts one recovery;
 5. row kernels vs plain: row_gather / row_scatter (tpu/row_ops.py)
    against index_select / index_copy_ at N = 2^21 + 2^16, B = 4096,
    W = 4 and 6, rows 0 and N-1 included.  Tolerance: exact equality;
@@ -132,7 +139,31 @@ script exits nonzero without its last line:
    the same harness without a front tier, alternating with the two
    front runs (off, on, off, on), each run on a fresh limiter and
    checked the same way.  Prints the hits and the replies/s of every
-   run, with and without the front, beside phase 9's.
+   run, with and without the front, beside phase 9's;
+12. insight tier at full width: TorchRateLimiter(capacity=2^20,
+   keymap="native", insight=True) on cuda holding the 1M config-3 keys,
+   a default FrontTier and an InsightTier at its defaults (top-K 64,
+   sketch 4,096, prewarm 64, hot at 100 denials); 10 config-3 windows
+   (K=16 x B=4096, one timestamp per window, 1.001 s apart) through
+   dispatch_wire_window, each window's rows observed into the deny
+   cache, a poll after each, one decay.  Every wire field and cur value,
+   the insight totals, each poll's top-K (ids in order), the sketch,
+   stats_json, metric_stats, the prewarmed keys, the concentration and
+   the deny cache's order must equal a device="cpu" run; the window
+   counter, zeroed just before, must read 10; no poll may fail.  Prints
+   the poll's ms split (totals fetch, top-K, slot->key resolve), the
+   decay's ms, and dispatch_wire_window decisions/s on the W=6 table and
+   a W=4 one, alternately;
+13. checkpoint and recovery at 1M keys: a Checkpointer over phase 12's
+   limiter writes a base, then a delta after each 3 windows (twice),
+   under a lock as the serving drivers hold it; each generation must
+   launch row_gather ceil(live / 65,536) times.  recover_into a fresh
+   cuda limiter (row_scatter ceil(restored / 65,536) times) and a cpu
+   one: per-key tat/expiry equal the source's live rows, certificates
+   equal, and the next window decides identically on all three.  Then a
+   delta torn by `snapshot:truncate`: recovery falls back exactly one
+   generation.  Prints per generation the export (under the lock),
+   encode, write and fsync ms and the bytes, and the recovery ms.
 
 The line before the last is the {"kernels": [...]} record; the last line
 is {"ok": true, "device": {...}}.
@@ -536,7 +567,9 @@ def boot_server(backend, extra=()):
                 f"server exited {proc.returncode}:\n{proc.stdout.read()}"
             )
         try:
-            if http(http_port, "GET", "/health", timeout=2) == (200, b"OK"):
+            status, body = http(http_port, "GET", "/health", timeout=2)
+            # "OK", or "OK checkpoint_age_s=..." with checkpoints armed.
+            if status == 200 and body.split(b" ")[0] == b"OK":
                 return proc, http_port, redis_port
         except OSError:
             pass
@@ -642,6 +675,7 @@ def check_server(backend, snapshot_path):
             raise AssertionError("default flags built no supervisor or no "
                                  f"deny cache:\n{text.decode()}")
         print(f"  supervisor state ok, deny-cache hits {int(hits.group(1))}")
+        check_stats(http_port)
         snap = [json.loads(http(http_port, "POST", "/throttle",
                                 throttle_body("smoke:snap", 3))[1])
                 for _ in range(2)]
@@ -680,6 +714,100 @@ def check_server(backend, snapshot_path):
         print("  second boot on the snapshot: the key's third request "
               "answered remaining 0, its fourth denied; "
               + next(line for line in log.splitlines() if "restored" in line))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def check_stats(http_port):
+    """The default server runs the insight tier: once a poll has run
+    after the last of the 13 requests above (its cadence is 1 s), GET
+    /stats counts them all — 8 allowed, 5 denied (the deny cache's hits
+    among them) — plus one more allowed request sent to drive that
+    poll."""
+    time.sleep(1.1)
+    status, _ = http(http_port, "POST", "/throttle",
+                     throttle_body("smoke:stats", 3))
+    deadline = time.monotonic() + 10
+    while True:
+        status, body = http(http_port, "GET", "/stats")
+        doc = json.loads(body) if status == 200 and body else {}
+        if doc.get("totals", {}).get("allowed") == 9:
+            break
+        if time.monotonic() > deadline:
+            raise AssertionError(f"/stats never counted the requests: {doc}")
+        time.sleep(0.25)
+    top = {d["key"] for d in doc["top_denied"]}
+    if (doc["totals"] != {"allowed": 9, "denied": 5,
+                          "deny_rate": round(5 / 14, 6)}
+            or doc["insight"]["poll_failures"] != 0
+            or not {"smoke:1", "smoke:r"} <= top
+            or doc["front_path"]["denied"] < 1):
+        raise AssertionError(f"unexpected /stats: {doc}")
+    print(f"  /stats: totals {doc['totals']}, deny-cache denials "
+          f"{doc['front_path']['denied']}, top denied "
+          f"{sorted(top)}, polls {doc['insight']['polls']}, 0 poll failures")
+
+
+def metric_value(http_port, name):
+    text = http(http_port, "GET", "/metrics")[1].decode()
+    for line in text.splitlines():
+        if line.startswith(name + " "):
+            return float(line.split()[1])
+    raise AssertionError(f"/metrics has no {name}")
+
+
+def check_checkpoint_restart(backend, ckdir):
+    """Phase 4's crash drill: boot with `--checkpoint-dir` and a 200 ms
+    interval, exhaust a key, wait until two generations follow it (at
+    least two intervals; /health carries the checkpoint suffix), SIGKILL
+    the server and boot it again on the same directory: the key must
+    still be denied and the boot must count one recovery."""
+    flags = ("--checkpoint-dir", ckdir, "--checkpoint-interval-ms", "200")
+    gen = "throttlecrab_tpu_checkpoint_generation"
+    proc, http_port, _ = boot_server(backend, flags)
+    try:
+        answers = [json.loads(http(http_port, "POST", "/throttle",
+                                   throttle_body("smoke:kill", 2))[1]
+                              )["allowed"] for _ in range(3)]
+        if answers != [True, True, False]:
+            raise AssertionError(f"unexpected answers {answers}")
+        g0 = metric_value(http_port, gen)
+        t0 = time.monotonic()
+        i = 0
+        while metric_value(http_port, gen) < g0 + 2:
+            if time.monotonic() - t0 > 30:
+                raise AssertionError("checkpoint generations stalled")
+            # Each window drives the throttled tick.
+            http(http_port, "POST", "/throttle",
+                 throttle_body(f"smoke:tick{i}", 2))
+            i += 1
+            time.sleep(0.25)
+        waited = time.monotonic() - t0
+        health = http(http_port, "GET", "/health")[1]
+        if not health.startswith(b"OK checkpoint_age_s="):
+            raise AssertionError(f"/health lacks the suffix: {health}")
+        proc.send_signal(signal.SIGKILL)
+        proc.wait(timeout=30)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    proc, http_port, _ = boot_server(backend, flags)
+    try:
+        after = json.loads(http(http_port, "POST", "/throttle",
+                                throttle_body("smoke:kill", 2))[1])
+        if after["allowed"]:
+            raise AssertionError(f"the key was allowed after the SIGKILL "
+                                 f"restart: {after}")
+        wait_metrics(http_port,
+                     (b"throttlecrab_tpu_checkpoint_recoveries_total 1",))
+        print(f"  --checkpoint-dir, 200 ms: {waited:.2f} s to 2 generations "
+              f"past the exhausted key, /health {health.decode()!r}; "
+              "SIGKILL and reboot on the chain: the key is still denied, "
+              "1 recovery")
+        stop_server(proc)
     finally:
         if proc.poll() is None:
             proc.kill()
@@ -2084,6 +2212,299 @@ def run_front_resp(card, resp_rate):
 # ---- main ---------------------------------------------------------------- #
 
 
+# ---- insight tier and crash durability (phases 12 and 13) --------------- #
+
+
+INSIGHT_WINDOWS = 10  # phase 12's windows
+POLL_STEP_NS = 1_001_000_000  # one window per default poll_ms, and 1 ms
+RATE_WINDOWS = 6  # phase 12's W=6 / W=4 rate windows, each width
+DELTA_WINDOWS = 3  # phase 13's windows before each delta
+
+
+def stamped_frames(rng, n, start):
+    """n config-3 windows as native wire frames, each window stamped with
+    one timestamp, POLL_STEP_NS after the previous one's."""
+    windows = config3_windows(rng, N_KEYS, n, K, B, -1)
+    return wire_frames([
+        [(*b[:5], start + w * POLL_STEP_NS) for b in win]
+        for w, win in enumerate(windows)
+    ])
+
+
+def frame_keys(frames):
+    """Every request's key bytes, in dispatch order."""
+    return [blob[offsets[i]:offsets[i + 1]]
+            for blob, offsets, _ in frames for i in range(len(offsets) - 1)]
+
+
+def observe_frames(front, frames, results, now):
+    """Feed one decided window to the deny cache as the native driver's
+    _observe_plan does (keys are bytes, the native keymap's identity)."""
+    rows = []
+    for (blob, offsets, params), res in zip(frames, results):
+        ok = res.status == 0
+        allowed = (res.allowed != 0) & ok
+        cur = (res.cur_ns.tolist() if res.cur_ns is not None
+               else [None] * len(ok))
+        for i, p in enumerate(params.tolist()):
+            rows.append((blob[offsets[i]:offsets[i + 1]], *p,
+                         bool(allowed[i]), cur[i] if ok[i] else None))
+    front.observe_window(rows, now, front.next_seq())
+
+
+def drain_ms(split):
+    """{name: ms} of timed_sync sinks, which restart from 0."""
+    out = {}
+    for name, sink in split.items():
+        out[name], sink[0] = sink[0] * 1e3, 0.0
+    return out
+
+
+def run_insight(device, frame_windows):
+    """Phase 12 on one device: the 1M-key native limiter with the insight
+    rows, a default FrontTier and an InsightTier at its defaults; each
+    window through dispatch_wire_window (cur tier), its rows observed into
+    the deny cache, then one poll; one decay at the end.  Returns what
+    the two devices must agree on, the timings and the limiter."""
+    import torch
+
+    from throttlecrab_tpu_torch.front import (
+        AdmissionController,
+        DenyCache,
+        FrontTier,
+    )
+    from throttlecrab_tpu_torch.insight import InsightTier
+    from throttlecrab_tpu_torch.tpu import fused
+    from throttlecrab_tpu_torch.tpu.limiter import TorchRateLimiter
+
+    lim = TorchRateLimiter(capacity=CAPACITY, keymap="native", insight=True,
+                           device=device)
+    populate_config3(lim, N_KEYS, T0)
+    front = FrontTier(DenyCache(65536), AdmissionController(
+        max_pending=100_000, max_wait_us=0, peek_frac=0.9), bytes_keys=True)
+    tier = InsightTier(limiter=lim, front=front)
+    split = {"fetch": [0.0], "topk": [0.0], "resolve": [0.0]}
+    log = {"topk": [], "prewarm": [], "stats": [], "metric": [],
+           "results": []}
+    table = lim.table
+    counts_fn, topk_fn = table.insight_counts, table.insight_topk
+    table.insight_counts = timed_sync(counts_fn, split["fetch"])
+    timed_topk = timed_sync(topk_fn, split["topk"])
+
+    def topk(k):
+        out = timed_topk(k)
+        log["topk"].append([out[0].tolist(), out[1].tolist()])
+        return out
+
+    table.insight_topk = topk
+    tier._resolver.keys_for = timed_sync(tier._resolver.keys_for,
+                                         split["resolve"])
+    prewarm_fn = front.prewarm
+
+    def prewarm(keys):
+        keys = list(keys)
+        n = prewarm_fn(keys)
+        log["prewarm"].append((keys, n))
+        return n
+
+    front.prewarm = prewarm
+    torch.cuda.synchronize()
+    fused.LAUNCHES = 0
+    polls = []
+    for frames, now in frame_windows:
+        results = lim.dispatch_wire_window(frames, now,
+                                           collect_cur=True).fetch()
+        log["results"].append(results)
+        observe_frames(front, frames, results, now)
+        t = time.perf_counter()
+        if not tier.maybe_poll(now):
+            raise AssertionError("the insight poll was not due")
+        polls.append({"ms": (time.perf_counter() - t) * 1e3,
+                      **drain_ms(split)})
+        log["stats"].append(tier.stats_json(state="ok"))
+        log["metric"].append(tier.metric_stats())
+    torch.cuda.synchronize()
+    launches = fused.LAUNCHES
+    decay_s = [0.0]
+    timed_sync(table.insight_decay, decay_s)()
+    decay_ms = decay_s[0] * 1e3
+    log["ins_counts"] = table.insight_counts()
+    log["sketch"] = tier.sketch.top_with_error(4096)
+    log["concentration"] = front.admission.hot_concentration
+    log["cache_order"] = list(front.deny_cache._entries)
+    log["column"] = [a.tolist() for a in topk_fn(64)]
+    return {"log": log, "polls": polls, "decay_ms": decay_ms,
+            "launches": launches, "tier": tier, "limiter": lim}
+
+
+def compare_insight(got, want):
+    """Phase 12's cuda run's log against its cpu run's, field by field."""
+    import numpy as np
+
+    for w, (a, b) in enumerate(zip(got["results"], want["results"])):
+        assert_same_results([a], [b])
+        for j, (ra, rb) in enumerate(zip(a, b)):
+            same = (ra.cur_ns is None and rb.cur_ns is None) or (
+                ra.cur_ns is not None and rb.cur_ns is not None
+                and np.array_equal(ra.cur_ns, rb.cur_ns))
+            if not same:
+                raise AssertionError(f"window {w} batch {j}: cur_ns differs")
+    for name in ("topk", "prewarm", "stats", "metric", "ins_counts",
+                 "sketch", "concentration", "cache_order", "column"):
+        if got[name] != want[name]:
+            raise AssertionError(f"phase 12: {name} differs from the cpu run")
+
+
+def time_insight_widths(on, rng, start):
+    """dispatch_wire_window on the W=6 limiter `on` and a fresh W=4 one
+    holding the same keys, window by window alternately; decisions/s of
+    each over the windows after its first."""
+    import torch
+
+    from throttlecrab_tpu_torch.tpu.limiter import TorchRateLimiter
+
+    off = TorchRateLimiter(capacity=CAPACITY, keymap="native")
+    populate_config3(off, N_KEYS, T0)
+    frames = stamped_frames(rng, RATE_WINDOWS, start)
+    seconds = {6: [], 4: []}
+    for window, now in frames:
+        for width, lim in ((6, on), (4, off)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            lim.dispatch_wire_window(window, now).fetch()
+            seconds[width].append(time.perf_counter() - t)
+    del off
+    return {w: K * B * (len(s) - 1) / sum(s[1:]) for w, s in seconds.items()}
+
+
+def run_checkpoint(source, frame_windows, tmp, now0):
+    """Phase 13: a Checkpointer over phase 12's 1M-key cuda limiter writes
+    a base, then a delta after each DELTA_WINDOWS windows (twice), under a
+    limiter lock as the serving drivers hold it; recover_into a fresh cuda
+    limiter and a cpu one; the next window decides identically on all
+    three; then a torn delta (snapshot:truncate) and a recovery that falls
+    back exactly one generation.  Returns the per-generation record."""
+    import torch
+
+    from throttlecrab_tpu_torch import faults
+    from throttlecrab_tpu_torch.persist import (
+        MANIFEST_NAME,
+        Checkpointer,
+        recover_into,
+    )
+    from throttlecrab_tpu_torch.persist import checkpoint as ck_mod
+    from throttlecrab_tpu_torch.persist import format as fmt_mod
+    from throttlecrab_tpu_torch.tpu import row_ops
+    from throttlecrab_tpu_torch.tpu.limiter import TorchRateLimiter
+
+    split = {name: [0.0] for name in ("export", "encode", "write", "fsync")}
+    saved = (ck_mod.export_snapshot_payload, ck_mod.encode_checkpoint,
+             ck_mod.write_file_durable, fmt_mod.fsync_with_faults)
+    ck_mod.export_snapshot_payload = timed_sync(saved[0], split["export"])
+    ck_mod.encode_checkpoint = timed_sync(saved[1], split["encode"])
+    ck_mod.write_file_durable = timed_sync(saved[2], split["write"])
+    fmt_mod.fsync_with_faults = timed_sync(saved[3], split["fsync"])
+    lock = threading.Lock()
+    ck = Checkpointer(source, tmp, interval_ns=1)
+    gens = []
+    per_gather = row_ops.MAX_BATCH
+
+    def generation(now):
+        torch.cuda.synchronize()
+        row_ops.GATHER_LAUNCHES = 0
+        rows = ck.checkpoint_now(now, lock=lock)
+        torch.cuda.synchronize()
+        live = len(source)
+        if row_ops.GATHER_LAUNCHES != -(-live // per_gather):
+            raise AssertionError(
+                f"generation {ck.last_generation}: {row_ops.GATHER_LAUNCHES}"
+                f" row_gather launches for {live} live keys")
+        ms = drain_ms(split)
+        gens.append({"generation": ck.last_generation, "rows": rows,
+                     "row_gather": row_ops.GATHER_LAUNCHES,
+                     "bytes": ck.last_bytes, **ms})
+
+    def decide(windows):
+        for frames, now in windows:
+            source.dispatch_wire_window(frames, now).fetch()
+            ck.note_keys(frame_keys(frames))
+        return now
+
+    try:
+        generation(now0)
+        now = now0
+        for d in range(2):
+            now = decide(frame_windows[d * DELTA_WINDOWS:
+                                       (d + 1) * DELTA_WINDOWS])
+            generation(now)
+        # Recovery restores the rows still live at its `now` (the chain's
+        # TTL sweep); the source holds its lapsed ones until a sweep.
+        want = {k: v for k, v in keyed_state(source).items() if v[1] > now}
+        restored = TorchRateLimiter(capacity=CAPACITY, keymap="native",
+                                    insight=True)
+        torch.cuda.synchronize()
+        row_ops.SCATTER_LAUNCHES = 0
+        t = time.perf_counter()
+        res = recover_into(restored, tmp, now)
+        torch.cuda.synchronize()
+        recovery_ms = (time.perf_counter() - t) * 1e3
+        scatters = row_ops.SCATTER_LAUNCHES
+        if scatters != -(-res.restored // per_gather):
+            raise AssertionError(f"{scatters} row_scatter launches for "
+                                 f"{res.restored} restored keys")
+        on_cpu = TorchRateLimiter(capacity=CAPACITY, keymap="native",
+                                  insight=True, device="cpu")
+        t = time.perf_counter()
+        res_cpu = recover_into(on_cpu, tmp, now)
+        cpu_recovery_ms = (time.perf_counter() - t) * 1e3
+        if (res.chain, res.restored) != (res_cpu.chain, res_cpu.restored) or (
+                res.chain != [0, 1, 2]):
+            raise AssertionError(f"recoveries differ: {res} / {res_cpu}")
+        for name, lim in (("cuda", restored), ("cpu", on_cpu)):
+            if keyed_state(lim) != want:
+                raise AssertionError(f"the {name} recovery's per-key state "
+                                     "differs from the source's")
+        if certificates(restored) != certificates(on_cpu):
+            raise AssertionError(
+                f"certificates differ: cuda {certificates(restored)}, cpu "
+                f"{certificates(on_cpu)}")
+        frames, next_now = frame_windows[2 * DELTA_WINDOWS]
+        outs = [lim.dispatch_wire_window(frames, next_now).fetch()
+                for lim in (source, restored, on_cpu)]
+        assert_same_results([outs[1]], [outs[0]])
+        assert_same_results([outs[2]], [outs[0]])
+        del on_cpu
+        # A torn newest delta: the writer raises, the torn file stands
+        # under its final name; without the manifest's hint the scan meets
+        # it and falls back exactly one generation.
+        ck.note_keys(frame_keys(frames))
+        faults.arm(faults.FaultInjector(
+            faults.parse_spec("snapshot:truncate:0.5")))
+        try:
+            ck.checkpoint_now(next_now, lock=lock)
+        except OSError:
+            pass
+        else:
+            raise AssertionError("the truncate fault did not tear the write")
+        finally:
+            faults.disarm()
+        drain_ms(split)
+        os.remove(os.path.join(tmp, MANIFEST_NAME))
+        fallback = TorchRateLimiter(capacity=CAPACITY, keymap="native",
+                                    insight=True)
+        res_torn = recover_into(fallback, tmp, now)
+        if (res_torn.generation, res_torn.corrupt_skipped,
+                res_torn.restored) != (res.generation, 1, res.restored):
+            raise AssertionError(f"torn-delta recovery: {res_torn}")
+    finally:
+        (ck_mod.export_snapshot_payload, ck_mod.encode_checkpoint,
+         ck_mod.write_file_durable, fmt_mod.fsync_with_faults) = saved
+    return {"generations": gens, "restored": res.restored,
+            "row_scatter": scatters, "recovery_ms": recovery_ms,
+            "cpu_recovery_ms": cpu_recovery_ms,
+            "torn_fallback_generation": res_torn.generation}
+
+
 def build_kernels():
     """Phase 1's builds: one nvcc per kernel source, all started together
     (threads wait on the compilers); {library: (path, seconds)}."""
@@ -2182,6 +2603,8 @@ def main() -> int:
               f"transports, {' '.join(SERVER_FLAGS)} --snapshot-path")
         with tempfile.TemporaryDirectory() as tmp:
             check_server(backend, f"{tmp}/state")
+            if backend == "native":
+                check_checkpoint_restart(backend, f"{tmp}/chain")
 
     print("[5] row kernels vs plain on the card: "
           f"N={BYID_CAPACITY + (1 << 16)} B={B} W=4,6")
@@ -2340,6 +2763,88 @@ def main() -> int:
           f"alternately ({card})")
     front_resp = run_front_resp(card, resp["resp_replies_per_s"])
 
+    print(f"[12] insight tier at full width: TorchRateLimiter(capacity=2^20,"
+          f" keymap='native', insight=True) on cuda, {N_KEYS} config-3 keys, "
+          f"a default FrontTier and InsightTier; {INSIGHT_WINDOWS} windows "
+          f"of K={K} x B={B} through dispatch_wire_window, a poll after "
+          f"each, one decay; against the same on device='cpu' ({card})")
+    start = T0 + 10 * NS
+    ins_frames = stamped_frames(np.random.default_rng(12), INSIGHT_WINDOWS,
+                                start)
+    t = time.perf_counter()
+    ins_cuda = run_insight("cuda", ins_frames)
+    ins_cuda_s = time.perf_counter() - t
+    if ins_cuda["tier"].poll_failures != 0:
+        raise AssertionError(f"{ins_cuda['tier'].poll_failures} insight poll "
+                             "failures on the card")
+    if ins_cuda["launches"] != INSIGHT_WINDOWS:
+        raise AssertionError(f"{ins_cuda['launches']} window launches for "
+                             f"{INSIGHT_WINDOWS} insight windows")
+    if ins_cuda["limiter"].table.state.shape[-1] != 6:
+        raise AssertionError("the insight table is not 6 wide")
+    t = time.perf_counter()
+    ins_cpu = run_insight("cpu", ins_frames)
+    ins_cpu_s = time.perf_counter() - t
+    compare_insight(ins_cuda["log"], ins_cpu["log"])
+    del ins_cpu
+    log = ins_cuda["log"]
+    tier = ins_cuda["tier"]
+    poll_split = {
+        part: float(np.median([p.get(part, 0.0) for p in
+                               ins_cuda["polls"][1:]]))
+        for part in ("ms", "fetch", "topk", "resolve")
+    }
+    print(f"  {INSIGHT_WINDOWS} windows, {ins_cuda['launches']} W=6 window "
+          f"launches, {tier.polls} polls, 0 failures; ins_counts "
+          f"{log['ins_counts']}; top-K, sketch ({len(tier.sketch)} keys), "
+          f"stats_json, metric_stats, prewarmed keys "
+          f"({sum(n for _, n in log['prewarm'])} refreshed over "
+          f"{len(log['prewarm'])} polls), concentration "
+          f"{log['concentration']:.6f}, wire fields and cur: identical to "
+          f"the cpu run")
+    print(f"  poll ms (median after the first; fetch = totals, topk = top-K"
+          f" on the card, resolve = slot->key): {poll_split}; the first "
+          f"poll {ins_cuda['polls'][0]}; decay "
+          f"{ins_cuda['decay_ms']:.3f} ms; run {ins_cuda_s:.1f} s on cuda, "
+          f"{ins_cpu_s:.1f} s on cpu ({card})")
+    width_rates = time_insight_widths(
+        ins_cuda["limiter"], np.random.default_rng(120),
+        start + INSIGHT_WINDOWS * POLL_STEP_NS)
+    print(f"  dispatch_wire_window decisions/s, alternately: W=6 (insight) "
+          f"{width_rates[6]:.0f}, W=4 {width_rates[4]:.0f} over "
+          f"{RATE_WINDOWS - 1} windows each ({card})")
+
+    print(f"[13] checkpoint and recovery at {N_KEYS} keys: a Checkpointer "
+          f"over phase 12's cuda limiter writes a base, then a delta after "
+          f"each {DELTA_WINDOWS} windows (twice); recover_into fresh cuda "
+          f"and cpu limiters; a torn delta ({card})")
+    ck_start = start + (INSIGHT_WINDOWS + RATE_WINDOWS) * POLL_STEP_NS
+    ck_frames = stamped_frames(np.random.default_rng(13),
+                               2 * DELTA_WINDOWS + 1, ck_start)
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        chain = run_checkpoint(ins_cuda["limiter"], ck_frames, tmp,
+                               ck_start - POLL_STEP_NS)
+        chain_s = time.perf_counter() - t
+    ins_launches = ins_cuda["launches"]
+    first_poll = ins_cuda["polls"][0]
+    insight_decay_ms = ins_cuda["decay_ms"]
+    del ins_cuda
+    for g in chain["generations"]:
+        print("  generation {generation}: {rows} rows, {bytes} bytes, "
+              "{row_gather} row_gather launches; ms export (under the lock)"
+              " {export:.1f}, encode {encode:.1f}, write {write:.1f} (of "
+              "it fsync {fsync:.1f})".format(**g))
+    print(f"  recovered {chain['restored']} keys (chain [0, 1, 2]) with "
+          f"{chain['row_scatter']} row_scatter launches in "
+          f"{chain['recovery_ms']:.1f} ms on cuda, "
+          f"{chain['cpu_recovery_ms']:.1f} ms on cpu; per-key state equals "
+          f"the source and the cpu recovery, certificates equal; the next "
+          f"window decides identically on all three; after a torn delta "
+          f"the recovery falls back to generation "
+          f"{chain['torn_fallback_generation']}; phase {chain_s:.1f} s "
+          f"({card})")
+
     print(f"card: {card_line()}")
     kernels = [{
         "name": "fused_window",
@@ -2384,6 +2889,13 @@ def main() -> int:
         "supervisor_probe_launches": drill["probe_window_launches"],
         "supervisor_drill": drill,
         **front_resp,
+        "insight_window_launches": ins_launches,
+        "insight_windows": INSIGHT_WINDOWS,
+        "insight_w6_decisions_per_s": width_rates[6],
+        "insight_w4_decisions_per_s": width_rates[4],
+        "insight_poll_ms": poll_split,
+        "insight_first_poll_ms": first_poll,
+        "insight_decay_ms": insight_decay_ms,
         "card": card,
     }]
     for name, replaces in (("row_gather", "pallas_ops.py:128"),
@@ -2425,6 +2937,13 @@ def main() -> int:
             "supervisor_launches": drill[
                 "degrade_row_gather_launches" if name == "row_gather"
                 else "repromote_row_scatter_launches"],
+            "checkpoint_path": "checkpoint generations (phase 13)"
+                               if name == "row_gather" else
+                               "checkpoint recovery (phase 13)",
+            "checkpoint_launches": (
+                [g["row_gather"] for g in chain["generations"]]
+                if name == "row_gather" else chain["row_scatter"]),
+            "checkpoint_ms": chain,
             "b4096": {
                 "ms": b4["kernel"], "plain_ms": b4["plain"],
                 "library_ms": b4["library"],

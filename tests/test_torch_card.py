@@ -2,7 +2,8 @@
 decision-window kernel (fused.py), also behind the table's by-id entry
 points and behind the native RESP transport's driver thread, and the row
 gather/scatter (row_ops.py, also through a composed by-id scan and the
-snapshot's save and restore).
+snapshot's save and restore), and the insight tier's device ops
+(kernel.insight_topk / insight_decay) against their CPU runs.
 
 Needs a CUDA card: the tests carry the `cuda` marker and skip elsewhere
 (decided in a fixture when they run).  The file imports nothing of jax,
@@ -625,3 +626,37 @@ def test_serving_ab_times_this_checkout(cuda_device, monkeypatch):
 
     for front in (False, True):
         assert serving_ab.resp_rate(chip_smoke, 4096, front) > 0
+
+
+def _ins_state(rng, n, device):
+    """i32[n, 6] insight rows whose denied counts (0..40, and a few past
+    2^32) tie heavily, so the top-K boundary falls inside runs of equal
+    counts."""
+    counts = rng.integers(0, 41, n).astype(np.int64)
+    counts[rng.integers(0, n, 64)] += 1 << 33
+    tat = rng.integers(0, 1 << 62, n).astype(np.int64)
+    state = torch.cat([
+        kernel.pack_state(torch.from_numpy(tat), torch.from_numpy(tat + 7)),
+        kernel._split_cols(torch.from_numpy(counts)),
+    ], dim=-1)
+    return state.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 64, 4096])
+def test_insight_topk_and_decay_on_card_match_cpu(cuda_device, k):
+    """insight_topk / insight_decay on the card at 2^20 rows (plus the
+    scratch tail) against their CPU runs: the same counts and slot ids in
+    the same order under ties, and the same halved rows."""
+    cap = 1 << 20
+    state = _ins_state(np.random.default_rng(k), cap + (1 << 16),
+                       cuda_device)
+    ref = state.cpu()
+    vals, ids = kernel.insight_topk(state, capacity=cap, k=k)
+    want_vals, want_ids = kernel.insight_topk(ref, capacity=cap, k=k)
+    assert torch.equal(vals.cpu(), want_vals)
+    assert torch.equal(ids.cpu(), want_ids)
+    assert int(ids.max()) < cap
+    kernel.insight_decay(state)
+    kernel.insight_decay(ref)
+    assert torch.equal(state.cpu(), ref)

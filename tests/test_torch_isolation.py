@@ -5,8 +5,10 @@ Runs in a fresh interpreter with `sys.modules["jax"] = None` (any jax
 import raises), imports every module of throttlecrab_tpu_torch, and
 checks that no module named `throttlecrab_tpu` or `throttlecrab_tpu.*`
 got loaded (`throttlecrab_tpu_torch` shares the prefix, so the check is
-exact); the failure domain and the front tier (faults/, front/,
-server/supervisor.py) are among them, and a supervised limiter degrades
+exact); the failure domain, the front tier, the insight tier and crash
+durability (faults/, front/, server/supervisor.py, insight/, persist/)
+are among them; an insight tier polls and a checkpoint chain is written
+and recovered, and a supervised limiter degrades
 to its host oracle under an injected fault and re-promotes, with a deny
 cache certifying from its results, still with no jax.  Then the device
 contract: without a card, asking for `cuda` —
@@ -16,8 +18,9 @@ and the native RESP transport (the wire server built from
 native/wire_server.cpp) answers a THROTTLE over a socket, with still no
 jax and nothing of the JAX package loaded.  A second interpreter, with
 jax, grpc and protobuf all unimportable, boots the server with `--http`
-and `--snapshot-path`, and SIGTERM saves the snapshot: a server without
-`--grpc` never needs grpcio.
+and `--snapshot-path` and `--checkpoint-dir`, and SIGTERM saves the snapshot
+and writes the final checkpoint: a server without `--grpc` never needs
+grpcio.
 """
 
 import os
@@ -47,9 +50,28 @@ for name in (
     "throttlecrab_tpu_torch.front", "throttlecrab_tpu_torch.front.admission",
     "throttlecrab_tpu_torch.front.deny_cache",
     "throttlecrab_tpu_torch.server.supervisor",
+    "throttlecrab_tpu_torch.insight", "throttlecrab_tpu_torch.insight.collector",
+    "throttlecrab_tpu_torch.persist", "throttlecrab_tpu_torch.persist.format",
+    "throttlecrab_tpu_torch.persist.checkpoint",
+    "throttlecrab_tpu_torch.persist.recovery",
 ):
     assert name in names, name
 print("imported", len(names))
+
+import tempfile
+from throttlecrab_tpu_torch.insight import InsightTier
+from throttlecrab_tpu_torch.persist import Checkpointer, recover_into
+from throttlecrab_tpu_torch.tpu.limiter import TorchRateLimiter as _TRL
+lim = _TRL(capacity=64, device="cpu", insight=True)
+ins = InsightTier(limiter=lim, poll_ms=1)
+lim.rate_limit_batch(["h"] * 5, 2, 1, 60, 1, 10**18)
+assert ins.poll(10**18) and ins.stats()["totals"]["denied"] == 3
+with tempfile.TemporaryDirectory() as d:
+    Checkpointer(lim, d, interval_ns=1).checkpoint_now(10**18)
+    res = recover_into(_TRL(capacity=64, device="cpu"), d, 10**18 + 1)
+    assert res.restored == 1
+assert sys.modules.get("jax") is None
+print("insight poll and checkpoint chain run without jax")
 
 from throttlecrab_tpu_torch import faults
 from throttlecrab_tpu_torch.front import DenyCache, FrontTier
@@ -164,6 +186,7 @@ path = sys.argv[1]
 cfg = Config.from_env_and_args([
     "--http", "--http-host", "127.0.0.1", "--http-port", "0",
     "--device", "cpu", "--store-capacity", "64", "--snapshot-path", path,
+    "--checkpoint-dir", path + ".ck",
 ])
 
 async def main():
@@ -174,6 +197,7 @@ async def main():
 
 asyncio.run(main())
 assert os.path.exists(path + ".npz")
+assert os.path.exists(path + ".ck/ckpt-000000000000-base.tck")
 leaked = sorted(m for m in sys.modules if m.startswith(("throttlecrab_tpu.",
                                                        "grpc.")))
 assert not leaked, leaked

@@ -8,8 +8,9 @@ client deadlines that lapse in the queue, requests after shutdown.  The
 HTTP status and the JSON body must be byte-identical.  Both servers'
 `Metrics` are built as each server builds them at its default config
 (the top-denied leaderboard at 100 keys), and their `/metrics` renders
-must match, apart from the gauges of modules the port has not ported
-(insight, control plane, checkpoints).
+must match, apart from the gauges of the module the port has not ported
+(the control plane); at the default config (insight on) their GET /stats
+documents match too.
 `/health` and `/metrics` answer 200 over a real socket.  Every flag of
 the JAX server that belongs to a ported module parses, from the command
 line and from its environment variable, to the same value in both.
@@ -30,11 +31,13 @@ from throttlecrab_tpu.server import config as jax_config
 from throttlecrab_tpu.server.engine import BatchingEngine as JaxEngine
 from throttlecrab_tpu.server.http import HttpTransport as JaxHttp
 from throttlecrab_tpu.server.metrics import Metrics as JaxMetrics
+from throttlecrab_tpu.server import store as jax_store
 from throttlecrab_tpu.tpu.limiter import TpuRateLimiter
 from throttlecrab_tpu_torch.server import config as port_config
 from throttlecrab_tpu_torch.server.engine import BatchingEngine
 from throttlecrab_tpu_torch.server.http import HttpTransport
 from throttlecrab_tpu_torch.server.metrics import Metrics
+from throttlecrab_tpu_torch.server import store as port_store
 from throttlecrab_tpu_torch.tpu.limiter import TorchRateLimiter
 
 NS = 1_000_000_000
@@ -49,9 +52,9 @@ class VirtualClock:
         return self.now
 
 
-# Gauges of JAX modules the port has not ported yet (insight, control
-# plane, persist).
-_UNPORTED = re.compile(r"throttlecrab_tpu_(insight|control|checkpoint)_?")
+# Gauges of the JAX module the port has not ported yet (the control
+# plane).
+_UNPORTED = re.compile(r"throttlecrab_tpu_control_")
 
 
 def _render(metrics):
@@ -64,19 +67,33 @@ def _render(metrics):
     ]
 
 
-def _servers(clock, **kw):
+def _servers(clock, insight=False, **kw):
+    """Both servers over a 1024-key limiter.  With `insight`, each
+    limiter stores the insight rows and each engine polls an insight tier
+    built as its __main__ builds it at the default config (the default
+    server's shape)."""
     # Each server's Metrics as its __main__ builds it at the default config.
     jax_metrics = JaxMetrics(
         max_denied_keys=jax_config.Config().max_denied_keys)
     port_metrics = Metrics(
         max_denied_keys=port_config.Config().max_denied_keys)
+    jax_lim = TpuRateLimiter(capacity=1024, insight=insight)
+    port_lim = TorchRateLimiter(capacity=1024, device="cpu", insight=insight)
+    tiers = [None, None]
+    if insight:
+        cfgs = (jax_config.Config(http=True), port_config.Config(http=True))
+        tiers = [
+            store.create_insight(cfg, m, lim, None)
+            for store, cfg, m, lim in (
+                (jax_store, cfgs[0], jax_metrics, jax_lim),
+                (port_store, cfgs[1], port_metrics, port_lim),
+            )
+        ]
     jax_engine = JaxEngine(
-        TpuRateLimiter(capacity=1024), now_fn=clock, metrics=jax_metrics,
-        **kw,
+        jax_lim, now_fn=clock, metrics=jax_metrics, insight=tiers[0], **kw,
     )
     port_engine = BatchingEngine(
-        TorchRateLimiter(capacity=1024, device="cpu"), now_fn=clock,
-        metrics=port_metrics, **kw,
+        port_lim, now_fn=clock, metrics=port_metrics, insight=tiers[1], **kw,
     )
     return (
         JaxHttp("127.0.0.1", 0, jax_engine, jax_metrics),
@@ -116,9 +133,13 @@ async def _route_both(servers, body, headers=None):
 
 
 def test_throttle_bodies_byte_identical():
+    """At the default config (insight on): the same bodies, the same
+    /metrics (control gauges aside) and the same GET /stats."""
     async def main():
         clock = VirtualClock()
-        servers = _servers(clock, batch_size=8, max_linger_us=500)
+        servers = _servers(clock, insight=True, batch_size=8,
+                           max_linger_us=500)
+        assert servers[1].engine.limiter.table.state.shape[-1] == 6
         rng = np.random.default_rng(0)
         for step in range(5):
             bodies = _bodies(rng, 20)
@@ -137,6 +158,10 @@ def test_throttle_bodies_byte_identical():
         assert rendered[0] == rendered[1]
         assert any(line.startswith("throttlecrab_top_denied_keys{")
                    for line in rendered[1])
+        assert "throttlecrab_tpu_insight_polls 0" not in rendered[1]
+        stats = [await s._route("GET", "/stats", b"") for s in servers]
+        assert stats[0] == stats[1]
+        assert json.loads(stats[1][1])["totals"]["denied"] > 0
 
     asyncio.run(main())
 
@@ -267,6 +292,12 @@ _FLAG_VALUES = {
     "supervisor_backoff_us": "11", "supervisor_backoff_max_us": "12",
     "supervisor_probe_interval_ms": "13", "supervisor_mode": "fail",
     "faults": "launch:count:2,fetch:transient:0.5", "faults_seed": "9",
+    "checkpoint_interval_ms": "250", "checkpoint_dir": "/data/ck",
+    "checkpoint_retain": "3", "checkpoint_mode": "full",
+    "insight_topk": "8", "insight_sketch": "99", "insight_window_s": "3",
+    "insight_poll_ms": "250", "insight_decay_s": "7",
+    "insight_prewarm": "5", "insight_hot_denies": "6",
+    "insight_shed_weight": "0.25",
 }
 _PORT_FLAGS = [
     (name, env, typ) for name, env, _, typ, _ in port_config._SPEC
@@ -283,6 +314,8 @@ def test_ported_flag_parses_as_in_jax(monkeypatch, name, env, typ):
     flag = "--" + name.replace("_", "-")
     assert name in {n for n, *_ in jax_config._SPEC}
     base = ["--http"] if name != "http" else ["--redis"]
+    if name == "checkpoint_interval_ms":
+        base += ["--checkpoint-dir", "/data/ck"]  # the interval needs one
     both = (jax_config.Config, port_config.Config)
     monkeypatch.delenv(env, raising=False)
     got = [getattr(c.from_env_and_args(base), name) for c in both]
@@ -305,12 +338,25 @@ def test_ported_flag_parses_as_in_jax(monkeypatch, name, env, typ):
     ["--supervisor-backoff-max-us", "-1"],
     ["--supervisor-probe-interval-ms", "0"], ["--faults", "nope:persistent"],
     ["--faults", "launch:transient:2"], ["--faults", "launch"],
+    ["--checkpoint-interval-ms", "100"],
+    ["--checkpoint-dir", "/x", "--checkpoint-interval-ms", "-1"],
+    ["--checkpoint-dir", "/x", "--checkpoint-retain", "0"],
+    ["--checkpoint-dir", "/x", "--checkpoint-mode", "weekly"],
+    ["--insight-topk", "0"], ["--insight-sketch", "0"],
+    ["--insight-window-s", "0"], ["--insight-poll-ms", "0"],
+    ["--insight-decay-s", "-1"], ["--insight-prewarm", "-1"],
+    ["--insight-hot-denies", "0"], ["--insight-shed-weight", "1.5"],
 ], ids=["denied-keys-high", "denied-keys-negative", "drain-negative",
         "deadline-negative", "no-transport", "deny-cache-negative",
         "max-pending-negative", "max-wait-negative", "peek-frac-zero",
         "peek-frac-high", "supervisor-mode", "retries-negative",
         "backoff-negative", "backoff-max-negative", "probe-interval-zero",
-        "faults-site", "faults-probability", "faults-shape"])
+        "faults-site", "faults-probability", "faults-shape",
+        "checkpoint-interval-no-dir", "checkpoint-interval-negative",
+        "checkpoint-retain-zero", "checkpoint-mode", "insight-topk-zero",
+        "insight-sketch-zero", "insight-window-zero", "insight-poll-zero",
+        "insight-decay-negative", "insight-prewarm-negative",
+        "insight-hot-denies-zero", "insight-shed-weight-high"])
 def test_invalid_flags_refused_as_in_jax(argv):
     for mod in (jax_config, port_config):
         with pytest.raises(mod.ConfigError):
@@ -361,3 +407,24 @@ def test_sigterm_drain_budget(budget, drained):
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr[-3000:]
     assert r.stdout.split()[-2:] == ["drained", str(drained)]
+
+
+@pytest.mark.parametrize("insight", [True, False], ids=["default", "off"])
+def test_default_limiter_row_width_as_in_jax(monkeypatch, insight):
+    """At the default flags both servers store the 6-wide insight rows and
+    build an insight tier; THROTTLECRAB_INSIGHT=0 gives 4-wide rows and
+    no tier, in both."""
+    if not insight:
+        monkeypatch.setenv("THROTTLECRAB_INSIGHT", "0")
+    argv = ["--http", "--store-capacity", "1024"]
+    jax_cfg = jax_config.Config.from_env_and_args(argv)
+    port_cfg = port_config.Config.from_env_and_args(
+        argv + ["--device", "cpu", "--keymap", "python"])
+    jax_lim = jax_store.create_limiter(jax_cfg)
+    port_lim = port_store.create_limiter(port_cfg)
+    width = 6 if insight else 4
+    assert np.asarray(jax_lim.table.state).shape[-1] == width
+    assert port_lim.table.state.shape[-1] == width
+    tiers = [jax_store.create_insight(jax_cfg, None, jax_lim, None),
+             port_store.create_insight(port_cfg, None, port_lim, None)]
+    assert [t is not None for t in tiers] == [insight, insight]

@@ -42,8 +42,9 @@ class FrontTier:
         self.admission = admission
         self.metrics = metrics
         self.bytes_keys = bytes_keys
-        # Insight tier (L3.75): the JAX package reports cache-served
-        # denials there.  Not ported yet; the hook comes back with it.
+        # Insight tier (L3.75), when attached: cache-served denials are
+        # reported there so /stats totals cover every served denial,
+        # not just device-decided ones.
         self.insight = None
 
     # ------------------------------------------------------------------ #
@@ -78,8 +79,11 @@ class FrontTier:
             k, max_burst, count_per_period, period, quantity, now_ns
         )
         self._flush_stale(stale_before)
-        if hit is not None and self.metrics is not None:
-            self.metrics.record_front_hit()
+        if hit is not None:
+            if self.metrics is not None:
+                self.metrics.record_front_hit()
+            if self.insight is not None:
+                self.insight.record_front_denied((k,))
         return hit
 
     def admit(self, depth: int, peek: bool) -> bool:
@@ -130,8 +134,13 @@ class FrontTier:
             mark_inflight=mark_inflight,
         )
         self._flush_stale(stale_before)
-        if n_hits and self.metrics is not None:
-            self.metrics.record_front_hits(n_hits)
+        if n_hits:
+            if self.metrics is not None:
+                self.metrics.record_front_hits(n_hits)
+            if self.insight is not None:
+                self.insight.record_front_denied(
+                    k for k, r in zip(keys, rows) if r is not None
+                )
         return rows, n_hits
 
     def observe_window(self, rows, now_ns, seq) -> None:

@@ -1,8 +1,9 @@
 """Bounded heavy-hitter counting: a space-saving sketch.
 
-The port's copy of `throttlecrab_tpu/insight/sketch.py`.  Its consumer
-here is the metrics leaderboard (`server/metrics.py`
-`throttlecrab_top_denied_keys`).  The reference's metrics.rs
+The port's copy of `throttlecrab_tpu/insight/sketch.py`.  Its consumers
+are the metrics leaderboard (`server/metrics.py`
+`throttlecrab_top_denied_keys`) and the insight tier's hot-key tracking
+(`insight/`).  The reference's metrics.rs
 tracker is an unbounded dict with amortized grow-then-prune; that shape
 is kept (grow to 3x capacity, then compact to capacity) but the
 compaction now records the largest dropped count as a *floor*, turning
@@ -21,7 +22,7 @@ tracker, which is the regime the 10k-key metrics leaderboard runs in.
 Memory is bounded at 3x capacity entries; ``record`` is amortized O(1)
 (one dict probe, with an O(n log n) compaction every >= 2x capacity
 insertions).  Not thread-safe — callers hold their own lock (the
-metrics object does).
+metrics object and the insight tier both already do).
 """
 
 from __future__ import annotations

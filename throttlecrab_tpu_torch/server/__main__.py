@@ -2,15 +2,17 @@
 
 Lifecycle as the reference's `main.rs:49-184`: parse config -> logging ->
 metrics -> fault injection when `--faults` is set -> limiter on the
-device, wrapped in the launch supervisor -> front tier (deny cache +
-admission control) -> restore from `--snapshot-path` when the file exists
--> micro-batching engine -> transports (HTTP, gRPC and/or Redis/RESP,
+device (6-wide insight rows by default), wrapped in the launch supervisor
+-> checkpointer when `--checkpoint-dir` is set -> front tier (deny cache
++ admission control) -> boot restore (the newest verifiable checkpoint
+chain, else `--snapshot-path` when the file exists) -> insight tier ->
+micro-batching engine -> transports (HTTP, gRPC and/or Redis/RESP,
 HTTP and RESP each on asyncio or the native C++ wire server) -> wait for
 SIGINT/SIGTERM or a transport failure -> shutdown.  SIGTERM
 drains first (de-route, flush queued requests with real decisions,
 bounded by `--drain-timeout-ms`; 0 skips the drain); SIGINT flushes and
-stops.  With `--snapshot-path` the table is saved after the transports
-stop.
+stops.  After the transports stop, the checkpointer writes a final
+generation and, with `--snapshot-path`, the table is saved.
 """
 
 from __future__ import annotations
@@ -23,12 +25,14 @@ import sys
 import time
 
 from ..faults import FaultInjector, arm, parse_spec
+from ..persist import Checkpointer, recover_into
 from .config import Config, ConfigError
 from .engine import BatchingEngine
 from .metrics import Metrics
 from .store import (
     create_cleanup_policy,
     create_front_tier,
+    create_insight,
     create_limiter,
     create_supervised_limiter,
 )
@@ -57,6 +61,8 @@ def build_transports(config: Config, engine, metrics):
         limiter_lock=engine.limiter_lock,
         now_fn=engine.now_fn,
         front=engine.front,
+        insight=engine.insight,
+        checkpointer=engine.checkpointer,
     )
     transports = []
     if config.http:
@@ -151,6 +157,44 @@ def restore_snapshot_on_boot(limiter, config: Config, front=None) -> int:
     return 0
 
 
+def restore_on_boot(limiter, config: Config, checkpointer,
+                    front=None) -> int:
+    """Boot restore precedence: the checkpoint chain first, the snapshot
+    second.  Checkpoint recovery never refuses boot (torn or corrupt
+    generations narrow what is restored: persist/recovery.py); only when
+    no usable chain exists does boot fall through to `--snapshot-path`,
+    which keeps its THROTTLECRAB_SNAPSHOT_STRICT policy."""
+    if checkpointer is not None:
+        try:
+            res = recover_into(
+                limiter, checkpointer.directory, time.time_ns(), front=front
+            )
+        except Exception:
+            # Not corruption (e.g. capacity): the snapshot path's soft
+            # policy — sweep to a real cold start and fall through.
+            log.exception(
+                "checkpoint recovery failed; falling back to snapshot "
+                "restore (%s)", checkpointer.directory,
+            )
+            try:
+                limiter.sweep(1 << 62)
+            except Exception:
+                log.exception("post-recovery-failure sweep failed")
+            res = None
+        if res is not None:
+            checkpointer.note_recovery(
+                res.restored, res.corrupt_skipped, res.chains
+            )
+            log.info(
+                "recovered %d keys from checkpoint chain gen=%d "
+                "(%d corrupt generation(s) skipped, manifest=%s)",
+                res.restored, res.generation, res.corrupt_skipped,
+                "used" if res.used_manifest else "rebuilt",
+            )
+            return res.restored
+    return restore_snapshot_on_boot(limiter, config, front)
+
+
 async def save_snapshot_on_shutdown(config: Config, engine) -> None:
     """Save the table to `--snapshot-path`: the device export runs under
     `engine.limiter_lock` (native driver threads share it), the .npz
@@ -186,10 +230,27 @@ async def run_server(config: Config) -> None:
     # Every transport drives the same supervised limiter, so retry /
     # degrade / re-promote decisions are made once, under the shared
     # limiter lock.
-    supervisor = create_supervised_limiter(
-        config, create_limiter(config), metrics
-    )
+    device_limiter = create_limiter(config)
+    supervisor = create_supervised_limiter(config, device_limiter, metrics)
     metrics.set_engine_state_provider(lambda: supervisor.state)
+    checkpointer = None
+    if config.checkpoint_dir:
+        # Crash durability: background generation-chain checkpoints plus
+        # boot-time recovery.  With interval 0 it is recovery and the
+        # shutdown flush only (no ticks, no dirty tracking).
+        checkpointer = Checkpointer(
+            supervisor,
+            config.checkpoint_dir,
+            interval_ns=config.checkpoint_interval_ms * 1_000_000,
+            retain=config.checkpoint_retain,
+            mode=config.checkpoint_mode,
+        )
+        metrics.set_checkpoint_stats_provider(checkpointer.metric_stats)
+        log.info(
+            "checkpointing armed: dir=%s interval=%dms retain=%d mode=%s",
+            config.checkpoint_dir, config.checkpoint_interval_ms,
+            config.checkpoint_retain, config.checkpoint_mode,
+        )
     # The front tier is shared by the engine and the native transports;
     # a re-promotion rewrites bucket state, so the supervisor invalidates
     # the deny cache through it.
@@ -199,8 +260,12 @@ async def run_server(config: Config) -> None:
     # The restore is a device bulk insert: executor, not the event loop,
     # and done before any transport starts.
     await loop.run_in_executor(
-        None, restore_snapshot_on_boot, supervisor, config, front
+        None, restore_on_boot, supervisor, config, checkpointer, front
     )
+    # The insight tier watches the device limiter; the supervisor feeds
+    # it from the host oracle while degraded so /stats stays truthful.
+    insight = create_insight(config, metrics, device_limiter, front)
+    supervisor.insight = insight
     engine = BatchingEngine(
         supervisor,
         batch_size=config.batch_size,
@@ -210,6 +275,8 @@ async def run_server(config: Config) -> None:
         metrics=metrics,
         front=front,
         deadline_default_ms=config.deadline_default_ms,
+        insight=insight,
+        checkpointer=checkpointer,
     )
     transports = build_transports(config, engine, metrics)
     for transport in transports:
@@ -267,6 +334,11 @@ async def run_server(config: Config) -> None:
     await engine.shutdown()
     for transport in transports:
         await transport.stop()
+    if checkpointer is not None:
+        # Final generation: the transports are stopped, so the export
+        # races nothing.  Best-effort; a failed flush leaves the last
+        # durable chain intact.
+        await loop.run_in_executor(None, checkpointer.stop)
     if config.snapshot_path:
         await save_snapshot_on_shutdown(config, engine)
     for task in serve_tasks:

@@ -7,7 +7,8 @@ the native C++ wire server), the store (which picks the cleanup policy)
 and its cleanup knobs, the reference's buffer size (accepted, unused) and
 top-denied leaderboard size, the micro-batching knobs, the keymap
 backend, the front tier (deny cache and admission control), the boot/
-shutdown snapshot, the launch supervisor and fault injection, the SIGTERM
+shutdown snapshot, crash-durability checkpoints, the insight tier, the
+launch supervisor and fault injection, the SIGTERM
 drain budget and the default request deadline, and `--device` /
 THROTTLECRAB_DEVICE (default `cuda`; `cpu` runs the plain version).
 """
@@ -90,6 +91,27 @@ _SPEC = [
      "Refuse to start when the boot snapshot is corrupt/truncated "
      "(env 0 disables: log the corruption and start with an empty "
      "table instead)"),
+    # --- crash durability (persist/) ------------------------------------
+    ("checkpoint_interval_ms", "THROTTLECRAB_CHECKPOINT_INTERVAL_MS",
+     0, int,
+     "Milliseconds between background checkpoint generations (0 — the "
+     "default — disables checkpointing entirely; needs "
+     "--checkpoint-dir)"),
+    ("checkpoint_dir", "THROTTLECRAB_CHECKPOINT_DIR", "", str,
+     "Directory for generation-numbered, CRC-checksummed checkpoint "
+     "chains (full base + incremental deltas).  At boot the newest "
+     "verifiable chain is restored, falling back generation-by-"
+     "generation past torn/corrupt files — never refusing to start "
+     "(contrast THROTTLECRAB_SNAPSHOT_STRICT, which keeps its meaning "
+     "for an explicitly-named boot snapshot)"),
+    ("checkpoint_retain", "THROTTLECRAB_CHECKPOINT_RETAIN", 2, int,
+     "Generation chains kept on disk (a new full base starts a chain "
+     "and prunes the oldest beyond this bound; >= 1)"),
+    ("checkpoint_mode", "THROTTLECRAB_CHECKPOINT_MODE", "incremental",
+     str,
+     "incremental (full base then deltas of slots dirtied since the "
+     "previous generation, re-based periodically) or full (every "
+     "generation is a complete base)"),
     # --- failure-domain supervision (server/supervisor.py, faults/) ----
     ("supervisor_retries", "THROTTLECRAB_SUPERVISOR_RETRIES", 3, int,
      "Max retries of a transient (UNAVAILABLE-shaped) device "
@@ -126,6 +148,33 @@ _SPEC = [
      "still queued past their deadline are shed before device dispatch "
      "with the timeout status (HTTP 504 / gRPC DEADLINE_EXCEEDED / "
      "RESP -ERR)"),
+    # --- insight tier (L3.75: device-resident traffic analytics) --------
+    ("insight", "THROTTLECRAB_INSIGHT", True, bool,
+     "Insight tier: device-resident traffic analytics riding every "
+     "decision launch, GET /stats, and the deny-cache/admission "
+     "feedback loop (env 0 disables; the decision path is then "
+     "bit-identical to the subsystem absent)"),
+    ("insight_topk", "THROTTLECRAB_INSIGHT_TOPK", 64, int,
+     "Device-side top-K size over the denied-hit column"),
+    ("insight_sketch", "THROTTLECRAB_INSIGHT_SKETCH", 4096, int,
+     "Host space-saving sketch capacity (hot-key tracking, keyed by "
+     "real key bytes)"),
+    ("insight_window_s", "THROTTLECRAB_INSIGHT_WINDOW_S", 10, int,
+     "Sliding window for the /stats allowed/denied rates (seconds)"),
+    ("insight_poll_ms", "THROTTLECRAB_INSIGHT_POLL_MS", 1000, int,
+     "Cadence of the throttled device insight poll (accumulator fetch "
+     "+ top-K; milliseconds)"),
+    ("insight_decay_s", "THROTTLECRAB_INSIGHT_DECAY_S", 60, int,
+     "Halving cadence of the device denied-hit column so the top-K "
+     "tracks the current hot set (seconds; 0 never decays)"),
+    ("insight_prewarm", "THROTTLECRAB_INSIGHT_PREWARM", 64, int,
+     "Max confirmed hot-denied keys refreshed into the deny cache's "
+     "eviction queue per poll (0 disables the prewarm feedback)"),
+    ("insight_hot_denies", "THROTTLECRAB_INSIGHT_HOT_DENIES", 100, int,
+     "Sketch count at which a denied key counts as confirmed-hot"),
+    ("insight_shed_weight", "THROTTLECRAB_INSIGHT_SHED_WEIGHT", 0.0, float,
+     "Scale admission-control peek shedding by hot-set concentration "
+     "(0 disables; 1 = full tightening under pure abuse traffic)"),
     ("device", "THROTTLECRAB_DEVICE", "cuda", str,
      "Torch device of the bucket table: cuda (the CUDA kernel) or cpu "
      "(the plain version)"),
@@ -165,6 +214,10 @@ class Config:
     front_peek_frac: float = 0.9
     snapshot_path: str = ""
     snapshot_strict: bool = True
+    checkpoint_interval_ms: int = 0
+    checkpoint_dir: str = ""
+    checkpoint_retain: int = 2
+    checkpoint_mode: str = "incremental"
     supervisor_retries: int = 3
     supervisor_backoff_us: int = 2000
     supervisor_backoff_max_us: int = 50_000
@@ -174,6 +227,15 @@ class Config:
     faults_seed: int = 0
     drain_timeout_ms: int = 10_000
     deadline_default_ms: int = 0
+    insight: bool = True
+    insight_topk: int = 64
+    insight_sketch: int = 4096
+    insight_window_s: int = 10
+    insight_poll_ms: int = 1000
+    insight_decay_s: int = 60
+    insight_prewarm: int = 64
+    insight_hot_denies: int = 100
+    insight_shed_weight: float = 0.0
     device: str = "cuda"
 
     @classmethod
@@ -223,6 +285,19 @@ class Config:
             raise ConfigError("front admission bounds must be >= 0")
         if not 0.0 < self.front_peek_frac <= 1.0:
             raise ConfigError("front_peek_frac must be in (0, 1]")
+        if self.checkpoint_interval_ms < 0:
+            raise ConfigError("checkpoint_interval_ms must be >= 0")
+        if self.checkpoint_interval_ms > 0 and not self.checkpoint_dir:
+            raise ConfigError(
+                "checkpoint_interval_ms needs --checkpoint-dir"
+            )
+        if self.checkpoint_retain < 1:
+            raise ConfigError("checkpoint_retain must be >= 1")
+        if self.checkpoint_mode not in ("incremental", "full"):
+            raise ConfigError(
+                f"Invalid checkpoint mode: {self.checkpoint_mode!r} "
+                "(expected incremental or full)"
+            )
         if self.supervisor_mode not in ("degrade", "fail"):
             raise ConfigError(
                 f"Invalid supervisor mode: {self.supervisor_mode!r} "
@@ -234,6 +309,21 @@ class Config:
             raise ConfigError("supervisor backoffs must be >= 0")
         if self.supervisor_probe_interval_ms <= 0:
             raise ConfigError("supervisor_probe_interval_ms must be > 0")
+        if self.insight_topk <= 0 or self.insight_sketch <= 0:
+            raise ConfigError("insight_topk/insight_sketch must be > 0")
+        if self.insight_window_s <= 0 or self.insight_poll_ms <= 0:
+            raise ConfigError(
+                "insight_window_s/insight_poll_ms must be > 0"
+            )
+        if self.insight_decay_s < 0:
+            raise ConfigError("insight_decay_s must be >= 0")
+        if self.insight_prewarm < 0 or self.insight_hot_denies < 1:
+            raise ConfigError(
+                "insight_prewarm must be >= 0 and "
+                "insight_hot_denies >= 1"
+            )
+        if not 0.0 <= self.insight_shed_weight <= 1.0:
+            raise ConfigError("insight_shed_weight must be in [0, 1]")
         if self.faults:
             try:
                 parse_spec(self.faults)

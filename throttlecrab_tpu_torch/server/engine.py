@@ -14,8 +14,10 @@ loop keeps accepting requests while the device works; with
 `dispatch_many` the flush double-buffers: window N+1 is dispatched
 before window N's results are fetched.
 
-Cleanup runs between windows: the engine consults a `CleanupPolicy`
-(tpu/cleanup.py) and triggers the expiry sweep on the device.
+Housekeeping runs between windows: the insight tier's throttled poll
+(insight/), the checkpointer's throttled tick (persist/; decided keys are
+marked dirty first), and cleanup, where the engine consults a
+`CleanupPolicy` (tpu/cleanup.py) and triggers the expiry sweep.
 
 With a front tier (front/) a request first consults the exact deny cache
 (a provable repeat denial answers without a launch), then admission
@@ -84,6 +86,8 @@ class BatchingEngine:
         max_scan_depth: int = 16,
         front=None,
         deadline_default_ms: int = 0,
+        insight=None,
+        checkpointer=None,
     ) -> None:
         """`limiter` is a TorchRateLimiter, or its SupervisedLimiter (or
         any object with rate_limit_batch + sweep).  `now_fn` injects time
@@ -92,11 +96,18 @@ class BatchingEngine:
         optional front.FrontTier: requests pass its deny cache and
         admission control before they reach the pending queue.
         `deadline_default_ms` > 0 stamps a deadline on requests that
-        carry none."""
+        carry none.  `insight` is an optional insight.InsightTier: the
+        engine drives its throttled device poll between flushes (on the
+        executor, under the limiter lock) and serves its document on GET
+        /stats.  `checkpointer` is an optional persist.Checkpointer:
+        decided windows mark their keys dirty and the same housekeeping
+        step drives its throttled tick."""
         import inspect
 
         self.limiter = limiter
         self.front = front
+        self.insight = insight
+        self.checkpointer = checkpointer
         # Serializes device access across worker threads.
         self.limiter_lock = threading.Lock()
         # A deny cache certifies entries from the exact observed TAT
@@ -331,6 +342,10 @@ class BatchingEngine:
             self._complete(window, result)
             if observe:
                 self._observe_window(window, result, now_ns, seq)
+        if self.checkpointer is not None:
+            # Every decided key is dirty for the next checkpoint delta
+            # (a host-side set insert; the device loop is untouched).
+            self.checkpointer.note_keys(r.key for w in windows for r, _ in w)
         if front is not None:
             front.record_launch(total, elapsed)
         if self.metrics is not None:
@@ -474,6 +489,23 @@ class BatchingEngine:
     # ------------------------------------------------------------------ #
 
     async def _maybe_sweep(self, now_ns: int, n_ops: int) -> None:
+        loop = asyncio.get_running_loop()
+        insight = self.insight
+        if insight is not None and insight.poll_due(now_ns):
+            # Throttled insight poll (~1/s): the totals fetch and the
+            # top-K wait for the card, so it runs on the executor, under
+            # the lock that serializes device access.
+            await loop.run_in_executor(
+                None, insight.maybe_poll, now_ns, self.limiter_lock
+            )
+        checkpointer = self.checkpointer
+        if checkpointer is not None and checkpointer.tick_due(now_ns):
+            # Throttled checkpoint write: the device export runs under
+            # the limiter lock, encode + CRC + fsync outside it, all off
+            # the event loop.
+            await loop.run_in_executor(
+                None, checkpointer.maybe_tick, now_ns, self.limiter_lock
+            )
         policy = self.cleanup_policy
         if policy is None:
             return
@@ -497,7 +529,6 @@ class BatchingEngine:
             self.metrics.record_expired_hits(n_hits)
         if not should:
             return
-        loop = asyncio.get_running_loop()
 
         def locked_policy_step():
             drained = 0

@@ -3,11 +3,13 @@
 Same wire surface as the reference's router (`http.rs:103-163`) and as
 `throttlecrab_tpu/server/http.py`: `POST /throttle` with `{key, max_burst,
 count_per_period, period, quantity?}` (quantity defaults to 1), `GET
-/health` returning "OK" (or the serving state's name), and `GET /metrics`
-returning Prometheus text.  Timestamps are always server-side.  Errors
-return `{"error": ...}` with 400 (malformed request), 500 (validation),
-503 (draining, or shed by the front tier's admission control) or 504
-(client deadline lapsed in the queue).
+/health` returning "OK" (or the serving state's name; with checkpoints
+armed, followed by " checkpoint_age_s=..."), `GET /metrics` returning
+Prometheus text, and `GET /stats` returning the insight tier's JSON.
+Timestamps are always server-side.  Errors return `{"error": ...}` with
+400 (malformed request), 500 (validation), 503 (draining, or shed by the
+front tier's admission control) or 504 (client deadline lapsed in the
+queue).
 
 A deliberately minimal HTTP/1.1 server (keep-alive, Content-Length
 bodies) on asyncio streams.
@@ -38,7 +40,7 @@ _REASONS = {
 
 
 class HttpTransport(ConnTrackingMixin):
-    """`POST /throttle` + `GET /health` + `GET /metrics`."""
+    """`POST /throttle` + `GET /health` + `GET /metrics` + `GET /stats`."""
 
     name = "http"
 
@@ -148,13 +150,30 @@ class HttpTransport(ConnTrackingMixin):
             # "recovering") or the engine's ("draining", "shutdown").
             # Always 200: a degraded node still answers, from the host.
             state = self.engine.health_state()
-            return 200, b"OK" if state == "ok" else state.encode(), "text/plain"
+            body = b"OK" if state == "ok" else state.encode()
+            ck = getattr(self.engine, "checkpointer", None)
+            if ck is not None:
+                # The last checkpoint's age rides /health only when
+                # durability is armed (the bare "OK" is a wire contract).
+                body += b" " + ck.health_suffix().encode()
+            return 200, body, "text/plain"
         if method == "GET" and path == "/metrics":
             return (
                 200,
                 self.metrics.export_prometheus().encode(),
                 "text/plain; version=0.0.4",
             )
+        if method == "GET" and path == "/stats":
+            # The insight tier's JSON; with the tier off the shape still
+            # answers (enabled: false) so pollers need no probe logic.
+            insight = getattr(self.engine, "insight", None)
+            if insight is None:
+                payload = json.dumps({"insight": {"enabled": False}})
+            else:
+                payload = insight.stats_json(
+                    state=self.engine.health_state()
+                )
+            return 200, payload.encode(), "application/json"
         return 404, b"Not Found", "text/plain"
 
     @staticmethod

@@ -3,7 +3,8 @@
 The counters the engine and the transports touch, under the metric
 names of `throttlecrab_tpu/server/metrics.py` (the reference's names,
 `metrics.rs:233-310`, plus the `throttlecrab_tpu_*` launch/sweep,
-front-tier, supervisor and fault-injection extensions), so dashboards
+front-tier, supervisor, fault-injection, insight and checkpoint
+extensions), so dashboards
 read either server unchanged, and the reference's top-denied leaderboard
 `throttlecrab_top_denied_keys{key,rank}` (`metrics.rs:24-76`).
 Invariant: allowed + denied + errors == total.
@@ -47,6 +48,20 @@ METRIC_NAMES = (
     "throttlecrab_tpu_drain_shed_total",
     "throttlecrab_tpu_deadline_shed_total",
     "throttlecrab_tpu_faults_injected_total",
+    # Insight tier (insight/).
+    "throttlecrab_tpu_insight_allowed_rate",
+    "throttlecrab_tpu_insight_denied_rate",
+    "throttlecrab_tpu_insight_hot_concentration",
+    "throttlecrab_tpu_insight_tracked_keys",
+    "throttlecrab_tpu_insight_prewarmed_total",
+    "throttlecrab_tpu_insight_polls",
+    # Crash durability (persist/): checkpoint chain + boot recovery.
+    "throttlecrab_tpu_checkpoint_generation",
+    "throttlecrab_tpu_checkpoint_age_seconds",
+    "throttlecrab_tpu_checkpoint_duration_seconds",
+    "throttlecrab_tpu_checkpoint_bytes",
+    "throttlecrab_tpu_checkpoint_corrupt_skipped_total",
+    "throttlecrab_tpu_checkpoint_recoveries_total",
 )
 
 
@@ -111,6 +126,8 @@ class Metrics:
         self._engine_state = None
         self.drain_shed = 0
         self.deadline_shed = 0
+        self._insight_stats = None
+        self._checkpoint_stats = None
 
     @classmethod
     def builder(cls) -> "MetricsBuilder":
@@ -229,6 +246,16 @@ class Metrics:
     def set_front_stats_provider(self, provider) -> None:
         """`provider()` -> {"deny_cache_size": n} (FrontTier.stats)."""
         self._front_stats = provider
+
+    def set_insight_stats_provider(self, provider) -> None:
+        """`provider()` -> InsightTier.metric_stats(); exported as the
+        throttlecrab_tpu_insight_* gauges (zeros when absent)."""
+        self._insight_stats = provider
+
+    def set_checkpoint_stats_provider(self, provider) -> None:
+        """`provider()` -> Checkpointer.metric_stats(); exported as the
+        throttlecrab_tpu_checkpoint_* gauges (-1 / 0 when disarmed)."""
+        self._checkpoint_stats = provider
 
     def record_drain_shed(self, n: int = 1) -> None:
         with self._lock:
@@ -350,6 +377,48 @@ class Metrics:
                        f'{{site="{escape_label_value(site)}"}} {fired}')
         if not fault_stats:
             out.append("throttlecrab_tpu_faults_injected_total 0")
+        ins = self._insight_stats() if self._insight_stats else {}
+        metric("throttlecrab_tpu_insight_allowed_rate",
+               "Allowed decisions/s over the insight window", "gauge",
+               ins.get("allowed_rate", 0))
+        metric("throttlecrab_tpu_insight_denied_rate",
+               "Denied decisions/s over the insight window", "gauge",
+               ins.get("denied_rate", 0))
+        metric("throttlecrab_tpu_insight_hot_concentration",
+               "Share of recent denials landing on the device top-K "
+               "hot set", "gauge", ins.get("hot_concentration", 0))
+        metric("throttlecrab_tpu_insight_tracked_keys",
+               "Keys tracked by the space-saving hot-key sketch", "gauge",
+               ins.get("tracked_keys", 0))
+        metric("throttlecrab_tpu_insight_prewarmed_total",
+               "Hot-denied keys refreshed into the deny cache by the "
+               "insight feedback loop", "counter",
+               ins.get("prewarmed_total", 0))
+        metric("throttlecrab_tpu_insight_polls",
+               "Device insight polls (accumulator fetch + top-K launch)",
+               "counter", ins.get("polls", 0))
+        ck = self._checkpoint_stats() if self._checkpoint_stats else {}
+        metric("throttlecrab_tpu_checkpoint_generation",
+               "Newest durable checkpoint generation (-1: none yet)",
+               "gauge", ck.get("generation", -1))
+        metric("throttlecrab_tpu_checkpoint_age_seconds",
+               "Seconds since the last durable checkpoint "
+               "(-1: none yet / disarmed)", "gauge",
+               ck.get("age_seconds", -1))
+        metric("throttlecrab_tpu_checkpoint_duration_seconds",
+               "Wall time of the last checkpoint write "
+               "(encode + CRC + fsync, outside the limiter lock)", "gauge",
+               ck.get("duration_seconds", 0))
+        metric("throttlecrab_tpu_checkpoint_bytes",
+               "Size of the last checkpoint generation on disk", "gauge",
+               ck.get("bytes", 0))
+        metric("throttlecrab_tpu_checkpoint_corrupt_skipped_total",
+               "Torn/corrupt generations dropped by boot recovery's "
+               "generation-by-generation fallback", "counter",
+               ck.get("corrupt_skipped_total", 0))
+        metric("throttlecrab_tpu_checkpoint_recoveries_total",
+               "Boot-time recoveries that restored a checkpoint chain",
+               "counter", ck.get("recoveries_total", 0))
         return "\n".join(out) + "\n"
 
 

@@ -24,6 +24,10 @@ device decides; their results feed the cache back.  A supervised limiter
 degraded, and the exact path below then decides on the wrapper, which
 routes it to the host oracle.
 
+After each window the driver runs the insight tier's throttled poll and
+the checkpointer's throttled tick (insight/, persist/; shared with the
+asyncio engine), as the engine's housekeeping step does.
+
 Shared state: pass the same limiter (and `limiter_lock`) used by the
 asyncio engine so limits hold across every transport; the lock serializes
 device access between the engine's executor thread and this driver.
@@ -99,6 +103,8 @@ class NativeRedisTransport:
         now_fn=None,
         max_scan_depth: int = 16,
         front=None,
+        insight=None,
+        checkpointer=None,
     ) -> None:
         lib = get_wire_lib()
         if lib is None:
@@ -111,6 +117,11 @@ class NativeRedisTransport:
         # The front tier, shared with the asyncio engine, so a denial
         # cached on one transport serves (and is invalidated by) all.
         self.front = front
+        # The insight tier and the checkpointer, shared with the asyncio
+        # engine: this driver thread drives the throttled poll and tick
+        # after each window and pushes the /stats snapshot.
+        self.insight = insight
+        self.checkpointer = checkpointer
         # Ask for the observed-TAT plane (the cur tier) only when a deny
         # cache is attached (see engine.py).
         def cur_kw(method_name):
@@ -639,6 +650,20 @@ class NativeRedisTransport:
             # A merged plan is never None: a window answered wholly from
             # the deny cache still counts its requests (launches=0).
             any_launch = any_launch or res is not None
+        if self.insight is not None:
+            # Throttled (~1/s) insight poll; this driver thread may block
+            # on the card, as its decide launches do.
+            self.insight.maybe_poll(now_ns, self.limiter_lock)
+        if self.checkpointer is not None:
+            if frames:
+                # Launched rows mark dirty for the next delta (the
+                # delta matches keys on their canonical bytes).
+                self.checkpointer.note_keys(
+                    k for b, o, _p in frames for k in self._keys_of(b, o)
+                )
+            # Throttled checkpoint write: device export under
+            # limiter_lock, encode + fsync outside it.
+            self.checkpointer.maybe_tick(now_ns, self.limiter_lock)
         if self.metrics is not None and (any_launch or tot_errors):
             self.metrics.record_batch(
                 self.name,
@@ -698,9 +723,10 @@ class NativeRedisTransport:
         )
 
     def _push_metrics(self) -> None:
-        """GET /metrics and GET /health are served from these snapshots
-        (HTTP protocol; the wire layer answers both without a Python
-        round-trip — pushed once per second from the drive loop)."""
+        """GET /metrics, GET /health and GET /stats are served from these
+        snapshots (HTTP protocol; the wire layer answers all three
+        without a Python round-trip — pushed once per second from the
+        drive loop)."""
         if self.PROTOCOL != 1:
             return
         if self.metrics is not None:
@@ -711,7 +737,14 @@ class NativeRedisTransport:
         state = "draining" if self._draining else supervisor_state(
             self.limiter)
         body = b"OK" if state == "ok" else state.encode()
+        if self.checkpointer is not None:
+            # The last checkpoint's age rides /health only when
+            # durability is armed (the bare "OK" is a wire contract).
+            body += b" " + self.checkpointer.health_suffix().encode()
         self._lib.ws_set_health(self._h, body, len(body))
+        if self.insight is not None:
+            stats = self.insight.stats_json(state=state).encode()
+            self._lib.ws_set_stats(self._h, stats, len(stats))
 
     def _maybe_sweep(self, now_ns: int, n_ops: int) -> None:
         """Policy state is shared with the asyncio engine — all policy

@@ -1,9 +1,9 @@
 """Limiter/policy factory: config -> engine parts (reference: store.rs:57-87).
 
 The "store" choice selects the cleanup policy; the bucket table itself is
-always the device table of `TorchRateLimiter`.  The launch supervisor and
-the front tier wrap and front it as the JAX server's factories do
-(`throttlecrab_tpu/server/store.py`).
+always the device table of `TorchRateLimiter`.  The launch supervisor, the
+front tier and the insight tier wrap, front and watch it as the JAX
+server's factories do (`throttlecrab_tpu/server/store.py`).
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ import inspect
 import logging
 
 from ..front import AdmissionController, DenyCache, FrontTier
+from ..insight import InsightTier
 from ..tpu.cleanup import CleanupPolicy, make_policy
 from ..tpu.limiter import TorchRateLimiter, limiter_uses_bytes_keys
 from .supervisor import SupervisedLimiter
@@ -22,11 +23,14 @@ log = logging.getLogger("throttlecrab.store")
 
 def create_limiter(config) -> TorchRateLimiter:
     """The single-device limiter the engine will drive, on
-    `config.device` (raises when that device is absent)."""
+    `config.device` (raises when that device is absent).  With the
+    insight tier on (the default) its table stores the 6-wide rows and
+    every window accumulates the insight totals."""
     return TorchRateLimiter(
         capacity=config.store_capacity,
         keymap=config.keymap,
         device=config.device,
+        insight=config.insight,
     )
 
 
@@ -98,6 +102,45 @@ def create_front_tier(config, metrics, limiter):
     if metrics is not None:
         metrics.set_front_stats_provider(front.stats)
     return front
+
+
+def create_insight(config, metrics, limiter, front):
+    """The insight tier (device-resident traffic analytics + the
+    deny-cache/admission feedback loop) from the THROTTLECRAB_INSIGHT_*
+    knobs, or None when disabled or the limiter cannot carry it: a
+    limiter whose table has no insight columns drops the tier loudly."""
+    if not config.insight:
+        return None
+    dev = getattr(limiter, "inner", limiter)
+    table = getattr(dev, "table", None)
+    if table is None or not getattr(table, "insight", False):
+        log.warning(
+            "insight tier requested (THROTTLECRAB_INSIGHT=1) but the "
+            "%s limiter's table does not carry the insight "
+            "accumulators; serving WITHOUT /stats analytics or the "
+            "admission/deny-cache feedback loop — set "
+            "THROTTLECRAB_INSIGHT=0 to silence",
+            type(dev).__name__,
+        )
+        return None
+    insight = InsightTier(
+        limiter=dev,
+        sketch_capacity=config.insight_sketch,
+        topk=config.insight_topk,
+        window_s=config.insight_window_s,
+        poll_ms=config.insight_poll_ms,
+        decay_s=config.insight_decay_s,
+        prewarm=config.insight_prewarm,
+        hot_denies=config.insight_hot_denies,
+        shed_weight=config.insight_shed_weight,
+        front=front,
+    )
+    if metrics is not None:
+        metrics.set_insight_stats_provider(insight.metric_stats)
+    # Pay the poll ops' first calls at boot, not inside the first
+    # serving flush under the limiter lock.
+    insight.prime()
+    return insight
 
 
 def create_cleanup_policy(config) -> CleanupPolicy:

@@ -166,13 +166,13 @@ class HostOracle:
     the degrade/re-promote boundary.
     """
 
-    def __init__(self, bytes_keys: bool = False) -> None:
+    def __init__(self, bytes_keys: bool = False, insight=None) -> None:
         from ..core.rate_limiter import RateLimiter
 
         self.bytes_keys = bytes_keys
-        #: Insight tier (L3.75): the JAX package feeds it the decided
-        #: rows.  Not ported yet; the hook comes back with it.
-        self.insight = None
+        #: Insight tier (L3.75): decided rows feed it so /stats totals
+        #: stay truthful while the device accumulators are frozen.
+        self.insight = insight
         self.store = _OracleStore()
         self._rl = RateLimiter(self.store)
         #: Keys whose buckets the host wrote (allowed decisions) — the
@@ -264,6 +264,15 @@ class HostOracle:
             if ok:
                 self.mutated.add(key)
 
+        if self.insight is not None:
+            # Degraded-mode accounting: the host path reports its OK rows
+            # so /stats stays truthful while the device is down.
+            ok_rows = np.flatnonzero(status == 0)
+            self.insight.record_host_rows(
+                [self._norm(keys[int(i)]) for i in ok_rows],
+                allowed[ok_rows].tolist(),
+            )
+
         if wire:
             # The wire truncation every transport emits (seconds,
             # i32-clamped) — identical to the cluster forwarder's
@@ -324,13 +333,13 @@ class SupervisedLimiter:
         mode: str = "degrade",
         metrics=None,
         front=None,
+        insight=None,
         sleep_fn=None,
     ) -> None:
         import inspect
         import time
 
-        #: Insight tier: not ported yet (see HostOracle.insight).
-        self.insight = None
+        self.insight = insight
         self.inner = inner
         self.retries = max(int(retries), 0)
         self.backoff_s = max(backoff_us, 0) / 1e6
@@ -521,7 +530,10 @@ class SupervisedLimiter:
             "device failure persists after %d retries; degrading to "
             "the host scalar oracle: %s", self.retries + 1, exc,
         )
-        oracle = HostOracle(bytes_keys=limiter_uses_bytes_keys(self.inner))
+        oracle = HostOracle(
+            bytes_keys=limiter_uses_bytes_keys(self.inner),
+            insight=self.insight,
+        )
         try:
             keys, _slots, _shard, tats, exps, _cap, _d = export_state(
                 self.inner

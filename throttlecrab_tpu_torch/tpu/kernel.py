@@ -586,6 +586,27 @@ def gcra_scan_packed_ins(
     return state, exp_acc + n_exp.sum(), ins_counts, out
 
 
+def insight_topk(state, *, capacity, k):
+    """Top-K of the denied-hit counter column of an insight-widened table:
+    (counts i64[k], slot ids i32[k]), highest first; rows past `capacity`
+    (the scratch tail) are excluded.  Equal counts keep the lower slot
+    first, as `jax.lax.top_k` orders them (`torch.topk` does not): a
+    stable descending sort of the column, then its first k."""
+    vals, idx = torch.sort(
+        unpack_deny(state[:capacity]), descending=True, stable=True
+    )
+    return vals[:k], idx[:k].to(torch.int32)
+
+
+def insight_decay(state):
+    """Halve the denied-hit counter columns in place (floor division, as
+    the host twin's `// 2`); tat/expiry columns are untouched.  Queued on
+    the current stream, so it follows any window still in flight there."""
+    halved = torch.div(unpack_deny(state), 2, rounding_mode="floor")
+    state[:, 4:] = _split_cols(halved)
+    return state
+
+
 # ---- the by-id launch path ------------------------------------------------ #
 # By-id request words (native/keymap.cpp tk_assemble_ids):
 #   low 32 bits: key id | high 32: rank(14) | is_last<<14 | valid<<15

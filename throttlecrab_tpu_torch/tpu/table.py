@@ -30,6 +30,8 @@ from .kernel import (
     byid_window,
     ids20_window,
     ids_window,
+    insight_decay,
+    insight_topk,
     pack_id_rows,
     pack_requests,
     pack_state,
@@ -192,6 +194,20 @@ class BucketTable:
             return (0, 0)
         counts = self.ins_counts.cpu().numpy()
         return int(counts[0]), int(counts[1])
+
+    def insight_topk(self, k: int):
+        """Top-K of the denied-hit counter column: (counts, slot ids)
+        device tensors, highest count first, ties by lower slot; the
+        fetch is the caller's.  None without the insight columns."""
+        if not self.insight:
+            return None
+        k = max(1, min(int(k), self.capacity))
+        return insight_topk(self.state, capacity=self.capacity, k=k)
+
+    def insight_decay(self) -> None:
+        """Halve the denied-hit counter columns (periodic heat decay)."""
+        if self.insight:
+            insight_decay(self.state)
 
     def load_numpy(
         self, state, exp_acc=0, ins_counts=None, tol_hwm=0, now_hwm=0,
