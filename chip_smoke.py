@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Thirteen phases, each printing its results; any failure raises and the
+Fourteen phases, each printing its results; any failure raises and the
 script exits nonzero without its last line:
 
 1. card: the card's name and power limit (nvidia-smi), and the builds of
@@ -50,7 +50,13 @@ script exits nonzero without its last line:
    --checkpoint-interval-ms 200`, exhausts a key, waits for two
    generations after it (/health carries the checkpoint age), is
    SIGKILLed and boots again on D: the key is still denied and /metrics
-   counts one recovery;
+   counts one recovery.  Each backend also boots with `--control
+   --control-tick-ms 100 --trace-dir D`: on asyncio, GET /control shows
+   the plane enabled, ticking, with the default front and insight tiers'
+   actuators, /metrics counts its ticks, and GET /trace/dump writes a
+   ring dump; the native backend adds `--trace-mode full` and SIGTERM
+   closes the trace; each file replays on cuda with ok through `python
+   -m throttlecrab_tpu_torch.replay replay`;
 5. row kernels vs plain: row_gather / row_scatter (tpu/row_ops.py)
    against index_select / index_copy_ at N = 2^21 + 2^16, B = 4096,
    W = 4 and 6, rows 0 and N-1 included.  Tolerance: exact equality;
@@ -126,7 +132,13 @@ script exits nonzero without its last line:
    launches (both read at the front tier's on_restore hook); then 2 on
    the card.  Every wire field of every window, and each key's
    tat/expiry from export_state (both lapsed, or equal), must equal an
-   uninterrupted, unsupervised device="cpu" run of the same traffic.
+   uninterrupted, unsupervised device="cpu" run of the same traffic.  A
+   ring-mode flight recorder is armed over the drill (each sub-batch
+   captured): the degrade records its event and writes its dump, which
+   holds the injections of launch:count:2 and fetch:count:1 in firing
+   order and replays on a host oracle seeded with the populated table
+   with 0 mismatches against its recorded outcomes; the recovery records
+   its event.
    Prints retries, the ms in each state, the degrade's export and seed
    ms, the oracle's decisions/s and the re-promotion's ms.  (b) Phase
    9's harness over a FrontTier with the default knobs (deny cache
@@ -163,7 +175,27 @@ script exits nonzero without its last line:
    equal, and the next window decides identically on all three.  Then a
    delta torn by `snapshot:truncate`: recovery falls back exactly one
    generation.  Prints per generation the export (under the lock),
-   encode, write and fsync ms and the bytes, and the recovery ms.
+   encode, write and fsync ms and the bytes, and the recovery ms;
+14. record, replay and control at full width: phase 9's 655,360 config-3
+   THROTTLEs (a fresh Zipf draw) through phase 9's in-process
+   NativeRedisTransport over TorchRateLimiter(capacity=2^20,
+   keymap="native", insight=True) on cuda, empty at the start, with the
+   default server's FrontTier and InsightTier, a full-mode
+   FlightRecorder and a ControlPlane (mode both, 100 ms ticks) armed.
+   The recorder must count 0 capture errors, the trace's rows must equal
+   the commands sent, every tick must take its snapshot, and every
+   actuation must lie in its bounds and step.  The trace is replayed
+   with differential_replay on a make_target("device", capacity=2^20)
+   on cuda: 0 mismatches against the oracle and the recording, one
+   window-kernel launch per window (counter zeroed just before), an
+   outcome vector equal to a device="cpu" replay's, and each key's
+   tat/expiry equal to the live limiter's (both lapsed, or equal).  The
+   offline policy search then ranks default_candidates() on the trace,
+   one candidate per worker process, after the replays were timed, so
+   nothing else runs beside them.  Prints replies/s with the
+   recorder and the plane armed beside phase 9's, the trace's bytes,
+   the ignored statuses, replay decisions/s on cuda, cpu and the oracle,
+   ticks, actuations, ms per tick and the top three policies.
 
 The line before the last is the {"kernels": [...]} record; the last line
 is {"ok": true, "device": {...}}.
@@ -171,7 +203,9 @@ is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import functools
 import json
+import multiprocessing
 import os
 import re
 import signal
@@ -182,6 +216,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+from concurrent.futures import ProcessPoolExecutor
 
 NS = 1_000_000_000
 T0 = 1_753_700_000 * NS
@@ -812,6 +847,87 @@ def check_checkpoint_restart(backend, ckdir):
         if proc.poll() is None:
             proc.kill()
             proc.wait()
+
+
+# The control plane's actuators over the default front and insight tiers.
+CONTROL_ACTUATORS = {"admission.hot_shed_weight", "admission.max_pending",
+                     "deny_cache.capacity", "insight.poll_ns",
+                     "insight.prewarm"}
+
+
+def replay_cli(path):
+    """`python -m throttlecrab_tpu_torch.replay replay PATH` on cuda: its
+    JSON summary, which must be ok (exit 0)."""
+    r = subprocess.run(
+        [sys.executable, "-m", "throttlecrab_tpu_torch.replay", "replay",
+         path], capture_output=True, text=True, timeout=300)
+    doc = json.loads(r.stdout.strip().splitlines()[-1]) if r.stdout else {}
+    if r.returncode != 0 or not doc.get("ok") or doc.get("device") != "cuda":
+        raise AssertionError(f"replay of {path} exited {r.returncode}: "
+                             f"{r.stdout}{r.stderr[-3000:]}")
+    return doc
+
+
+def check_control_trace(backend, trace_dir):
+    """Phase 4's record/replay and control boot on `backend`: `--control
+    --control-tick-ms 100 --trace-dir D` (and `--trace-mode full` on the
+    native backend, whose HTTP answers neither /control nor /trace/dump).
+    Asyncio: GET /control shows the plane ticking with the default
+    tiers' actuators, /metrics counts its ticks, and GET /trace/dump
+    writes a ring dump; native: SIGTERM closes the full-mode trace.
+    Either file must replay on cuda through the replay CLI."""
+    t_boot = time.perf_counter()
+    flags = ("--control", "--control-tick-ms", "100", "--trace-dir",
+             trace_dir)
+    if backend == "native":
+        flags += ("--trace-mode", "full")
+    proc, http_port, redis_port = boot_server(backend, flags)
+    try:
+        for i in range(4):
+            http(http_port, "POST", "/throttle", throttle_body("smoke:c", 3))
+            time.sleep(0.15)
+        with socket.create_connection(("127.0.0.1", redis_port), 30) as sock:
+            for _ in range(3):
+                sock.sendall(resp_frame("THROTTLE", "smoke:c", "3", "1",
+                                        "3600"))
+                resp_reply(sock)
+        if backend == "python":
+            doc = json.loads(http(http_port, "GET", "/control")[1])
+            ctl = doc["control"]
+            if (not ctl["enabled"] or ctl["ticks"] < 1
+                    or not CONTROL_ACTUATORS <= set(doc["actuators"])):
+                raise AssertionError(f"unexpected /control: {doc}")
+            ticks = metric_value(http_port, "throttlecrab_tpu_control_ticks")
+            if ticks < 1:
+                raise AssertionError("/metrics counts no control tick")
+            dump = json.loads(http(http_port, "GET", "/trace/dump")[1])
+            if not dump["enabled"] or dump["windows"] < 1:
+                raise AssertionError(f"unexpected /trace/dump: {dump}")
+            path = dump["path"]
+            print(f"  --control --control-tick-ms 100: GET /control enabled, "
+                  f"{ctl['ticks']} ticks, actuators "
+                  f"{sorted(doc['actuators'])}; /metrics control ticks "
+                  f"{ticks:.0f}; GET /trace/dump wrote {dump['windows']} "
+                  "windows")
+        stop_server(proc)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if backend == "native":
+        path = os.path.join(trace_dir, f"trace-{proc.pid}.tctr")
+    doc = replay_cli(path)
+    # 7 requests for one key of burst 3: the asyncio engine answers the
+    # last 3 (denials the deny cache certified) before a window, so its
+    # windows hold 4 rows; the native drivers capture every row.
+    want = 4 if backend == "python" else 7
+    if doc["rows"] != want:
+        raise AssertionError(f"the trace holds {doc['rows']} rows, "
+                             f"expected {want}")
+    what = "the ring dump" if backend == "python" else \
+        "the full-mode trace SIGTERM closed"
+    print(f"  {what} replays on cuda through the replay CLI: {doc}; boot, "
+          f"requests, SIGTERM and replay {time.perf_counter() - t_boot:.1f} s")
 
 
 # ---- timing (phase 8) ---------------------------------------------------- #
@@ -1932,14 +2048,79 @@ def drill_windows(rng):
     ]
 
 
+def wait_for_file(pattern, seconds=30):
+    import glob
+
+    deadline = time.monotonic() + seconds
+    while True:
+        found = glob.glob(pattern)
+        if found:
+            return found
+        if time.monotonic() > deadline:
+            raise AssertionError(f"no file matches {pattern}")
+        time.sleep(0.05)
+
+
+def check_degrade_dump(rec, path, seeded, card):
+    """Phase 11a's flight recorder: the dump the degrade wrote holds the
+    degrade event and the injections in firing order, and its windows
+    replay on a host oracle seeded with the table the ring started from
+    (the populated 1M keys) with 0 mismatches against the recorded
+    outcomes; after the drill the recorder also holds the recovery's
+    event."""
+    from throttlecrab_tpu_torch.replay import player
+    from throttlecrab_tpu_torch.replay.trace import Trace, decode_event
+    from throttlecrab_tpu_torch.server.supervisor import HostOracle
+
+    trace = Trace.load(path)
+    kinds = [e.kind for e in trace.events]
+    fired = [(i.site, i.mode, i.index) for i in trace.injections]
+    if kinds != ["degrade"] or fired[:3] != [
+        ("launch", "count", 0), ("launch", "count", 1),
+        ("fetch", "count", 0),
+    ] or {f[1] for f in fired[3:]} != {"persistent"}:
+        raise AssertionError(f"degrade dump: events {kinds}, injections "
+                             f"{fired}")
+    oracle = HostOracle(bytes_keys=True)
+    keys, tats, exps = seeded
+    oracle.seed(keys, tats, exps)
+    t = time.perf_counter()
+    got = player.replay(trace, oracle)
+    replay_s = time.perf_counter() - t
+    sink = []
+    compared = player.compare_outcomes(
+        trace, got, player.recorded_outcomes(trace), "recorded", sink)
+    if sink or compared != trace.n_rows() or trace.n_rows() < 4 * K * B:
+        raise AssertionError(f"degrade dump replay: {len(sink)} mismatches "
+                             f"over {compared} of {trace.n_rows()} rows: "
+                             f"{[str(m) for m in sink[:4]]}")
+    after = [decode_event(frame[5:]).kind for _, frame in rec._events]
+    if after != ["degrade", "repromote"] or rec._capture_errors:
+        raise AssertionError(f"recorder after the drill: events {after}, "
+                             f"{rec._capture_errors} capture errors")
+    print(f"  flight recorder (ring): the degrade dumped "
+          f"{len(trace.windows)} windows ({trace.n_rows()} rows), the "
+          f"degrade event and injections {fired[:3]} + "
+          f"{len(fired) - 3} persistent, in firing order; replayed on a "
+          f"host oracle seeded with the populated table: 0 mismatches over "
+          f"{compared} rows in {replay_s:.1f} s; the recovery's event "
+          f"follows; 0 capture errors ({card})")
+    return {"dump_windows": len(trace.windows), "dump_rows": trace.n_rows(),
+            "dump_replay_s": replay_s, "dump_injections": len(fired)}
+
+
 def run_drill(card):
     """Phase 11a: the launch supervisor over the 1M-key cuda limiter,
     against an uninterrupted, unsupervised device="cpu" run of the same
-    traffic.  Returns its record for the kernels line."""
+    traffic, with a ring-mode flight recorder armed.  Returns its record
+    for the kernels line."""
+    import shutil
+    import tempfile
+
     import numpy as np
     import torch
 
-    from throttlecrab_tpu_torch import faults
+    from throttlecrab_tpu_torch import faults, replay
     from throttlecrab_tpu_torch.server import supervisor as sup_mod
     from throttlecrab_tpu_torch.tpu import fused, row_ops, snapshot
     from throttlecrab_tpu_torch.tpu.limiter import TorchRateLimiter
@@ -1947,6 +2128,12 @@ def run_drill(card):
     windows = drill_windows(np.random.default_rng(11))
     limiter = TorchRateLimiter(capacity=CAPACITY)
     populate_config3(limiter, N_KEYS, T0)
+    # The table the recorder's ring starts from, for the dump's replay.
+    seed_keys, _, _, seed_tat, seed_exp, _, _ = snapshot.export_state(limiter)
+    seeded = ([k.encode() for k in seed_keys], seed_tat.tolist(),
+              seed_exp.tolist())
+    dump_dir = tempfile.mkdtemp()
+    rec = replay.FlightRecorder(capacity=1024, out_dir=dump_dir)
     sup = sup_mod.SupervisedLimiter(
         limiter, retries=3, probe_interval_ms=PROBE_INTERVAL_MS)
     clock = StateClock(sup)
@@ -1983,7 +2170,12 @@ def run_drill(card):
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t)
         steps.append((label, sup.state, sup.retry_count))
+        # Capture each sub-batch as a serving driver does.
+        for b, r in zip(windows[w], got[-1]):
+            rec.record_window(b[5], b[0], np.stack(b[1:5], 1), r.allowed,
+                              r.status)
 
+    replay.arm(rec)
     try:
         window(0, "clean")
         window(1, "clean")
@@ -2007,6 +2199,7 @@ def run_drill(card):
             raise AssertionError(
                 f"degrade: state {sup.state}, {degrade_gathers} row_gather "
                 f"launches, expected {want_gathers}")
+        (dump_path,) = wait_for_file(os.path.join(dump_dir, "*.tctr"))
         fused.LAUNCHES = 0
         t = time.perf_counter()
         window(5, "degraded")
@@ -2026,8 +2219,13 @@ def run_drill(card):
         window(9, "card")
     finally:
         faults.disarm()
+        replay.disarm()
         snapshot.export_state, sup_mod.HostOracle.seed = export_fn, seed_fn
         snapshot._bulk_insert = bulk_fn
+    try:
+        dump = check_degrade_dump(rec, dump_path, seeded, card)
+    finally:
+        shutil.rmtree(dump_dir, ignore_errors=True)
     want_scatters = -(-mutated[0] // row_ops.MAX_BATCH) if mutated else -1
     if RepromoteProbe.seen != (1, want_scatters) or after_recover != 2 or (
             sup.state, sup.degrade_count, sup.repromote_count) != (
@@ -2105,6 +2303,7 @@ def run_drill(card):
         "oracle_decisions_per_s": oracle_rate,
         "ms_in_states": states,
         "window_ms": [x * 1e3 for x in seconds],
+        **dump,
     }
 
 
@@ -2206,6 +2405,264 @@ def run_front_resp(card, resp_rate):
         "front_replies_per_s": on,
         "front_off_replies_per_s": off,
         "front_on_over_off": sum(on) / sum(off),
+    }
+
+
+# ---- record, replay and control (phase 14) ------------------------------- #
+
+
+class TimedTarget:
+    """A replay target with its rate_limit_batch calls timed (each fetches
+    its result to the host, so the card's work is inside) and its
+    (allowed, status) planes kept for the outcome vector."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.seconds = 0.0
+        self.outcomes = []
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def rate_limit_batch(self, *a, **kw):
+        import numpy as np
+
+        t = time.perf_counter()
+        res = self.inner.rate_limit_batch(*a, **kw)
+        self.seconds += time.perf_counter() - t
+        self.outcomes.append((np.asarray(res.allowed, np.uint8),
+                              np.asarray(res.status, np.uint8)))
+        return res
+
+
+def merge_rankings(parts):
+    """One ranking from control.rank's rankings of disjoint candidate
+    sets: ordered as rank() orders them (score descending, ties on the
+    policy name) and numbered again."""
+    rows = sorted((r for part in parts for r in part),
+                  key=lambda r: (-r["score"], r["policy"]["name"]))
+    return [{**r, "rank": i + 1} for i, r in enumerate(rows)]
+
+
+def state_mismatches(live, replayed, now):
+    """Keys whose tat/expiry differ between two {bytes key: (tat, expiry)}
+    maps, a bucket lapsed at `now` (or absent) on both sides aside."""
+    bad = []
+    for key in live.keys() | replayed.keys():
+        a, b = live.get(key), replayed.get(key)
+        if a == b:
+            continue
+        if (a is None or a[1] <= now) and (b is None or b[1] <= now):
+            continue
+        bad.append((key, a, b))
+    return bad
+
+
+def run_record_replay(card, resp_rate):
+    """Phase 14: phase 9's 655,360 RESP commands through a native
+    transport over the default server's tiers (W=6 insight table, the
+    default FrontTier and InsightTier) with a full-mode flight recorder
+    and a control plane (mode both, 100 ms ticks) armed; then the trace
+    replayed differentially on the card, on the cpu and on the scalar
+    oracle, and ranked by the offline policy search.  Returns its record
+    for the kernels line."""
+    import asyncio
+    import tempfile
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from throttlecrab_tpu_torch import control, replay
+    from throttlecrab_tpu_torch.replay import player
+    from throttlecrab_tpu_torch.server import native_redis
+    from throttlecrab_tpu_torch.server.config import Config
+    from throttlecrab_tpu_torch.server.metrics import Metrics
+    from throttlecrab_tpu_torch.server.store import (
+        create_cleanup_policy,
+        create_control,
+        create_front_tier,
+        create_insight,
+    )
+    from throttlecrab_tpu_torch.tpu import fused
+    from throttlecrab_tpu_torch.tpu.limiter import TorchRateLimiter
+
+    t_phase = time.perf_counter()
+    n = RESP_WINDOWS * K * B
+    kid, frames = resp_commands(np.random.default_rng(14), n)
+    cfg = Config(http=True, control=True, control_tick_ms=100)
+    metrics = Metrics(max_denied_keys=cfg.max_denied_keys)
+    limiter = TorchRateLimiter(capacity=CAPACITY, keymap="native",
+                               insight=cfg.insight)
+    front = create_front_tier(cfg, metrics, limiter)
+    insight = create_insight(cfg, metrics, limiter, front)
+    plane = create_control(cfg, metrics, limiter, front, insight,
+                           create_cleanup_policy(cfg))
+    ticks = []  # (now_ns, snapshot taken for this tick, ms)
+    tick = plane.tick
+
+    def checked_tick(now_ns, queue_depth=0):
+        t = time.perf_counter()
+        ran = tick(now_ns, queue_depth=queue_depth)
+        if ran:
+            ticks.append((now_ns, plane._prev is not None
+                          and plane._prev.now_ns == now_ns,
+                          (time.perf_counter() - t) * 1e3))
+        return ran
+
+    plane.tick = checked_tick
+    tmp = tempfile.mkdtemp()
+    path = os.path.join(tmp, "phase14.tctr")
+    rec = replay.FlightRecorder(mode="full", out_dir=tmp, path=path)
+    transport = native_redis.NativeRedisTransport(
+        "127.0.0.1", 0, limiter, metrics, batch_size=B, max_scan_depth=K,
+        front=front, insight=insight, control=plane)
+    # The capture's cost: the driver's seconds in its recorder hook, per
+    # window.
+    capture_s = []
+    record_fn = transport._maybe_record
+
+    def timed_record(*a):
+        t = time.perf_counter()
+        record_fn(*a)
+        capture_s.append(time.perf_counter() - t)
+
+    transport._maybe_record = timed_record
+    loop = asyncio.new_event_loop()
+    loop.run_until_complete(transport.start())
+    replay.arm(rec)
+    try:
+        native_redis.DISPATCH_ERRORS = 0
+        runs = run_resp_clients(transport.bound_port, kid, frames, tmp,
+                                "p14")
+    finally:
+        loop.run_until_complete(transport.stop())
+        loop.close()
+        replay.disarm()
+    rec.close()
+    torch.cuda.synchronize()
+    clocks = [c for _, _, c in runs]
+    span = max(c["end"] for c in clocks) - min(c["start"] for c in clocks)
+    rate = n / span
+    if any(c["replies"] != len(k) for k, _, c in runs):
+        raise AssertionError("a client missed replies")
+    if rec._capture_errors or native_redis.DISPATCH_ERRORS:
+        raise AssertionError(f"{rec._capture_errors} capture errors, "
+                             f"{native_redis.DISPATCH_ERRORS} dispatch "
+                             "errors")
+    if not ticks or not all(ok for _, ok, _ in ticks):
+        raise AssertionError(f"control ticks without a snapshot: {ticks}")
+    reg = plane.registry
+    for e in reg.log:
+        a = reg._actuators[e["actuator"]]
+        if not (a.lo <= e["new"] <= a.hi
+                and abs(e["new"] - e["old"]) <= a.max_step):
+            raise AssertionError(f"actuation out of its bounds: {e}")
+    trace_bytes = os.path.getsize(path)
+    t = time.perf_counter()
+    trace = replay.Trace.load(path)
+    load_s = time.perf_counter() - t
+    keys = [k for w in trace.windows for k in w.keys]
+    sent = Counter(b"bench:key:%d" % k for k in kid.tolist())
+    params = np.concatenate([w.params for w in trace.windows])
+    tkid = np.array([int(k[10:]) for k in keys], np.int64)
+    want_params = np.stack([5 + tkid % 60, 50 + tkid % 1000,
+                            30 + tkid % 120, np.ones_like(tkid)], 1)
+    if Counter(keys) != sent or not np.array_equal(params, want_params):
+        raise AssertionError("the trace's rows differ from the commands "
+                             "sent")
+    status = np.concatenate([w.status for w in trace.windows])
+    ignored = {s: int((status == s).sum()) for s in
+               player.DEFAULT_IGNORE_STATUSES}
+    capture = {"total_s": sum(capture_s),
+               "share_of_span": sum(capture_s) / span,
+               "median_ms_per_window": float(np.median(capture_s)) * 1e3,
+               "us_per_row": sum(capture_s) / n * 1e6}
+    print(f"  {n} commands over {RESP_CONNS} connections in {span:.3f} s: "
+          f"{rate:.0f} replies/s with the recorder and the control plane "
+          f"armed (phase 9, neither: {resp_rate:.0f}); capture (the "
+          f"driver's recorder hook) {capture['total_s']:.3f} s over "
+          f"{len(capture_s)} windows, {capture['share_of_span']:.1%} of the "
+          f"span, median {capture['median_ms_per_window']:.1f} ms per "
+          f"window, {capture['us_per_row']:.3f} µs per row; trace "
+          f"{trace_bytes} bytes, {len(trace.windows)} windows, rows equal "
+          f"the commands sent, loaded in {load_s:.2f} s; 0 capture errors; "
+          f"ignored statuses (3, 4, 6) {ignored} ({card})")
+    # Every key keeps its params, so each window is one conflict round:
+    # one rate_limit_batch call, one window-kernel launch.
+    target = TimedTarget(player.make_target("device", trace,
+                                            capacity=CAPACITY))
+    torch.cuda.synchronize()
+    fused.LAUNCHES = 0
+    t = time.perf_counter()
+    report = player.differential_replay(trace, target)
+    diff_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    launches = fused.LAUNCHES
+    if not report.ok or launches != len(trace.windows):
+        bad = report.vs_oracle + report.vs_recorded
+        raise AssertionError(f"cuda replay: {report.summary()}, {launches} "
+                             f"window launches for {len(trace.windows)} "
+                             f"windows; {[str(m) for m in bad[:4]]}")
+    cpu = TimedTarget(player.make_target("device", trace, capacity=CAPACITY,
+                                         device="cpu"))
+    player.replay(trace, cpu)
+    vec = player.outcome_vector(target.outcomes)
+    if vec != player.outcome_vector(cpu.outcomes) or \
+            vec != trace.outcome_vector():
+        raise AssertionError("the cuda replay's outcome vector differs from "
+                             "the cpu replay's or the recording")
+    now = trace.windows[-1].now_ns
+    live = keyed_state(limiter)
+    replayed = {k.encode("utf-8", "surrogateescape"): v
+                for k, v in keyed_state(target.inner).items()}
+    bad = state_mismatches(live, replayed, now)
+    if bad:
+        raise AssertionError(f"{len(bad)} keys' tat/expiry differ between "
+                             f"the live limiter and the replay: {bad[:4]}")
+    # The offline policy search, after the replays have been timed: one
+    # candidate per spawned process, merged as rank() orders them.
+    cands = control.default_candidates()
+    t_rank = time.perf_counter()
+    with ProcessPoolExecutor(
+            max_workers=min(len(cands), max((os.cpu_count() or 2) - 1, 1)),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        ranking = merge_rankings(pool.map(
+            functools.partial(control.rank, trace), [[p] for p in cands]))
+    rank_s = time.perf_counter() - t_rank
+    rows = trace.n_rows()
+    rates = {"cuda": rows / target.seconds, "cpu": rows / cpu.seconds,
+             "oracle": rows / (diff_s - target.seconds)}
+    tick_ms = float(np.median([ms for _, _, ms in ticks]))
+    top3 = [(r["policy"]["name"], r["score"]) for r in ranking[:3]]
+    print(f"  differential_replay on cuda: {report.summary()}; "
+          f"{launches} window launches for {len(trace.windows)} windows; "
+          f"outcome vector equal to the cpu replay's and the recording; "
+          f"{len(live)} live keys' tat/expiry equal the replay's (lapsed "
+          f"aside)")
+    print(f"  replay decisions/s: cuda {rates['cuda']:.0f}, cpu "
+          f"{rates['cpu']:.0f}, oracle {rates['oracle']:.0f} ({card})")
+    print(f"  control plane: {plane.ticks} ticks, all with a snapshot, "
+          f"median {tick_ms:.3f} ms per tick; {reg.actuations} actuations "
+          f"({reg.clamps} clamped), each inside its bounds and step; rank "
+          f"over {len(ranking)} candidates in {rank_s:.1f} s, top three "
+          f"{top3}; phase {time.perf_counter() - t_phase:.1f} s ({card})")
+    import shutil
+
+    shutil.rmtree(tmp, ignore_errors=True)
+    return {
+        "replay_launches": launches,
+        "replay_windows": len(trace.windows),
+        "replay_summary": report.summary(),
+        "replay_ignored_statuses": ignored,
+        "replay_decisions_per_s": rates,
+        "record_replies_per_s": rate,
+        "record_capture": capture,
+        "trace_bytes": trace_bytes,
+        "control_ticks": plane.ticks,
+        "control_actuations": reg.actuations,
+        "control_tick_ms": tick_ms,
+        "rank_top3": top3,
     }
 
 
@@ -2605,6 +3062,7 @@ def main() -> int:
             check_server(backend, f"{tmp}/state")
             if backend == "native":
                 check_checkpoint_restart(backend, f"{tmp}/chain")
+            check_control_trace(backend, f"{tmp}/traces")
 
     print("[5] row kernels vs plain on the card: "
           f"N={BYID_CAPACITY + (1 << 16)} B={B} W=4,6")
@@ -2845,6 +3303,14 @@ def main() -> int:
           f"{chain['torn_fallback_generation']}; phase {chain_s:.1f} s "
           f"({card})")
 
+    print(f"[14] record, replay and control at full width: phase 9's "
+          f"{RESP_WINDOWS * K * B} commands through a native transport over "
+          f"TorchRateLimiter(capacity=2^20, keymap='native', insight=True) "
+          f"on cuda with the default tiers, a full-mode flight recorder and "
+          f"a control plane (both, 100 ms); the trace replayed on cuda, cpu "
+          f"and the oracle; rank ({card})")
+    record = run_record_replay(card, resp["resp_replies_per_s"])
+
     print(f"card: {card_line()}")
     kernels = [{
         "name": "fused_window",
@@ -2896,6 +3362,7 @@ def main() -> int:
         "insight_poll_ms": poll_split,
         "insight_first_poll_ms": first_poll,
         "insight_decay_ms": insight_decay_ms,
+        **record,
         "card": card,
     }]
     for name, replaces in (("row_gather", "pallas_ops.py:128"),

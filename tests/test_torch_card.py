@@ -660,3 +660,28 @@ def test_insight_topk_and_decay_on_card_match_cpu(cuda_device, k):
     kernel.insight_decay(state)
     kernel.insight_decay(ref)
     assert torch.equal(state.cpu(), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["diurnal", "flash-crowd", "slow-drift"])
+def test_replay_on_card_equals_cpu_replay(cuda_device, pattern):
+    """A synthesized trace replayed on the `device` target on the card
+    gives the byte-identical outcome vector of its device="cpu" replay
+    (and of the outcomes the scalar oracle filled in), one window-kernel
+    launch per window (every key keeps its params)."""
+    from throttlecrab_tpu_torch.replay.generators import synthesize
+    from throttlecrab_tpu_torch.replay.player import (
+        make_target,
+        outcome_vector,
+        replay,
+    )
+
+    trace = synthesize(pattern, windows=12, batch=512, key_space=4096,
+                       seed=3)
+    before = fused.LAUNCHES
+    got = outcome_vector(replay(trace, make_target("device", trace)))
+    launches = fused.LAUNCHES - before
+    want = outcome_vector(replay(trace, make_target("device", trace,
+                                                    device="cpu")))
+    assert got == want == trace.outcome_vector()
+    assert launches == len(trace.windows)

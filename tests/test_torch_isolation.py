@@ -5,10 +5,13 @@ Runs in a fresh interpreter with `sys.modules["jax"] = None` (any jax
 import raises), imports every module of throttlecrab_tpu_torch, and
 checks that no module named `throttlecrab_tpu` or `throttlecrab_tpu.*`
 got loaded (`throttlecrab_tpu_torch` shares the prefix, so the check is
-exact); the failure domain, the front tier, the insight tier and crash
-durability (faults/, front/, server/supervisor.py, insight/, persist/)
-are among them; an insight tier polls and a checkpoint chain is written
-and recovered, and a supervised limiter degrades
+exact); the failure domain, the front tier, the insight tier, crash
+durability, record/replay, the control plane and the profiling hook
+(faults/, front/, server/supervisor.py, insight/, persist/, replay/,
+control/, tpu/profiling.py) are among them, and no module touches
+`torch.cuda` while it is imported; an insight tier polls and a
+checkpoint chain is written and recovered, a recorded trace replays, a
+control plane ticks and ranks policies, and a supervised limiter degrades
 to its host oracle under an injected fault and re-promotes, with a deny
 cache certifying from its results, still with no jax.  Then the device
 contract: without a card, asking for `cuda` —
@@ -33,12 +36,24 @@ REPO = Path(__file__).resolve().parent.parent
 _CODE = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None
+import torch
+touched = []
+_cuda_saved = {}
+for _fn in ("is_available", "device_count", "current_device", "init",
+            "synchronize", "set_device", "get_device_name"):
+    _cuda_saved[_fn] = getattr(torch.cuda, _fn)
+    setattr(torch.cuda, _fn,
+            lambda *a, _n=_fn, **k: touched.append(_n) or
+            _cuda_saved[_n](*a, **k))
 import throttlecrab_tpu_torch as pkg
 names = [pkg.__name__]
 for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     names.append(info.name)
 for name in names:
     importlib.import_module(name)
+assert not touched, ("torch.cuda touched at import", touched)
+for _fn, _orig in _cuda_saved.items():
+    setattr(torch.cuda, _fn, _orig)
 leaked = sorted(
     m for m in sys.modules
     if m == "throttlecrab_tpu" or m.startswith("throttlecrab_tpu.")
@@ -54,9 +69,52 @@ for name in (
     "throttlecrab_tpu_torch.persist", "throttlecrab_tpu_torch.persist.format",
     "throttlecrab_tpu_torch.persist.checkpoint",
     "throttlecrab_tpu_torch.persist.recovery",
+    "throttlecrab_tpu_torch.replay", "throttlecrab_tpu_torch.replay.trace",
+    "throttlecrab_tpu_torch.replay.recorder",
+    "throttlecrab_tpu_torch.replay.player",
+    "throttlecrab_tpu_torch.replay.generators",
+    "throttlecrab_tpu_torch.replay.__main__",
+    "throttlecrab_tpu_torch.control",
+    "throttlecrab_tpu_torch.control.telemetry",
+    "throttlecrab_tpu_torch.control.actuators",
+    "throttlecrab_tpu_torch.control.controllers",
+    "throttlecrab_tpu_torch.control.plane",
+    "throttlecrab_tpu_torch.control.replayer",
+    "throttlecrab_tpu_torch.control.__main__",
+    "throttlecrab_tpu_torch.tpu.profiling",
+    "throttlecrab_tpu_torch.server.engine",
+    "throttlecrab_tpu_torch.server.http",
+    "throttlecrab_tpu_torch.server.native_redis",
+    "throttlecrab_tpu_torch.server.__main__",
 ):
     assert name in names, name
 print("imported", len(names))
+
+import os, tempfile
+from throttlecrab_tpu_torch import control, replay
+from throttlecrab_tpu_torch.replay.generators import synthesize
+from throttlecrab_tpu_torch.replay.player import (
+    differential_replay, make_target)
+from throttlecrab_tpu_torch.server.config import Config
+with tempfile.TemporaryDirectory() as d:
+    rec = replay.FlightRecorder(mode="full", out_dir=d)
+    replay.arm(rec)
+    trace = synthesize("flash-crowd", windows=4, batch=16, key_space=64)
+    for w in trace.windows:
+        rec.record_window(w.now_ns, w.keys, w.params, w.allowed, w.status)
+    replay.maybe_record_event("degrade", "drill")
+    replay.disarm()
+    loaded = replay.Trace.load(rec.close())
+    assert loaded.outcome_vector() == trace.outcome_vector()
+    assert differential_replay(
+        loaded, make_target("device", loaded, device="cpu")).ok
+cfg = Config.from_env_and_args(["--http", "--control", "--control-tick-ms",
+                                "1"])
+plane = control.create_control_plane(cfg)
+assert plane.maybe_tick(10**18) and plane._prev.now_ns == 10**18
+assert control.rank(trace, control.default_candidates(2))[0]["rank"] == 1
+assert sys.modules.get("jax") is None
+print("record/replay and the control plane run without jax")
 
 import tempfile
 from throttlecrab_tpu_torch.insight import InsightTier

@@ -7,10 +7,9 @@ quantity-0 probes, invalid params, negative quantities, malformed JSON,
 client deadlines that lapse in the queue, requests after shutdown.  The
 HTTP status and the JSON body must be byte-identical.  Both servers'
 `Metrics` are built as each server builds them at its default config
-(the top-denied leaderboard at 100 keys), and their `/metrics` renders
-must match, apart from the gauges of the module the port has not ported
-(the control plane); at the default config (insight on) their GET /stats
-documents match too.
+(the top-denied leaderboard at 100 keys), and their whole `/metrics`
+renders must match (the uptime value aside: two clocks); at the default
+config (insight on) their GET /stats documents match too.
 `/health` and `/metrics` answer 200 over a real socket.  Every flag of
 the JAX server that belongs to a ported module parses, from the command
 line and from its environment variable, to the same value in both.
@@ -19,7 +18,6 @@ line and from its environment variable, to the same value in both.
 import asyncio
 import json
 import os
-import re
 import subprocess
 import sys
 from pathlib import Path
@@ -52,18 +50,11 @@ class VirtualClock:
         return self.now
 
 
-# Gauges of the JAX module the port has not ported yet (the control
-# plane).
-_UNPORTED = re.compile(r"throttlecrab_tpu_control_")
-
-
 def _render(metrics):
-    """The /metrics lines, minus the unported gauges and the uptime
-    value (two clocks)."""
+    """The /metrics lines, minus the uptime value (two clocks)."""
     return [
         line for line in metrics.export_prometheus().splitlines()
-        if not _UNPORTED.search(line)
-        and not line.startswith("throttlecrab_uptime_seconds ")
+        if not line.startswith("throttlecrab_uptime_seconds ")
     ]
 
 
@@ -297,7 +288,12 @@ _FLAG_VALUES = {
     "insight_topk": "8", "insight_sketch": "99", "insight_window_s": "3",
     "insight_poll_ms": "250", "insight_decay_s": "7",
     "insight_prewarm": "5", "insight_hot_denies": "6",
-    "insight_shed_weight": "0.25",
+    "insight_shed_weight": "0.25", "profile_dir": "/data/prof",
+    "trace_dir": "/data/traces", "trace_windows": "77",
+    "trace_mode": "full", "control_tick_ms": "250",
+    "control_mode": "hill", "control_target_wait_us": "1234.5",
+    "control_w_throughput": "2.5", "control_w_wait": "0.5",
+    "control_w_fairness": "0.125",
 }
 _PORT_FLAGS = [
     (name, env, typ) for name, env, _, typ, _ in port_config._SPEC
@@ -346,6 +342,9 @@ def test_ported_flag_parses_as_in_jax(monkeypatch, name, env, typ):
     ["--insight-window-s", "0"], ["--insight-poll-ms", "0"],
     ["--insight-decay-s", "-1"], ["--insight-prewarm", "-1"],
     ["--insight-hot-denies", "0"], ["--insight-shed-weight", "1.5"],
+    ["--trace-mode", "tape"], ["--trace-windows", "0"],
+    ["--control-mode", "pid"], ["--control-tick-ms", "0"],
+    ["--control-target-wait-us", "0"], ["--control-w-wait", "-1"],
 ], ids=["denied-keys-high", "denied-keys-negative", "drain-negative",
         "deadline-negative", "no-transport", "deny-cache-negative",
         "max-pending-negative", "max-wait-negative", "peek-frac-zero",
@@ -356,7 +355,10 @@ def test_ported_flag_parses_as_in_jax(monkeypatch, name, env, typ):
         "checkpoint-retain-zero", "checkpoint-mode", "insight-topk-zero",
         "insight-sketch-zero", "insight-window-zero", "insight-poll-zero",
         "insight-decay-negative", "insight-prewarm-negative",
-        "insight-hot-denies-zero", "insight-shed-weight-high"])
+        "insight-hot-denies-zero", "insight-shed-weight-high",
+        "trace-mode", "trace-windows-zero", "control-mode",
+        "control-tick-zero", "control-target-wait-zero",
+        "control-weight-negative"])
 def test_invalid_flags_refused_as_in_jax(argv):
     for mod in (jax_config, port_config):
         with pytest.raises(mod.ConfigError):

@@ -272,8 +272,8 @@ class FaultInjector:
 
     Every firing is logged: ``fired_schedule()`` returns the exact
     (site, mode, draw-index, arg) sequence — what ``from_schedule``
-    replays bit-identically.  (The flight recorder that the JAX package
-    also pushes each firing to is not ported yet.)
+    replays bit-identically.  Each firing is also pushed to the flight
+    recorder when one is armed (replay/recorder.py).
     """
 
     def __init__(
@@ -298,6 +298,9 @@ class FaultInjector:
 
     def _note_fired(self, site, mode, index, arg) -> None:
         self.fired_log.append((site, mode, index, arg))
+        from ..replay.recorder import maybe_record_injection
+
+        maybe_record_injection(site, mode, index, arg)
 
     def check(self, site: str) -> None:
         """Called from a hook; raises/stalls when a fault fires."""

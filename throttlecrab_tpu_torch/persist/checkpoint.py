@@ -2,8 +2,8 @@
 
 The port of `throttlecrab_tpu/persist/checkpoint.py`.  Every generation
 exports through `tpu/snapshot.py`'s `export_snapshot_payload`, so on a
-card its rows move through the `row_gather` kernel.  The flight
-recorder's checkpoint event is not part of the port yet.
+card its rows move through the `row_gather` kernel.  Each generation
+stamps a "checkpoint" event on the flight recorder when one is armed.
 
 Periodically persists the limiter's live state as a generation chain:
 a full **base** checkpoint, then incremental **delta** checkpoints of
@@ -266,6 +266,11 @@ class Checkpointer:
             # recovery finds it without the manifest.
             self.write_errors += 1
             log.warning("checkpoint manifest/prune failed: %s", e)
+        from ..replay.recorder import maybe_record_event
+
+        maybe_record_event(
+            "checkpoint", f"{kind} gen={gen} rows={len(idx)}", now_ns
+        )
         return len(idx)
 
     def _prune(self) -> None:

@@ -2,8 +2,9 @@
 
 The port of `throttlecrab_tpu/persist/recovery.py` for the single-device
 limiter: the merged rows go through `tpu/snapshot.py`'s `_bulk_insert`,
-so on a card through the `row_scatter` kernel.  The cluster branch and
-the flight recorder's recovery event are not part of the port yet.
+so on a card through the `row_scatter` kernel.  A recovery stamps a
+"checkpoint-recovery" event on the flight recorder when one is armed.
+The cluster branch is not part of the port yet.
 
 The scanner's contract is the opposite of THROTTLECRAB_SNAPSHOT_STRICT:
 a checkpoint directory is *best-effort durable state*, so corruption
@@ -193,4 +194,12 @@ def recover_into(
         result.restored = _bulk_insert(limiter, keys, tats, exps)
     result.generation = chain_used[-1]
     result.chain = chain_used
+    from ..replay.recorder import maybe_record_event
+
+    maybe_record_event(
+        "checkpoint-recovery",
+        f"gen={result.generation} rows={result.restored} "
+        f"skipped={result.corrupt_skipped}",
+        now_ns,
+    )
     return result

@@ -1,18 +1,22 @@
 """Server entry point: `python -m throttlecrab_tpu_torch.server --http ...`.
 
 Lifecycle as the reference's `main.rs:49-184`: parse config -> logging ->
-metrics -> fault injection when `--faults` is set -> limiter on the
-device (6-wide insight rows by default), wrapped in the launch supervisor
--> checkpointer when `--checkpoint-dir` is set -> front tier (deny cache
-+ admission control) -> boot restore (the newest verifiable checkpoint
-chain, else `--snapshot-path` when the file exists) -> insight tier ->
-micro-batching engine -> transports (HTTP, gRPC and/or Redis/RESP,
-HTTP and RESP each on asyncio or the native C++ wire server) -> wait for
-SIGINT/SIGTERM or a transport failure -> shutdown.  SIGTERM
-drains first (de-route, flush queued requests with real decisions,
-bounded by `--drain-timeout-ms`; 0 skips the drain); SIGINT flushes and
-stops.  After the transports stop, the checkpointer writes a final
-generation and, with `--snapshot-path`, the table is saved.
+metrics -> fault injection when `--faults` is set -> the flight recorder
+when `--trace-dir` is set -> limiter on the device (6-wide insight rows
+by default), wrapped in the launch supervisor -> checkpointer when
+`--checkpoint-dir` is set -> front tier (deny cache + admission control)
+-> boot restore (the newest verifiable checkpoint chain, else
+`--snapshot-path` when the file exists) -> insight tier -> control plane
+when `--control` is set -> micro-batching engine (a profiler capture of
+its first launches with `--profile-dir`) -> transports (HTTP, gRPC
+and/or Redis/RESP, HTTP and RESP each on asyncio or the native C++ wire
+server) -> wait for SIGINT/SIGTERM or a transport failure -> shutdown.
+SIGTERM drains first (de-route, flush queued requests with real
+decisions, bounded by `--drain-timeout-ms`; 0 skips the drain); SIGINT
+flushes and stops.  After the engine stops, the flight recorder closes
+(a full-mode trace is then complete); after the transports stop, the
+checkpointer writes a final generation and, with `--snapshot-path`, the
+table is saved.
 """
 
 from __future__ import annotations
@@ -26,11 +30,13 @@ import time
 
 from ..faults import FaultInjector, arm, parse_spec
 from ..persist import Checkpointer, recover_into
+from ..replay import recorder as replay_recorder
 from .config import Config, ConfigError
 from .engine import BatchingEngine
 from .metrics import Metrics
 from .store import (
     create_cleanup_policy,
+    create_control,
     create_front_tier,
     create_insight,
     create_limiter,
@@ -63,6 +69,7 @@ def build_transports(config: Config, engine, metrics):
         front=engine.front,
         insight=engine.insight,
         checkpointer=engine.checkpointer,
+        control=engine.control,
     )
     transports = []
     if config.http:
@@ -227,6 +234,16 @@ async def run_server(config: Config) -> None:
         arm(FaultInjector(parse_spec(config.faults),
                           seed=config.faults_seed))
         log.warning("fault injection armed: %s", config.faults)
+    recorder = replay_recorder.from_config(config)
+    if recorder is not None:
+        # Flight recorder: the engine flush path, the native drivers and
+        # the supervisor's degrade path all feed this one process-wide
+        # recorder; GET /trace/dump and a persistent degrade dump it.
+        replay_recorder.arm(recorder)
+        log.info(
+            "trace recorder armed: dir=%s mode=%s windows=%d",
+            config.trace_dir, config.trace_mode, config.trace_windows,
+        )
     # Every transport drives the same supervised limiter, so retry /
     # degrade / re-promote decisions are made once, under the shared
     # limiter lock.
@@ -266,17 +283,26 @@ async def run_server(config: Config) -> None:
     # it from the host oracle while degraded so /stats stays truthful.
     insight = create_insight(config, metrics, device_limiter, front)
     supervisor.insight = insight
+    cleanup_policy = create_cleanup_policy(config)
+    # The control plane tunes the knobs of the tiers just built; off by
+    # default (THROTTLECRAB_CONTROL=0), when nothing ticks and no knob
+    # moves.
+    control = create_control(
+        config, metrics, supervisor, front, insight, cleanup_policy
+    )
     engine = BatchingEngine(
         supervisor,
         batch_size=config.batch_size,
         max_linger_us=config.max_linger_us,
         max_scan_depth=config.max_scan_depth,
-        cleanup_policy=create_cleanup_policy(config),
+        cleanup_policy=cleanup_policy,
         metrics=metrics,
         front=front,
         deadline_default_ms=config.deadline_default_ms,
         insight=insight,
         checkpointer=checkpointer,
+        control=control,
+        profile_dir=config.profile_dir or None,
     )
     transports = build_transports(config, engine, metrics)
     for transport in transports:
@@ -332,6 +358,12 @@ async def run_server(config: Config) -> None:
                 "path", config.drain_timeout_ms,
             )
     await engine.shutdown()
+    if recorder is not None:
+        # Finalize the trace: full mode flushes and closes its file, so
+        # a recorded workload replays after a clean stop (ring mode
+        # persists nothing unless dumped).
+        await loop.run_in_executor(None, recorder.close)
+        replay_recorder.disarm()
     for transport in transports:
         await transport.stop()
     if checkpointer is not None:

@@ -6,11 +6,13 @@ the HTTP, gRPC and Redis/RESP transports and their backends (asyncio or
 the native C++ wire server), the store (which picks the cleanup policy)
 and its cleanup knobs, the reference's buffer size (accepted, unused) and
 top-denied leaderboard size, the micro-batching knobs, the keymap
-backend, the front tier (deny cache and admission control), the boot/
-shutdown snapshot, crash-durability checkpoints, the insight tier, the
-launch supervisor and fault injection, the SIGTERM
-drain budget and the default request deadline, and `--device` /
-THROTTLECRAB_DEVICE (default `cuda`; `cpu` runs the plain version).
+backend, the profiler capture (`--profile-dir`), the front tier (deny
+cache and admission control), the boot/shutdown snapshot,
+crash-durability checkpoints, the insight tier, the launch supervisor
+and fault injection, the flight recorder (`--trace-*`), the SIGTERM
+drain budget and the default request deadline, the adaptive control
+plane (`--control*`), and `--device` / THROTTLECRAB_DEVICE (default
+`cuda`; `cpu` runs the plain version).
 """
 
 from __future__ import annotations
@@ -70,6 +72,9 @@ _SPEC = [
      "Max backlog sub-batches decided in one device launch"),
     ("keymap", "THROTTLECRAB_KEYMAP", "auto", str,
      "Host key->slot backend: auto, python, native"),
+    ("profile_dir", "THROTTLECRAB_PROFILE_DIR", "", str,
+     "Directory for a torch.profiler Chrome trace of the first launches "
+     "(empty: off)"),
     # --- front tier (exact deny cache + admission control) -------------
     ("front_deny_cache", "THROTTLECRAB_FRONT_DENY_CACHE", 65536, int,
      "Deny-cache capacity in entries: provably exact repeat denials "
@@ -137,6 +142,25 @@ _SPEC = [
      "throttlecrab_tpu_torch/faults/)"),
     ("faults_seed", "THROTTLECRAB_FAULTS_SEED", 0, int,
      "Seed for the deterministic fault-injection probability stream"),
+    # --- record/replay flight recorder (replay/) ------------------------
+    ("trace_dir", "THROTTLECRAB_TRACE_DIR", "", str,
+     "Arm the decision-trace flight recorder and write trace dumps "
+     "into this directory (empty: off).  Dumps happen on persistent "
+     "degrade, on GET /trace/dump, and at shutdown in full mode; "
+     "replay them with python -m throttlecrab_tpu_torch.replay"),
+    ("trace_windows", "THROTTLECRAB_TRACE_WINDOWS", 1024, int,
+     "Ring mode: how many decided windows the flight recorder retains "
+     "(the last-N post-mortem buffer)"),
+    ("trace_mode", "THROTTLECRAB_TRACE_MODE", "ring", str,
+     "ring (bounded last-N flight recorder, serving-safe default) or "
+     "full (record every window incrementally to the trace file — the "
+     "capture-for-replay mode)"),
+    ("trace_dump_on_degrade", "THROTTLECRAB_TRACE_DUMP_ON_DEGRADE",
+     True, bool,
+     "Automatically dump the flight recorder when the supervisor "
+     "declares the device down (persistent degrade), so every chaos "
+     "failure leaves a replayable post-mortem artifact (env 0 "
+     "disables)"),
     ("drain_timeout_ms", "THROTTLECRAB_DRAIN_TIMEOUT_MS", 10_000, int,
      "SIGTERM drain budget in milliseconds: stop accepting, flush "
      "in-flight batches with real decisions and snapshot; past the "
@@ -175,6 +199,30 @@ _SPEC = [
     ("insight_shed_weight", "THROTTLECRAB_INSIGHT_SHED_WEIGHT", 0.0, float,
      "Scale admission-control peek shedding by hot-set concentration "
      "(0 disables; 1 = full tightening under pure abuse traffic)"),
+    # --- control plane (L3.9: adaptive feedback over the knob surface) --
+    ("control", "THROTTLECRAB_CONTROL", False, bool,
+     "Adaptive control plane: telemetry-driven feedback controllers "
+     "moving admission/deny-cache/insight knobs through a bounded "
+     "actuator registry (env 0 — the default — builds none of it; "
+     "decisions and every knob value are bit-identical to the "
+     "subsystem absent)"),
+    ("control_tick_ms", "THROTTLECRAB_CONTROL_TICK_MS", 1000, int,
+     "Cadence of the control tick (sensor snapshot + controller step; "
+     "milliseconds) in the engine flush loop / native driver"),
+    ("control_mode", "THROTTLECRAB_CONTROL_MODE", "both", str,
+     "Armed controllers: aimd (fast loop on admission), hill "
+     "(coordinate-descent slow loop), or both"),
+    ("control_target_wait_us", "THROTTLECRAB_CONTROL_TARGET_WAIT_US",
+     5000.0, float,
+     "AIMD setpoint: estimated queue wait (microseconds) above which "
+     "the admission bound decreases multiplicatively"),
+    ("control_w_throughput", "THROTTLECRAB_CONTROL_W_THROUGHPUT",
+     1.0, float,
+     "Objective weight on served throughput (log-compressed rows/s)"),
+    ("control_w_wait", "THROTTLECRAB_CONTROL_W_WAIT", 1.0, float,
+     "Objective weight on estimated queue wait (log-compressed us)"),
+    ("control_w_fairness", "THROTTLECRAB_CONTROL_W_FAIRNESS", 0.5, float,
+     "Objective weight on per-tenant Jain fairness ([0, 1] term)"),
     ("device", "THROTTLECRAB_DEVICE", "cuda", str,
      "Torch device of the bucket table: cuda (the CUDA kernel) or cpu "
      "(the plain version)"),
@@ -208,6 +256,7 @@ class Config:
     max_linger_us: int = 200
     max_scan_depth: int = 16
     keymap: str = "auto"
+    profile_dir: str = ""
     front_deny_cache: int = 65536
     front_max_pending: int = 100_000
     front_max_wait_us: int = 0
@@ -225,6 +274,10 @@ class Config:
     supervisor_mode: str = "degrade"
     faults: str = ""
     faults_seed: int = 0
+    trace_dir: str = ""
+    trace_windows: int = 1024
+    trace_mode: str = "ring"
+    trace_dump_on_degrade: bool = True
     drain_timeout_ms: int = 10_000
     deadline_default_ms: int = 0
     insight: bool = True
@@ -236,6 +289,13 @@ class Config:
     insight_prewarm: int = 64
     insight_hot_denies: int = 100
     insight_shed_weight: float = 0.0
+    control: bool = False
+    control_tick_ms: int = 1000
+    control_mode: str = "both"
+    control_target_wait_us: float = 5000.0
+    control_w_throughput: float = 1.0
+    control_w_wait: float = 1.0
+    control_w_fairness: float = 0.5
     device: str = "cuda"
 
     @classmethod
@@ -324,11 +384,33 @@ class Config:
             )
         if not 0.0 <= self.insight_shed_weight <= 1.0:
             raise ConfigError("insight_shed_weight must be in [0, 1]")
+        if self.control_mode not in ("aimd", "hill", "both"):
+            raise ConfigError(
+                f"Invalid control mode: {self.control_mode!r} "
+                "(expected aimd, hill, or both)"
+            )
+        if self.control_tick_ms <= 0:
+            raise ConfigError("control_tick_ms must be > 0")
+        if self.control_target_wait_us <= 0:
+            raise ConfigError("control_target_wait_us must be > 0")
+        if (
+            self.control_w_throughput < 0
+            or self.control_w_wait < 0
+            or self.control_w_fairness < 0
+        ):
+            raise ConfigError("control objective weights must be >= 0")
         if self.faults:
             try:
                 parse_spec(self.faults)
             except ValueError as e:
                 raise ConfigError(f"invalid --faults spec: {e}") from e
+        if self.trace_mode not in ("ring", "full"):
+            raise ConfigError(
+                f"Invalid trace mode: {self.trace_mode!r} "
+                "(expected ring or full)"
+            )
+        if self.trace_windows <= 0:
+            raise ConfigError("trace_windows must be > 0")
         if self.drain_timeout_ms < 0:
             raise ConfigError("drain_timeout_ms must be >= 0")
         if self.deadline_default_ms < 0:

@@ -15,9 +15,13 @@ loop keeps accepting requests while the device works; with
 before window N's results are fetched.
 
 Housekeeping runs between windows: the insight tier's throttled poll
-(insight/), the checkpointer's throttled tick (persist/; decided keys are
-marked dirty first), and cleanup, where the engine consults a
-`CleanupPolicy` (tpu/cleanup.py) and triggers the expiry sweep.
+(insight/), the control plane's throttled tick (control/), the
+checkpointer's throttled tick (persist/; decided keys are marked dirty
+first), and cleanup, where the engine consults a `CleanupPolicy`
+(tpu/cleanup.py) and triggers the expiry sweep.  With a flight recorder
+armed (replay/), every decided window is captured, off the event loop;
+with `profile_dir`, the first launches run under a `torch.profiler`
+capture (tpu/profiling.py).
 
 With a front tier (front/) a request first consults the exact deny cache
 (a provable repeat denial answers without a launch), then admission
@@ -33,12 +37,15 @@ surfaces the supervisor's state machine (GET /health).
 from __future__ import annotations
 
 import asyncio
+import logging
 import threading
 import time
 from collections import deque
 from typing import Optional
 
 from ..front import OverloadError  # re-exported for the transports
+from ..replay.recorder import active_recorder
+from ..replay.trace import SOURCE_ENGINE
 from ..tpu.cleanup import CleanupPolicy, feed_expired_hits
 from ..tpu.limiter import (
     STATUS_DEADLINE,
@@ -47,12 +54,15 @@ from ..tpu.limiter import (
     STATUS_NEGATIVE_QUANTITY,
     STATUS_OK,
 )
+from ..tpu.profiling import annotate
 from .supervisor import supervisor_state
 from .types import ThrottleRequest, ThrottleResponse
 
 __all__ = [
     "BatchingEngine", "DeadlineError", "OverloadError", "ThrottleError",
 ]
+
+log = logging.getLogger("throttlecrab.engine")
 
 STATUS_MESSAGES = {
     STATUS_NEGATIVE_QUANTITY: "quantity cannot be negative",
@@ -88,6 +98,9 @@ class BatchingEngine:
         deadline_default_ms: int = 0,
         insight=None,
         checkpointer=None,
+        control=None,
+        profile_dir: Optional[str] = None,
+        profile_launches: int = 50,
     ) -> None:
         """`limiter` is a TorchRateLimiter, or its SupervisedLimiter (or
         any object with rate_limit_batch + sweep).  `now_fn` injects time
@@ -101,13 +114,26 @@ class BatchingEngine:
         executor, under the limiter lock) and serves its document on GET
         /stats.  `checkpointer` is an optional persist.Checkpointer:
         decided windows mark their keys dirty and the same housekeeping
-        step drives its throttled tick."""
+        step drives its throttled tick.  `control` is an optional
+        control.ControlPlane: the same step drives its throttled tick
+        (on the executor, under the limiter lock) and GET /control serves
+        its document.  `profile_dir` captures the first
+        `profile_launches` launches with torch.profiler."""
         import inspect
 
         self.limiter = limiter
         self.front = front
         self.insight = insight
         self.checkpointer = checkpointer
+        self.control = control
+        # Optional torch.profiler capture of the first N launches.  While
+        # it runs, the launches run on one dedicated thread that also
+        # starts and stops the capture: the profiler records host spans
+        # of the thread that started it only.
+        self._profile_dir = profile_dir
+        self._profile_remaining = profile_launches if profile_dir else 0
+        self._profile = None  # tpu.profiling.ProfileSession while on
+        self._launch_pool = None  # its thread; None: the loop's executor
         # Serializes device access across worker threads.
         self.limiter_lock = threading.Lock()
         # A deny cache certifies entries from the exact observed TAT
@@ -247,9 +273,10 @@ class BatchingEngine:
                 launched = None
                 if windows:
                     now_ns = self.now_fn()
+                    self._profile_tick()
 
                     def do_dispatch(ws=windows, t=now_ns):
-                        with self.limiter_lock:
+                        with self.limiter_lock, annotate("gcra_dispatch"):
                             # The deny cache's dispatch-order stamp, under
                             # the lock that orders launches.
                             return self._next_seq(), self.limiter.dispatch_many(
@@ -259,7 +286,7 @@ class BatchingEngine:
 
                     try:
                         seq, handle = await loop.run_in_executor(
-                            None, do_dispatch
+                            self._launch_pool, do_dispatch
                         )
                         launched = (windows, handle, now_ns, seq)
                     except Exception as exc:
@@ -346,11 +373,42 @@ class BatchingEngine:
             # Every decided key is dirty for the next checkpoint delta
             # (a host-side set insert; the device loop is untouched).
             self.checkpointer.note_keys(r.key for w in windows for r, _ in w)
+        await self._maybe_record(windows, results, now_ns)
         if front is not None:
             front.record_launch(total, elapsed)
         if self.metrics is not None:
             self.metrics.record_launch(total)
         await self._maybe_sweep(now_ns, total)
+
+    def _record_windows(self, windows, results, now_ns) -> None:
+        """Flight-recorder capture (replay/): one call per decided
+        window — runs on the executor, off the event loop."""
+        rec = active_recorder()
+        if rec is None:
+            return
+        for window, result in zip(windows, results):
+            rec.record_window(
+                now_ns,
+                [r.key for r, _ in window],
+                [
+                    (r.max_burst, r.count_per_period, r.period, r.quantity)
+                    for r, _ in window
+                ],
+                result.allowed,
+                result.status,
+                source=SOURCE_ENGINE,
+            )
+
+    async def _maybe_record(self, windows, results, now_ns) -> None:
+        """Per-batch capture hook: one None check when disarmed; armed
+        captures hop to the executor so trace encoding never runs on the
+        event loop."""
+        if active_recorder() is None:
+            return
+        loop = asyncio.get_running_loop()
+        await loop.run_in_executor(
+            None, self._record_windows, windows, results, now_ns
+        )
 
     def _observe_window(self, window, result, now_ns, seq) -> None:
         """Feed one decided window's rows to the deny cache in arrival
@@ -409,9 +467,10 @@ class BatchingEngine:
         """Backlog path: K sub-batches, one launch, shared timestamp."""
         now_ns = self.now_fn()
         loop = asyncio.get_running_loop()
+        self._profile_tick()
 
         def launch():
-            with self.limiter_lock:
+            with self.limiter_lock, annotate("gcra_scan_decide"):
                 return self._next_seq(), self.limiter.rate_limit_many(
                     [self._columns(w, now_ns) for w in windows],
                     **self._wire_many_kw,
@@ -419,7 +478,9 @@ class BatchingEngine:
 
         t0 = time.monotonic()
         try:
-            seq, results = await loop.run_in_executor(None, launch)
+            seq, results = await loop.run_in_executor(
+                self._launch_pool, launch
+            )
         except Exception as exc:
             self._fail_windows(windows, exc)
             return
@@ -430,16 +491,19 @@ class BatchingEngine:
         """One batch, one launch."""
         now_ns = self.now_fn()
         loop = asyncio.get_running_loop()
+        self._profile_tick()
 
         def launch():
-            with self.limiter_lock:
+            with self.limiter_lock, annotate("gcra_batch_decide"):
                 return self._next_seq(), self.limiter.rate_limit_batch(
                     *self._columns(batch, now_ns), **self._wire_kw
                 )
 
         t0 = time.monotonic()
         try:
-            seq, result = await loop.run_in_executor(None, launch)
+            seq, result = await loop.run_in_executor(
+                self._launch_pool, launch
+            )
         except Exception as exc:  # internal failure fails the whole batch
             self._fail_windows([batch], exc)
             return
@@ -497,6 +561,18 @@ class BatchingEngine:
             # the lock that serializes device access.
             await loop.run_in_executor(
                 None, insight.maybe_poll, now_ns, self.limiter_lock
+            )
+        control = self.control
+        if control is not None and control.tick_due(now_ns):
+            # Throttled control tick: sensor snapshot + feedback step,
+            # off the event loop under the limiter lock (on a card the
+            # insight sensors fetch device totals).
+            depth = len(self._pending)
+            await loop.run_in_executor(
+                None,
+                lambda: control.maybe_tick(
+                    now_ns, self.limiter_lock, queue_depth=depth
+                ),
             )
         checkpointer = self.checkpointer
         if checkpointer is not None and checkpointer.tick_due(now_ns):
@@ -560,6 +636,45 @@ class BatchingEngine:
             if freed is not None:
                 self.metrics.record_sweep(freed)
 
+    def _profile_tick(self) -> None:
+        """Start/stop the torch.profiler capture around the first N
+        launches (called on the event loop before each launch; the
+        capture starts and stops on the launches' own thread)."""
+        if self._profile_remaining <= 0:
+            if self._profile is not None:
+                self._stop_profile()
+            return
+        if self._profile is None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            from ..tpu.profiling import ProfileSession
+
+            self._profile = ProfileSession(self._profile_dir)
+            self._launch_pool = ThreadPoolExecutor(
+                1, thread_name_prefix="tk-profile"
+            )
+            self._launch_pool.submit(self._profile.start)
+        self._profile_remaining -= 1
+
+    def _stop_profile(self):
+        """Queue the capture's stop behind the profiled launches on their
+        thread; returns the future of the written trace's path."""
+        session, pool = self._profile, self._launch_pool
+        self._profile = self._launch_pool = None
+
+        def stop():
+            try:
+                path = session.stop()
+            except Exception:  # a capture that never started included
+                log.exception("profiler capture failed")
+                return None
+            log.info("profiler trace of the first launches: %s", path)
+            return path
+
+        fut = pool.submit(stop)
+        pool.shutdown(wait=False)
+        return fut
+
     def health_state(self) -> str:
         """The state for GET /health: the supervisor's "ok" | "retrying"
         | "degraded" | "recovering" ("ok" for an unsupervised limiter),
@@ -591,3 +706,5 @@ class BatchingEngine:
             self._flush_handle.cancel()
             self._flush_handle = None
         await self._flush()
+        if self._profile is not None:
+            await asyncio.wrap_future(self._stop_profile())

@@ -5,7 +5,9 @@ Same wire surface as the reference's router (`http.rs:103-163`) and as
 count_per_period, period, quantity?}` (quantity defaults to 1), `GET
 /health` returning "OK" (or the serving state's name; with checkpoints
 armed, followed by " checkpoint_age_s=..."), `GET /metrics` returning
-Prometheus text, and `GET /stats` returning the insight tier's JSON.
+Prometheus text, `GET /stats` returning the insight tier's JSON, `GET
+/trace/dump` dumping the flight recorder (replay/) and `GET /control`
+returning the control plane's document (control/).
 Timestamps are always server-side.  Errors return `{"error": ...}` with
 400 (malformed request), 500 (validation), 503 (draining, or shed by the
 front tier's admission control) or 504 (client deadline lapsed in the
@@ -40,7 +42,8 @@ _REASONS = {
 
 
 class HttpTransport(ConnTrackingMixin):
-    """`POST /throttle` + `GET /health` + `GET /metrics` + `GET /stats`."""
+    """`POST /throttle` + `GET /health` + `GET /metrics` + `GET /stats`
+    + `GET /trace/dump` + `GET /control`."""
 
     name = "http"
 
@@ -157,6 +160,39 @@ class HttpTransport(ConnTrackingMixin):
                 # durability is armed (the bare "OK" is a wire contract).
                 body += b" " + ck.health_suffix().encode()
             return 200, body, "text/plain"
+        if method == "GET" and path == "/trace/dump":
+            # Admin: dump the flight recorder's retained windows to a
+            # trace file.  Disarmed servers answer enabled:false so
+            # pollers need no probe logic; the dump itself (encode +
+            # file write) runs on the executor, never on the event loop.
+            from ..replay.recorder import active_recorder
+
+            recorder = active_recorder()
+            if recorder is None:
+                payload = json.dumps({"enabled": False}).encode()
+                return 200, payload, "application/json"
+            loop = asyncio.get_running_loop()
+            dump_path, n_windows = await loop.run_in_executor(
+                None, recorder.dump
+            )
+            payload = json.dumps({
+                "enabled": True,
+                "path": dump_path,
+                "windows": n_windows,
+                "stats": recorder.stats(),
+            }).encode()
+            return 200, payload, "application/json"
+        if method == "GET" and path == "/control":
+            # The control plane's JSON: mode, tick count, objective
+            # score, actuator values/bounds and the bounded actuation
+            # log; with the plane off the shape still answers
+            # (enabled: false).
+            control = getattr(self.engine, "control", None)
+            if control is None:
+                payload = json.dumps({"control": {"enabled": False}})
+            else:
+                payload = control.stats_json()
+            return 200, payload.encode(), "application/json"
         if method == "GET" and path == "/metrics":
             return (
                 200,

@@ -3,8 +3,8 @@
 The counters the engine and the transports touch, under the metric
 names of `throttlecrab_tpu/server/metrics.py` (the reference's names,
 `metrics.rs:233-310`, plus the `throttlecrab_tpu_*` launch/sweep,
-front-tier, supervisor, fault-injection, insight and checkpoint
-extensions), so dashboards
+front-tier, supervisor, fault-injection, insight, control-plane and
+checkpoint extensions), so dashboards
 read either server unchanged, and the reference's top-denied leaderboard
 `throttlecrab_top_denied_keys{key,rank}` (`metrics.rs:24-76`).
 Invariant: allowed + denied + errors == total.
@@ -55,6 +55,12 @@ METRIC_NAMES = (
     "throttlecrab_tpu_insight_tracked_keys",
     "throttlecrab_tpu_insight_prewarmed_total",
     "throttlecrab_tpu_insight_polls",
+    # Control plane (control/).
+    "throttlecrab_tpu_control_ticks",
+    "throttlecrab_tpu_control_actuations",
+    "throttlecrab_tpu_control_clamped",
+    "throttlecrab_tpu_control_objective",
+    "throttlecrab_tpu_control_shed_rate",
     # Crash durability (persist/): checkpoint chain + boot recovery.
     "throttlecrab_tpu_checkpoint_generation",
     "throttlecrab_tpu_checkpoint_age_seconds",
@@ -127,6 +133,7 @@ class Metrics:
         self.drain_shed = 0
         self.deadline_shed = 0
         self._insight_stats = None
+        self._control_stats = None
         self._checkpoint_stats = None
 
     @classmethod
@@ -251,6 +258,11 @@ class Metrics:
         """`provider()` -> InsightTier.metric_stats(); exported as the
         throttlecrab_tpu_insight_* gauges (zeros when absent)."""
         self._insight_stats = provider
+
+    def set_control_stats_provider(self, provider) -> None:
+        """`provider()` -> ControlPlane.metric_stats(); exported as the
+        throttlecrab_tpu_control_* gauges (zeros when absent)."""
+        self._control_stats = provider
 
     def set_checkpoint_stats_provider(self, provider) -> None:
         """`provider()` -> Checkpointer.metric_stats(); exported as the
@@ -397,6 +409,23 @@ class Metrics:
         metric("throttlecrab_tpu_insight_polls",
                "Device insight polls (accumulator fetch + top-K launch)",
                "counter", ins.get("polls", 0))
+        ctl = self._control_stats() if self._control_stats else {}
+        metric("throttlecrab_tpu_control_ticks",
+               "Control-plane ticks (sensor snapshot + controller step)",
+               "counter", ctl.get("ticks", 0))
+        metric("throttlecrab_tpu_control_actuations",
+               "Knob moves applied through the actuator registry",
+               "counter", ctl.get("actuations", 0))
+        metric("throttlecrab_tpu_control_clamped",
+               "Actuations clamped by declared bounds or rate limits",
+               "counter", ctl.get("clamped", 0))
+        metric("throttlecrab_tpu_control_objective",
+               "Last multi-objective score "
+               "(throughput / wait / fairness, weighted)",
+               "gauge", ctl.get("objective", 0))
+        metric("throttlecrab_tpu_control_shed_rate",
+               "Shed fraction of arrivals over the last control tick",
+               "gauge", ctl.get("shed_rate", 0))
         ck = self._checkpoint_stats() if self._checkpoint_stats else {}
         metric("throttlecrab_tpu_checkpoint_generation",
                "Newest durable checkpoint generation (-1: none yet)",

@@ -24,9 +24,11 @@ device decides; their results feed the cache back.  A supervised limiter
 degraded, and the exact path below then decides on the wrapper, which
 routes it to the host oracle.
 
-After each window the driver runs the insight tier's throttled poll and
-the checkpointer's throttled tick (insight/, persist/; shared with the
-asyncio engine), as the engine's housekeeping step does.
+After each window the driver captures it into the flight recorder when
+one is armed (replay/), and runs the insight tier's throttled poll, the
+control plane's throttled tick and the checkpointer's throttled tick
+(insight/, control/, persist/; shared with the asyncio engine), as the
+engine's housekeeping step does.
 
 Shared state: pass the same limiter (and `limiter_lock`) used by the
 asyncio engine so limits hold across every transport; the lock serializes
@@ -53,6 +55,8 @@ import torch
 
 from ..front import STATUS_OVERLOADED
 from ..native import get_wire_lib
+from ..replay.recorder import active_recorder
+from ..replay.trace import SOURCE_NATIVE
 from ..tpu.cleanup import feed_expired_hits
 from ..tpu.limiter import (
     STATUS_DEADLINE,
@@ -105,6 +109,7 @@ class NativeRedisTransport:
         front=None,
         insight=None,
         checkpointer=None,
+        control=None,
     ) -> None:
         lib = get_wire_lib()
         if lib is None:
@@ -122,6 +127,9 @@ class NativeRedisTransport:
         # after each window and pushes the /stats snapshot.
         self.insight = insight
         self.checkpointer = checkpointer
+        # The control plane, shared with the asyncio engine: this driver
+        # thread drives its throttled tick right after the insight poll.
+        self.control = control
         # Ask for the observed-TAT plane (the cur tier) only when a deny
         # cache is attached (see engine.py).
         def cur_kw(method_name):
@@ -629,6 +637,7 @@ class NativeRedisTransport:
                     self._observe_plan(plan, res, now_ns, seq)
                 merged.append(self._merge_plan(plan, res))
             results = merged
+        self._maybe_record(batches, results, now_ns)
         # Metrics: ONE aggregated record for the whole window — it was
         # one device launch (record_batch bumps device_launches, so
         # per-sub-batch calls would overcount launches by up to
@@ -654,6 +663,12 @@ class NativeRedisTransport:
             # Throttled (~1/s) insight poll; this driver thread may block
             # on the card, as its decide launches do.
             self.insight.maybe_poll(now_ns, self.limiter_lock)
+        if self.control is not None:
+            # Throttled control tick, same discipline.  The native wire
+            # layer holds its own pending queue device-side of this
+            # driver, so depth 0 is the honest engine-queue reading —
+            # admission's EWMA wait still carries the launch-cost signal.
+            self.control.maybe_tick(now_ns, self.limiter_lock)
         if self.checkpointer is not None:
             if frames:
                 # Launched rows mark dirty for the next delta (the
@@ -677,6 +692,31 @@ class NativeRedisTransport:
                 launches=1 if frames else 0,
             )
         self._maybe_sweep(now_ns, sum(len(b[1]) - 1 for b in batches))
+
+    def _maybe_record(self, batches, results, now_ns) -> None:
+        """Flight-recorder capture (replay/): the native twin of the
+        engine's — per-batch, already off any event loop (this is the
+        driver thread), one None check when disarmed.  A sub-batch that
+        never launched is recorded with the internal-error status its
+        requests were answered with."""
+        rec = active_recorder()
+        if rec is None:
+            return
+        for (blob, offsets, params, _gen, _fd, _budgets), res in zip(
+            batches, results
+        ):
+            n = len(offsets) - 1
+            keys = [blob[offsets[i]: offsets[i + 1]] for i in range(n)]
+            if res is None:
+                allowed = np.zeros(n, np.uint8)
+                status = np.full(n, STATUS_INTERNAL, np.uint8)
+            else:
+                allowed = res.allowed
+                status = res.status
+            rec.record_window(
+                now_ns, keys, params.reshape(n, 4), allowed, status,
+                source=SOURCE_NATIVE,
+            )
 
     def _respond_one(
         self, blob, offsets, cookie_gen, cookie_fd, res, track_denied

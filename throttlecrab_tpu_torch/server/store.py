@@ -2,8 +2,9 @@
 
 The "store" choice selects the cleanup policy; the bucket table itself is
 always the device table of `TorchRateLimiter`.  The launch supervisor, the
-front tier and the insight tier wrap, front and watch it as the JAX
-server's factories do (`throttlecrab_tpu/server/store.py`).
+front tier and the insight tier wrap, front and watch it, and the
+control plane tunes their knobs, as the JAX server's factories do
+(`throttlecrab_tpu/server/store.py`).
 """
 
 from __future__ import annotations
@@ -141,6 +142,33 @@ def create_insight(config, metrics, limiter, front):
     # serving flush under the limiter lock.
     insight.prime()
     return insight
+
+
+def create_control(config, metrics, limiter, front, insight,
+                   cleanup_policy):
+    """The control plane (L3.9: adaptive feedback over the knob
+    surface) from the THROTTLECRAB_CONTROL_* knobs, or None when
+    disabled — the kill switch builds NOTHING, so decisions and every
+    knob value are bit-identical to the subsystem absent.  Sensors and
+    actuators register only for the subsystems this deployment built
+    (a front-less boot simply has fewer knobs to move)."""
+    from ..control import create_control_plane
+
+    plane = create_control_plane(
+        config,
+        front=front,
+        insight=insight,
+        cleanup_policy=cleanup_policy,
+        limiter=limiter,
+        metrics=metrics,
+    )
+    if plane is not None:
+        log.info(
+            "control plane armed: mode=%s tick=%dms actuators=%s",
+            config.control_mode, config.control_tick_ms,
+            ",".join(plane.registry.names()),
+        )
+    return plane
 
 
 def create_cleanup_policy(config) -> CleanupPolicy:

@@ -554,8 +554,17 @@ class SupervisedLimiter:
         if self.metrics is not None:
             self.metrics.record_supervisor_degrade()
         self._set_state(STATE_DEGRADED)
-        # (The JAX package stamps the flight recorder here; the port has
-        # no recorder yet.)
+        # Flight recorder (replay/): a persistent degrade is exactly the
+        # failure a post-mortem trace exists for — stamp the timeline
+        # and dump the ring.  The dump runs on its own daemon thread
+        # (request_degrade_dump): this path holds the limiter lock and
+        # must never block on file I/O.
+        from ..replay.recorder import active_recorder, maybe_record_event
+
+        maybe_record_event("degrade", str(exc), now_ns=now_ns)
+        recorder = active_recorder()
+        if recorder is not None:
+            recorder.request_degrade_dump()
         if self.on_degrade is not None:
             try:
                 self.on_degrade()
@@ -598,6 +607,11 @@ class SupervisedLimiter:
         log.info(
             "device recovered; re-promoted %d host-mutated buckets",
             len(keys),
+        )
+        from ..replay.recorder import maybe_record_event
+
+        maybe_record_event(
+            "repromote", f"{len(keys)} buckets", now_ns=now_ns
         )
         self._oracle = None
         self.repromote_count += 1
