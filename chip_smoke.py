@@ -58,8 +58,16 @@ script exits nonzero without its last line:
    closes the trace; each file replays on cuda with ok through `python
    -m throttlecrab_tpu_torch.replay replay`;
 5. row kernels vs plain: row_gather / row_scatter (tpu/row_ops.py)
-   against index_select / index_copy_ at N = 2^21 + 2^16, B = 4096,
-   W = 4 and 6, rows 0 and N-1 included.  Tolerance: exact equality;
+   against their plain versions (index_select / index_copy_) at N =
+   2^21 + 2^16, W = 4 and 6, at the edge batches B = 1, 2, 255, 256,
+   257, 4096, 42,240 and 42,241 (where the W=6 scatter goes to two rows
+   a lane), one row short of the last whole block below 65,536 of the
+   tile the largest batches pick, at it and past it, 65,535 and 65,536,
+   with the scatter's rows on a 16-byte boundary (and at W=6 also 8
+   bytes off it) and the first index even and odd; at B = 65,536 with
+   rows 0 and N-1; and with indices -1, N and 2^31-1 at the first, a
+   middle and the last of 4,097 rows (a zero row, a dropped write).
+   Tolerance: exact equality;
 6. by-id launch path at bench.py's shape: TorchRateLimiter(capacity=2^21,
    keymap="native") on cuda, 1M interned keys with config-3 per-key
    params, every key populated once, then Zipf-1.1 windows of K = 64 x
@@ -84,8 +92,11 @@ script exits nonzero without its last line:
    and its kernel records per call, which must all be the window kernel
    and at most one per call, and the wrapper's host time per call), and
    each row kernel's, its plain version's and the library call's time
-   per launch at B=4096 (CUDA events, profiler, host time per call);
-   phases 3, 6 and 7's decisions/s come from the host clock;
+   per launch at B=4096 (CUDA events; profiler device time with L2 warm,
+   and with L2 cold, 128 MB read before each launch, for kernel and
+   library call; host time per call), each beside its share of
+   row_bound_ms and the sector-counted bound; phases 3, 6 and 7's
+   decisions/s come from the host clock;
 9. native RESP server at full width: a NativeRedisTransport in process
    over TorchRateLimiter(capacity=2^20, keymap="native") on cuda, batch
    4096, max_scan_depth 16, answers phase 3's traffic (1M keys,
@@ -116,7 +127,8 @@ script exits nonzero without its last line:
    identically on the original and the cuda restore.  Prints the
    export / gather / write / load / scatter ms (host clock), then each
    row kernel's, its plain version's and the library call's time per
-   launch at B = 65,536, W = 4 and 6, beside the bound;
+   launch at B = 65,536, W = 4 and 6, warm and cold as in phase 8,
+   beside the bounds;
 11. failure domain and front tier at full width.  (a) A SupervisedLimiter
    (3 retries, probe every 1,000 ms) over TorchRateLimiter(capacity=2^20)
    on cuda holding all 1M config-3 keys decides 10 config-3 windows
@@ -243,12 +255,14 @@ def ptxas_summary(log: str) -> dict:
         if m:
             mangled = m.group(1)
             d = re.search(r"window_kernelILi(\d)ELb(\d)ELi(\d)E", mangled)
-            s = re.search(r"(scatter|gather)_kernelILi(\d)E", mangled)
+            s = re.search(r"(scatter|gather)_kernelILi(\d)ELi(\d)ELi(\d)E",
+                          mangled)
             tier = ("False", "True", "cur", "w32")
             name = (
                 f"window W={d.group(1)} with_degen={d.group(2) == '1'} "
                 f"tier={tier[int(d.group(3))]}" if d
-                else f"{s.group(1)} W={s.group(2)}" if s else mangled
+                else f"{s.group(1)} W={s.group(2)} part={s.group(3)} "
+                f"steps={s.group(4)}" if s else mangled
             )
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
@@ -1129,22 +1143,62 @@ def time_kernel(device, rng, rounds=3):
     return result
 
 
+FLUSH_BYTES = 128 << 20  # read before each cold launch: 2.5x the L2
+
+
+def l2_flusher(device):
+    """A call that reads FLUSH_BYTES on the card (a sum over a buffer
+    written once here), evicting from L2 whatever the launches before it
+    left there.  A read leaves clean lines, so the timed launch pays no
+    write-back of the flush's own lines when it evicts them."""
+    import torch
+
+    buf = torch.ones(FLUSH_BYTES // 4, dtype=torch.int32, device=device)
+    return lambda: buf.sum()
+
+
+def cold_device_ms(fn, flush, n=30):
+    """Device ms per fn() call with L2 flushed before each call: the
+    profiler's records of fn's kernels (every record but those of the
+    kernels a flush alone launches); None when the profiler records no
+    kernel on this machine."""
+    flush_names = set(profile_device(flush, 2)[2])
+
+    def step():
+        flush()
+        fn()
+
+    _, dev, by_name, _ = profile_device(step, n)
+    if dev is None:
+        return None
+    mine = [v for k, v in by_name.items() if k not in flush_names]
+    if not mine:
+        raise AssertionError(f"no kernel but the flush's in {by_name}")
+    return sum(mine)
+
+
 def time_row_kernels(device, rng, b=B, n=BYID_CAPACITY + (1 << 16),
                      rounds=3):
-    """{(name, W): {"kernel"|"plain"|"library": ms, "device_"...: ms,
-    "host_us_"...: µs}} per launch of `b` rows over a table of `n` rows
-    (phase 8: B=4096 over the by-id table; phase 10: the snapshot's
-    65,536 over the serving table): CUDA-event medians of `rounds` rounds that
-    alternate kernel, plain version and library call, then the
-    profiler's device time, then the host time per call of the kernel's
-    wrapper and of the library call.  Each call takes the next of 8 index
-    sets, so consecutive launches do not find each other's rows in L2."""
+    """{(name, W): {side: ms}} per launch of `b` rows over a table of `n`
+    rows (phase 8: B=4096 over the by-id table; phase 10: the snapshot's
+    65,536 over the serving table), the sides "kernel", "plain" and
+    "library": CUDA-event medians of `rounds` rounds that alternate
+    kernel, plain version and library call; "device_" + side, the
+    profiler's device time with L2 warm (the table fits in L2 and stays
+    there between launches); "cold_" + side (kernel and library call),
+    device time with FLUSH_BYTES read before each launch, medians of
+    `rounds` rounds that alternate the two; "host_us_" + side, the host
+    time per call of the kernel's wrapper and of the library call, in
+    µs; "sector_bound", row_sector_bound_ms of the index sets.  Each call
+    takes the next of 8 index sets, so consecutive launches do not find
+    each other's rows in L2."""
     import itertools
 
     import numpy as np
 
     from throttlecrab_tpu_torch.tpu import row_ops
 
+    flush = l2_flusher(device)
     samples = {}
     for w in (4, 6):
         table, _, rows = row_case(rng, n, b, w, device)
@@ -1172,14 +1226,21 @@ def time_row_kernels(device, rng, b=B, n=BYID_CAPACITY + (1 << 16),
         for (name, side), fn in fns.items():
             samples[(name, w)].setdefault(
                 "device_" + side, []).append(profile_device(fn, 100)[1])
-        for (name, side), fn in fns.items():
-            if side != "plain":
-                samples[(name, w)]["host_us_" + side] = [host_us_per_call(fn)]
+        cold = [(key, fn) for key, fn in fns.items() if key[1] != "plain"]
+        for r in range(rounds):
+            for (name, side), fn in cold[::1 - 2 * (r % 2)]:
+                samples[(name, w)].setdefault("cold_" + side, []).append(
+                    cold_device_ms(fn, flush))
+        for (name, side), fn in cold:
+            samples[(name, w)]["host_us_" + side] = [host_us_per_call(fn)]
+        sector = float(np.mean([row_sector_bound_ms(i.cpu().numpy(), w)
+                                for i in idxs]))
+        for name in ("row_gather", "row_scatter"):
+            samples[(name, w)]["sector_bound"] = [sector]
     for (name, w), by_side in samples.items():
         print(f"  {name} W={w} rounds (ms per launch): " + ", ".join(
             f"{side} {[x if x is None else round(x, 5) for x in v]}"
-            for side, v in
-            by_side.items()))
+            for side, v in by_side.items()))
     return {
         key: {side: None if None in v else float(np.median(v))
               for side, v in by_side.items()}
@@ -1194,7 +1255,72 @@ def row_bound_ms(b, w):
     return b * (SECTOR + 4 + 4 * w) / HBM_BYTES_PER_S * 1e3
 
 
+def row_sector_bound_ms(idx, w):
+    """The least time for one row launch over the rows at `idx` (i32[b],
+    in range), counted in sectors: every distinct 32-byte table sector
+    those rows touch, plus the 4-byte index and the 4W-byte row on the
+    dense side, at the HBM rate.  A W=6 row at its 24-byte pitch spans
+    two sectors when it starts 16 or 24 bytes into one (rows 1 and 2
+    mod 4), 1.5 sectors a row on average, where row_bound_ms counts
+    one; a W=4 row is half a sector, and two rows of one sector count
+    once."""
+    import numpy as np
+
+    start = idx.astype(np.int64) * 4 * w
+    sectors = np.unique(np.concatenate(
+        [start // SECTOR, (start + 4 * w - 1) // SECTOR]))
+    return ((sectors.size * SECTOR + idx.size * (4 + 4 * w))
+            / HBM_BYTES_PER_S * 1e3)
+
+
+def row_times_line(t, b, w, bound_b):
+    """Phase 8's and 10's line for one (name, W) of time_row_kernels:
+    each device time beside its share of row_bound_ms."""
+    bound = row_bound_ms(bound_b, w)
+
+    def share(ms):
+        return "not measured" if ms is None else f"{bound / ms:.1%}"
+
+    return (f"kernel {t['kernel']:.5f} ms, plain {t['plain']:.5f} ms, "
+            f"library {t['library']:.5f} ms per launch at B={b} (CUDA-event "
+            f"medians); device time (profiler), L2 warm: kernel "
+            f"{t['device_kernel']} ms ({share(t['device_kernel'])} of the "
+            f"bound), plain {t['device_plain']} ms, library "
+            f"{t['device_library']} ms ({share(t['device_library'])}); L2 "
+            f"cold: kernel {t['cold_kernel']} ms "
+            f"({share(t['cold_kernel'])}), library {t['cold_library']} ms "
+            f"({share(t['cold_library'])}); bound {bound:.6f} ms "
+            f"(sector-counted {t['sector_bound']:.6f} ms); host time per "
+            f"call kernel {t['host_us_kernel']:.1f} µs, library "
+            f"{t['host_us_library']:.1f} µs")
+
+
+def row_shares(t4, t6, b, side):
+    """{"w4_warm", "w4_cold", "w6_warm", "w6_cold": share of row_bound_ms
+    that `side`'s device time reaches (None where not measured)} from
+    time_row_kernels' entries for one kernel at W = 4 and 6."""
+    out = {}
+    for w, t in ((4, t4), (6, t6)):
+        for temp, key in (("warm", "device_"), ("cold", "cold_")):
+            ms = t[key + side]
+            out[f"w{w}_{temp}"] = (None if ms is None
+                                   else row_bound_ms(b, w) / ms)
+    return out
+
+
 # ---- row kernels vs plain (phase 5) --------------------------------------- #
+
+
+# Phase 5's batches: one row, one partial warp step, around 256, the
+# by-id batch, the W=6 scatter's step from one row a lane to two, "edge"
+# (one short of the last whole block below 65,536 of the tile the largest
+# batches pick, at it and past it), the largest.  ROW_BIG_BLOCK_ROWS is
+# that tile's rows per block (tests/test_torch_row_tile.py pins it).
+ROW_EDGE_B = (1, 2, 255, 256, 257, 4096, 42_240, 42_241, "edge-1", "edge",
+              "edge+1", 65_535, 65_536)
+ROW_BIG_BLOCK_ROWS = {4: 256, 6: 80}
+# The scatter's rows' bytes past a 16-byte boundary that each width takes.
+ROW_OFFSETS = {4: (0,), 6: (0, 8)}
 
 
 def row_case_idx(rng, n, b, device):
@@ -1223,35 +1349,111 @@ def row_case(rng, n, b, w, device):
     return table, row_case_idx(rng, n, b, device), rows
 
 
-def compare_row_kernels(device, rng):
-    """Phase 5; returns {name: largest difference} over both widths."""
+def row_edge_batches(width):
+    """[(label, b)] of ROW_EDGE_B for `width`-wide rows."""
+    per = ROW_BIG_BLOCK_ROWS[width]
+    edge = ((1 << 16) - 1) // per * per
+    return [(str(label), label) if isinstance(label, int) else
+            (label, edge + {"edge-1": -1, "edge": 0, "edge+1": 1}[label])
+            for label in ROW_EDGE_B]
+
+
+def dense_view(shape, offset, device):
+    """An int32 tensor of `shape` whose data starts `offset` bytes past a
+    16-byte boundary: a view into a larger buffer."""
+    import math
+
+    import torch
+
+    n = math.prod(shape)
+    raw = torch.empty(n + 4, dtype=torch.int32, device=device)
+    skip = ((offset - raw.data_ptr()) % 16) // 4
+    view = raw[skip:skip + n].view(shape)
+    assert view.data_ptr() % 16 == offset
+    return view
+
+
+def row_error(a, b):
+    """Largest |a - b| over two int32 tensors on one device (0 if equal)."""
+    if a.shape == b.shape and bool((a == b).all()):
+        return 0
+    return int((a.long() - b.long()).abs().max())
+
+
+def check_row_case(table, idx, rows):
+    """One phase 5 case on the card: {name: largest difference from the
+    plain version} of the wrappers' launches.  The plain version runs on
+    the in-range indices: an index outside the table gives a zero row or
+    no write."""
     import torch
 
     from throttlecrab_tpu_torch.tpu import row_ops
 
+    keep = (idx >= 0) & (idx < table.shape[0])
+    want = torch.zeros_like(rows)
+    want[keep] = row_ops.row_gather_plain(table, idx[keep])
+    err = {"row_gather": row_error(row_ops.row_gather(table, idx), want)}
+    want = row_ops.row_scatter_plain(table.clone(), idx[keep], rows[keep])
+    got = row_ops.row_scatter(table.clone(), idx, rows)
+    err["row_scatter"] = row_error(got, want)
+    return err
+
+
+def compare_row_kernels(device, rng):
+    """Phase 5; returns ({name: largest difference} over every case, the
+    number of cases)."""
+    import numpy as np
+    import torch
+
     n = BYID_CAPACITY + (1 << 16)
     worst = {"row_gather": 0, "row_scatter": 0}
+    cases = 0
+    i32 = (-(1 << 31), (1 << 31) - 1)
+
+    def check(table, idx, rows, what):
+        nonlocal cases
+        err = check_row_case(table, idx, rows)
+        for name, e in err.items():
+            worst[name] = max(worst[name], e)
+            if e:
+                raise AssertionError(f"{name} {what}: max_abs_err={e}")
+        cases += 1
+
     for w in (4, 6):
-        table, idx, rows = row_case(rng, n, B, w, device)
-        got = row_ops.row_gather(table, idx)
-        want = row_ops.row_gather_plain(table, idx)
-        t_kernel, t_plain = table.clone(), table.clone()
-        row_ops.row_scatter(t_kernel, idx, rows)
-        row_ops.row_scatter_plain(t_plain, idx, rows)
+        table = torch.from_numpy(
+            rng.integers(*i32, (n, w)).astype(np.int32)).to(device)
+        perm = rng.permutation(n).astype(np.int32)
+        parity = [np.flatnonzero(perm[:256] % 2 == p) for p in (0, 1)]
+        batches = row_edge_batches(w)
+        for label, b in batches:
+            for offset in ROW_OFFSETS[w]:
+                rows = dense_view((b, w), offset, device)
+                rows.copy_(torch.from_numpy(
+                    rng.integers(*i32, (b, w)).astype(np.int32)))
+                for first in (0, 1):
+                    start = int(rng.choice(parity[first]))
+                    idx = torch.from_numpy(perm[start:start + b]).to(device)
+                    check(table, idx, rows,
+                          f"W={w} b={label} ({b}) offset {offset} "
+                          f"first row {'odd' if first else 'even'}")
+        rows = torch.from_numpy(
+            rng.integers(*i32, (1 << 16, w)).astype(np.int32)).to(device)
+        check(table, row_case_idx(rng, n, 1 << 16, device), rows,
+              f"W={w} b=65536 with rows 0 and N-1")
+        b = 4097
+        for bad in (-1, n, i32[1]):
+            idx_np = perm[:b].copy()
+            idx_np[[0, b // 2, b - 1]] = bad
+            idx = torch.from_numpy(idx_np).to(device)
+            rows = torch.from_numpy(
+                rng.integers(*i32, (b, w)).astype(np.int32)).to(device)
+            check(table, idx, rows, f"W={w} index {bad}")
         torch.cuda.synchronize()
-        errs = {
-            "row_gather": max_abs_err(got.cpu().numpy(),
-                                      want.cpu().numpy(), True),
-            "row_scatter": max_abs_err(t_kernel.cpu().numpy(),
-                                       t_plain.cpu().numpy(), True),
-        }
-        for name, err in errs.items():
-            worst[name] = max(worst[name], err)
-            if err:
-                raise AssertionError(f"{name} W={w}: max_abs_err={err}")
-        print(f"  identical: W={w} N={n} B={B} (gather rows, scattered "
-              "table)")
-    return worst
+        print(f"  identical: W={w} N={n}, B in {batches} x the scatter's "
+              f"rows {ROW_OFFSETS[w]} bytes off 16 x even/odd first rows, "
+              f"and indices -1, N, 2^31-1 at B=4097 (zero rows, dropped "
+              f"writes)")
+    return worst, cases
 
 
 # ---- by-id launch path (phase 6) ------------------------------------------ #
@@ -3011,6 +3213,11 @@ def main() -> int:
     if len(ptxas["fused_window"]) != 12:
         raise AssertionError(f"{len(ptxas['fused_window'])} decision-window "
                              "instantiations built, expected 12")
+    # gather and scatter at (W, part, steps) (4, 4, 1) and (6, 2, 1), and
+    # the scatter at (6, 2, 2)
+    if len(ptxas["row_ops"]) != 5:
+        raise AssertionError(f"{len(ptxas['row_ops'])} row-kernel "
+                             "instantiations built, expected 5")
 
     print(f"[2] kernel vs plain on the card: K={K} B={B} "
           f"N={CAPACITY + (1 << 16)}, then cross-block windows at "
@@ -3065,8 +3272,11 @@ def main() -> int:
             check_control_trace(backend, f"{tmp}/traces")
 
     print("[5] row kernels vs plain on the card: "
-          f"N={BYID_CAPACITY + (1 << 16)} B={B} W=4,6")
-    row_worst = compare_row_kernels(device, np.random.default_rng(4))
+          f"N={BYID_CAPACITY + (1 << 16)} W=4,6, B={ROW_EDGE_B}, the "
+          f"scatter's rows {ROW_OFFSETS} bytes off 16 by width, "
+          "out-of-range indices")
+    row_worst, row_cases = compare_row_kernels(device,
+                                               np.random.default_rng(4))
 
     print(f"[6] by-id path: TorchRateLimiter(capacity=2^21, keymap='native')"
           f" on cuda, {N_KEYS} keys, config 3 params, K={BYID_K} B={B}")
@@ -3170,14 +3380,7 @@ def main() -> int:
               f"{t['host_us']:.1f} µs per call")
     row_times = time_row_kernels(device, np.random.default_rng(8))
     for (name, w), t in row_times.items():
-        print(f"  {name} W={w}: kernel {t['kernel']:.5f} ms, plain "
-              f"{t['plain']:.5f} ms, library {t['library']:.5f} ms, bound "
-              f"{row_bound_ms(B, w):.6f} ms per launch at B={B} (medians); "
-              f"device time (profiler) kernel {t['device_kernel']} ms, "
-              f"plain {t['device_plain']} ms, library "
-              f"{t['device_library']} ms; host time per call kernel "
-              f"{t['host_us_kernel']:.1f} µs, library "
-              f"{t['host_us_library']:.1f} µs")
+        print(f"  {name} W={w}: {row_times_line(t, B, w, B)}")
 
     print(f"[9] native RESP server: NativeRedisTransport over "
           f"TorchRateLimiter(capacity=2^20, keymap='native') on cuda, "
@@ -3201,14 +3404,7 @@ def main() -> int:
     snap_times = time_row_kernels(device, np.random.default_rng(10), b=snap_b,
                                   n=CAPACITY + (1 << 16))
     for (name, w), t in snap_times.items():
-        print(f"  {name} W={w}: kernel {t['kernel']:.5f} ms, plain "
-              f"{t['plain']:.5f} ms, library {t['library']:.5f} ms, bound "
-              f"{row_bound_ms(snap_b, w):.6f} ms per launch at B={snap_b} "
-              f"(medians); device time (profiler) kernel "
-              f"{t['device_kernel']} ms, plain {t['device_plain']} ms, "
-              f"library {t['device_library']} ms; host time per call "
-              f"kernel {t['host_us_kernel']:.1f} µs, library "
-              f"{t['host_us_library']:.1f} µs")
+        print(f"  {name} W={w}: {row_times_line(t, snap_b, w, snap_b)}")
 
     print(f"[11a] failure domain at full width: SupervisedLimiter over "
           f"TorchRateLimiter(capacity=2^20) on cuda, {N_KEYS} config-3 "
@@ -3394,6 +3590,16 @@ def main() -> int:
             "plain_device_ms": t4["device_plain"],
             "library_device_ms": t4["device_library"],
             "w6_device_ms": t6["device_kernel"],
+            "w6_library_device_ms": t6["device_library"],
+            "cold_device_ms": t4["cold_kernel"],
+            "cold_library_device_ms": t4["cold_library"],
+            "w6_cold_device_ms": t6["cold_kernel"],
+            "w6_cold_library_device_ms": t6["cold_library"],
+            "share_of_bound": row_shares(t4, t6, snap_b, "kernel"),
+            "library_share_of_bound": row_shares(t4, t6, snap_b, "library"),
+            "sector_bound_ms": {"w4": t4["sector_bound"],
+                                "w6": t6["sector_bound"]},
+            "phase5_cases": row_cases,
             "host_us_per_call": t4["host_us_kernel"],
             "library_host_us_per_call": t4["host_us_library"],
             "snapshot_ms": snap_ms,
@@ -3418,6 +3624,14 @@ def main() -> int:
                 "device_ms": b4["device_kernel"],
                 "library_device_ms": b4["device_library"],
                 "w6_ms": b6["kernel"], "w6_device_ms": b6["device_kernel"],
+                "w6_library_device_ms": b6["device_library"],
+                "cold_device_ms": b4["cold_kernel"],
+                "cold_library_device_ms": b4["cold_library"],
+                "w6_cold_device_ms": b6["cold_kernel"],
+                "w6_cold_library_device_ms": b6["cold_library"],
+                "share_of_bound": row_shares(b4, b6, B, "kernel"),
+                "sector_bound_ms": {"w4": b4["sector_bound"],
+                                    "w6": b6["sector_bound"]},
                 "host_us_per_call": b4["host_us_kernel"],
                 "shape": f"B={B} W=4 N={BYID_CAPACITY + (1 << 16)}",
             },

@@ -149,6 +149,9 @@ def test_row_kernels_match_index_select_and_copy(cuda_device, W):
 
 @pytest.mark.cuda
 def test_row_kernels_reject_what_they_do_not_take(cuda_device):
+    """A table off a 16-byte boundary (4 or 8 bytes, either width), the
+    scatter's rows off their part (4 or 8 bytes at W=4, 4 at W=6), an
+    index off the card or a wrong dtype raises before any launch."""
     table = torch.zeros((64, 4), dtype=torch.int32, device=cuda_device)
     idx = torch.arange(8, dtype=torch.int32, device=cuda_device)
     before = (row_ops.GATHER_LAUNCHES, row_ops.SCATTER_LAUNCHES)
@@ -156,10 +159,108 @@ def test_row_kernels_reject_what_they_do_not_take(cuda_device):
         row_ops.row_gather(table, idx.cpu())
     with pytest.raises(ValueError):  # a 4-wide view 4 bytes off alignment
         row_ops.row_gather(table.view(-1)[1:253].view(63, 4), idx)
+    for w in row_ops.WIDTHS:  # 8 bytes off, at either width
+        off = _dense_view((63, w), 8, cuda_device)
+        with pytest.raises(ValueError):
+            row_ops.row_gather(off, idx)
+        with pytest.raises(ValueError):
+            row_ops.row_scatter(off, idx, torch.zeros(
+                (8, w), dtype=torch.int32, device=cuda_device))
+    for w, offset in ((4, 4), (4, 8), (6, 4)):
+        rows = _dense_view((8, w), offset, cuda_device)
+        with pytest.raises(ValueError):
+            row_ops.row_scatter(torch.zeros(
+                (64, w), dtype=torch.int32, device=cuda_device), idx, rows)
     with pytest.raises(TypeError):
         row_ops.row_scatter(table, idx, torch.zeros(
             (8, 4), dtype=torch.int64, device=cuda_device))
     assert (row_ops.GATHER_LAUNCHES, row_ops.SCATTER_LAUNCHES) == before
+
+
+def _dense_view(shape, offset, device):
+    """An int32 tensor of `shape` starting `offset` bytes past a 16-byte
+    boundary (a view into a larger buffer)."""
+    n = int(np.prod(shape))
+    raw = torch.empty(n + 4, dtype=torch.int32, device=device)
+    skip = ((offset - raw.data_ptr()) % 16) // 4
+    view = raw[skip:skip + n].view(shape)
+    assert view.data_ptr() % 16 == offset
+    return view
+
+
+# The row kernels' edge batches (tests/test_torch_row_tile.py pins the
+# same on the CPU): one row, a partial warp step, around 256, the by-id
+# batch, the W=6 scatter's step from one row a lane to two (42,240 to
+# 42,241), one short of the last whole block below 65,536 of the tile the
+# largest batches pick (rows per block: 256 at W=4, 80 at W=6), at it
+# and past it, 65,535 and 65,536.
+_BIG_BLOCK_ROWS = {4: 256, 6: 80}
+_ROW_BATCHES = [1, 2, 255, 256, 257, 4096, 42_240, 42_241, "edge-1",
+                "edge", "edge+1", 65_535, 65_536]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", _ROW_BATCHES)
+@pytest.mark.parametrize("W,offset", [(4, 0), (6, 0), (6, 8)])
+def test_row_kernels_at_edge_batches_on_card(cuda_device, W, offset,
+                                             label):
+    """Gather and scatter through the wrappers against the plain version
+    at the edge batches, first rows even and odd, the scatter's rows
+    `offset` bytes past a 16-byte boundary (8 bytes: the W=6 part)."""
+    b = label
+    if not isinstance(label, int):
+        per = _BIG_BLOCK_ROWS[W]
+        b = ((1 << 16) - 1) // per * per + {"edge-1": -1, "edge": 0,
+                                            "edge+1": 1}[label]
+    rng = np.random.default_rng([W, b, offset])
+    n = 2 * b + 67
+    table = torch.from_numpy(
+        rng.integers(-(2**31), 2**31 - 1, (n, W)).astype(np.int32)
+    ).to(cuda_device)
+    rows = _dense_view((b, W), offset, cuda_device)
+    rows.copy_(torch.from_numpy(
+        rng.integers(-(2**31), 2**31 - 1, (b, W)).astype(np.int32)))
+    perm = rng.permutation(n).astype(np.int32)
+    for first in (0, 1):
+        j = int(np.flatnonzero(perm % 2 == first)[0])
+        idx = torch.from_numpy(np.roll(perm, -j)[:b].copy()).to(cuda_device)
+        got = row_ops.row_gather(table, idx)
+        assert torch.equal(got, row_ops.row_gather_plain(table, idx))
+        want = row_ops.row_scatter_plain(table.clone(), idx, rows)
+        got = table.clone()
+        row_ops.row_scatter(got, idx, rows)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["-1", "N", "2^31-1"])
+@pytest.mark.parametrize("W", row_ops.WIDTHS)
+def test_row_kernels_outside_the_table_on_card(cuda_device, W, bad):
+    """An index outside [0, N) at the first, a middle and the last row of
+    4,097: the gather reads a zero row, the scatter drops the write, and
+    every other row moves as the plain version moves it."""
+    rng = np.random.default_rng([W, len(bad)])
+    n, b = 20_011, 4097
+    table = torch.from_numpy(
+        rng.integers(-(2**31), 2**31 - 1, (n, W)).astype(np.int32)
+    ).to(cuda_device)
+    idx_np = rng.permutation(n)[:b].astype(np.int32)
+    at = [0, b // 2, b - 1]
+    idx_np[at] = {"-1": -1, "N": n, "2^31-1": 2**31 - 1}[bad]
+    keep = torch.from_numpy(np.isin(np.arange(b), at, invert=True)).to(
+        cuda_device)
+    idx = torch.from_numpy(idx_np).to(cuda_device)
+    rows = torch.from_numpy(
+        rng.integers(-(2**31), 2**31 - 1, (b, W)).astype(np.int32)
+    ).to(cuda_device)
+    got = row_ops.row_gather(table, idx)
+    want = torch.zeros_like(rows)
+    want[keep] = row_ops.row_gather_plain(table, idx[keep])
+    assert torch.equal(got, want)
+    got = table.clone()
+    row_ops.row_scatter(got, idx, rows)
+    want = row_ops.row_scatter_plain(table.clone(), idx[keep], rows[keep])
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

@@ -1,22 +1,28 @@
 """Bucket-table row gather and scatter as hand-written CUDA kernels (sm_90a).
 
 The port of `throttlecrab_tpu/tpu/pallas_ops.py` (`row_gather`,
-`row_scatter`): the state-row movement of the composed decide
-(`kernel._gcra_body` / `_finish`) on the by-id launch path.  The source
-is `csrc/row_ops.cu`, built with nvcc at first use (tpu/nvcc.py) and
-bound with ctypes.
+`row_scatter`).  They move every live row of a snapshot save or restore
+(`snapshot.gather_rows` / `scatter_rows`), a checkpoint generation or
+recovery (`persist/`) and the supervisor's degrade export and
+re-promotion, ceil(n / MAX_BATCH) launches each, and the rows of the
+composed by-id scans of `kernel.py`, one gather and one scatter per
+sub-batch.  The table's own windows move their rows inside the window
+kernel (`fused.py`).  The source is `csrc/row_ops.cu` with its tile
+arithmetic in `csrc/row_tile.cuh`, built with nvcc at first use
+(tpu/nvcc.py) and bound with ctypes.
 
-The table's by-id entry points no longer reach these kernels: their
-windows go through the window kernel, which moves the rows itself
-(`fused.py`).  The composed by-id scans of `kernel.py` still do, one
-gather and one scatter per sub-batch.
-
-Rows are i32[W] with W = 4, or 6 for the insight layout.  Each wrapper
-takes the plain version (`row_gather_plain` / `row_scatter_plain`:
-`index_select` / `index_copy_`) only for tensors that lie on the CPU;
-for a CUDA tensor it launches the kernel or raises.  `GATHER_LAUNCHES`
-and `SCATTER_LAUNCHES` count kernel launches.  Both kernels are queued
-on the current stream without synchronising, so a sub-batch's scatter
+Rows are i32[W] with W = 4, or 6 for the insight layout.  The kernels
+move a W=4 row as one 16-byte part and a W=6 row as three 8-byte parts
+on adjacent lanes, so on a card the table must start on a 16-byte
+boundary and the scatter's rows on 16 bytes (W=4) or 8 (W=6); the
+wrappers raise on anything else (every caller passes whole allocations
+or views at multiples of MAX_BATCH rows, and the gather allocates its
+own output).  Each wrapper takes the plain version
+(`row_gather_plain` / `row_scatter_plain`: `index_select` /
+`index_copy_`) only for tensors that lie on the CPU; for a CUDA tensor
+it launches the kernel or raises.  `GATHER_LAUNCHES` and
+`SCATTER_LAUNCHES` count kernel launches.  Both kernels are queued on
+the current stream without synchronising, so a sub-batch's scatter
 stays ahead of the next sub-batch's gather.  A launch costs the host
 more than the device, so the wrappers keep their own work small: the
 bound functions are looked up once and the stream handle comes from one
@@ -40,7 +46,7 @@ MAX_BATCH = 1 << 16  # the table's scratch tail bounds a sub-batch
 WIDTHS = (4, 6)
 
 LIB_STEM = "libtc_row_ops"
-SOURCES = ("row_ops.cu",)
+SOURCES = ("row_ops.cu", "row_tile.cuh")
 
 _lib = None
 _gather = None  # the bound tc_row_gather
@@ -124,9 +130,10 @@ def _check(table, idx, rows=None):
             f"rows must be i32[{B}, {W}], got {tuple(rows.shape)}"
         )
     if table.is_cuda:
-        # W=4 rows move as 16-byte vectors, W=6 rows as 8-byte ones.
-        align = 16 if W == 4 else 8
-        for name, t in (("table", table), ("rows", rows)):
+        # The table on 16 bytes; the rows on their part: a W=4 row moves
+        # as one 16-byte vector, a W=6 row as three 8-byte ones.
+        for name, t, align in (("table", table, 16),
+                               ("rows", rows, 16 if W == 4 else 8)):
             if t is not None and t.data_ptr() % align:
                 raise ValueError(f"{name} must be {align}-byte aligned")
     elif table.device.type != "cpu":
@@ -170,3 +177,4 @@ def row_scatter(table, idx, rows):
         raise RuntimeError(f"tc_row_scatter failed: CUDA error {rc}")
     SCATTER_LAUNCHES += 1
     return table
+
