@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Fourteen phases, each printing its results; any failure raises and the
+Fifteen phases, each printing its results; any failure raises and the
 script exits nonzero without its last line:
 
 1. card: the card's name and power limit (nvidia-smi), and the builds of
@@ -207,7 +207,36 @@ script exits nonzero without its last line:
    nothing else runs beside them.  Prints replies/s with the
    recorder and the plane armed beside phase 9's, the trace's bytes,
    the ignored statuses, replay decisions/s on cuda, cpu and the oracle,
-   ticks, actuations, ms per tick and the top three policies.
+   ticks, actuations, ms per tick and the top three policies;
+15. the mesh at BASELINE config 5's width: ShardedTorchRateLimiter over
+   make_mesh(devices=[cuda:0] * 8) (8 shards as slices of the card, as
+   the v5e-8 has 8 devices), 2^20 slots per shard, native keymaps,
+   insight rows, a 65-id tenant registry; 64 tenants x 100,000 keys
+   (b"t{i}:k{j}", config 3's per-key params) every key once, then 8
+   Zipf-1.1 windows, K = 16 x B = 4,096 through dispatch_many(wire=True),
+   window by window beside TorchRateLimiter(capacity=2^23,
+   keymap="native", insight=True) on cuda: identical results every
+   window, identical insight totals, per-tenant counters summing to the
+   totals, exactly 8 window launches per mesh window (counter zeroed
+   before each) and no row launch, the mesh top-10's counts equal the
+   single device's and each resolved key's count its single-device
+   count.  Prints decisions/s, p50/p99 window ms and the host split
+   (route, resolve, pack, launch, other prep, fetch) of both, and one
+   profiled window of each.  Then a snapshot saved and loaded on the
+   mesh (row_gather / row_scatter launches per shard = ceil(n_d /
+   65,536), every key back on its shard with its tat/expiry), one
+   checkpoint generation (gathers per shard) recovered onto a 1-shard
+   and an 8-shard mesh (scatters per shard, state equal).  The quota: a
+   fresh mesh with tenant affinity and quota 0.125 takes the same
+   population; t0 sprays 50,000 fresh keys among the other tenants'
+   Zipf traffic and 256 lanes a batch of its own existing keys: status 5
+   on exactly the fresh keys past its quota (131,072 - 100,000 slots
+   of headroom), nowhere else, counted by tenant_stats, no growth; the
+   first spray window on CPU shards loaded from the mesh's export gives
+   identical results.  The server with --shards beyond the card count
+   exits nonzero with make_mesh's message, --shards 1 --pallas-fused
+   boots and answers; phase 14's trace replays through sharded:1 on
+   cuda and sharded:8 on cpu with 0 mismatches.
 
 The line before the last is the {"kernels": [...]} record; the last line
 is {"ok": true, "device": {...}}.
@@ -2667,7 +2696,7 @@ def run_record_replay(card, resp_rate):
     and a control plane (mode both, 100 ms ticks) armed; then the trace
     replayed differentially on the card, on the cpu and on the scalar
     oracle, and ranked by the offline policy search.  Returns its record
-    for the kernels line."""
+    for the kernels line and the trace (phase 15 replays it)."""
     import asyncio
     import tempfile
     from collections import Counter
@@ -2865,6 +2894,616 @@ def run_record_replay(card, resp_rate):
         "control_actuations": reg.actuations,
         "control_tick_ms": tick_ms,
         "rank_top3": top3,
+    }, trace
+
+
+# ---- the mesh (phase 15) ------------------------------------------------- #
+
+
+MESH_SHARDS = 8  # BASELINE config 5's v5e-8 device count
+MESH_TENANTS = 64
+MESH_KEYS_PER_TENANT = 100_000
+MESH_CAPACITY = 1 << 20  # slots per shard
+MESH_SINGLE_CAPACITY = 1 << 23  # the single-device twin's and 1 shard's
+MESH_STEADY_WINDOWS = 8
+MESH_SPRAY = 50_000  # fresh keys t0 sprays in phase 15's quota run
+MESH_SPRAY_WINDOWS = 2
+MESH_QUOTA = 0.125  # of each shard's slots, per tenant
+MESH_TOPK = 10
+MESH_T0 = T0 + 100_000 * NS  # after every earlier phase's clock
+MESH_SPLIT = ("route", "resolve", "pack", "launch", "other_prep", "fetch")
+
+
+def mesh_batch(ids, now, spray=None):
+    """One dispatch_many batch of phase 15: keys b"t{tenant}:k{j}" for key
+    ids (tenant = id // 100,000), config 3's per-key (burst, count,
+    period) from the id, quantity 1; `spray` marks lanes whose key is
+    t0's fresh b"t0:x{j}" (j = the id) instead."""
+    import numpy as np
+
+    per = MESH_KEYS_PER_TENANT
+    if spray is None:
+        keys = [b"t%d:k%d" % (g // per, g % per) for g in ids.tolist()]
+    else:
+        keys = [b"t0:x%d" % g if s else b"t%d:k%d" % (g // per, g % per)
+                for g, s in zip(ids.tolist(), spray.tolist())]
+    return (keys, 5 + ids % 60, 50 + ids % 1000, 30 + ids % 120,
+            np.ones(len(ids), np.int64), now)
+
+
+def mesh_windows(rng, n_keys):
+    """Phase 15's traffic: every key once in a random order (the
+    population), then MESH_STEADY_WINDOWS windows of Zipf-1.1 draws over
+    the keys (ranks through a fixed permutation, so the hot keys spread
+    over tenants); K batches of B per window, one timestamp per window.
+    Returns (population windows, steady windows, the Zipf sampler)."""
+    import numpy as np
+
+    ids = rng.permutation(n_keys).astype(np.int64)
+    batches = [ids[lo:lo + B] for lo in range(0, n_keys, B)]
+    now = MESH_T0
+    population = []
+    for w in range(0, len(batches), K):
+        population.append([mesh_batch(b, now) for b in batches[w:w + K]])
+        now += 1_000_000
+    p = np.arange(1, n_keys + 1, dtype=np.float64) ** -1.1
+    cdf = np.cumsum(p / p.sum())
+    perm = rng.permutation(n_keys).astype(np.int64)
+
+    def zipf(n):
+        return perm[np.minimum(np.searchsorted(cdf, rng.random(n)),
+                               n_keys - 1)]
+
+    steady = []
+    for _ in range(MESH_STEADY_WINDOWS):
+        now += 50_000_000
+        steady.append([mesh_batch(zipf(B), now) for _ in range(K)])
+    return population, steady, zipf, now
+
+
+def spray_windows(rng, zipf, now):
+    """Phase 15's quota traffic: MESH_SPRAY_WINDOWS windows in which t0
+    sprays MESH_SPRAY fresh keys (b"t0:x{j}") evenly over the batches,
+    256 lanes a batch draw t0's existing keys, and the rest is the other
+    tenants' Zipf traffic.  Returns (windows, per-window per-batch lane
+    kinds: 0 other tenant, 1 t0 existing, 2 t0 fresh)."""
+    import numpy as np
+
+    per = MESH_KEYS_PER_TENANT
+    n_batches = MESH_SPRAY_WINDOWS * K
+    fresh = np.array_split(np.arange(MESH_SPRAY, dtype=np.int64), n_batches)
+    windows, kinds = [], []
+    for w in range(MESH_SPRAY_WINDOWS):
+        now += 50_000_000
+        batches, kw = [], []
+        for j in range(K):
+            f = fresh[w * K + j]
+            own = rng.integers(0, per, 256).astype(np.int64)
+            other = zipf(B - len(f) - len(own))
+            other = np.where(other < per, other + per, other)
+            ids = np.concatenate([f, own, other])
+            kind = np.concatenate([np.full(len(f), 2), np.ones(len(own)),
+                                   np.zeros(len(other))]).astype(np.int8)
+            order = rng.permutation(B)
+            ids, kind = ids[order], kind[order]
+            batches.append(mesh_batch(ids, now, spray=kind == 2))
+            kw.append(kind)
+        windows.append(batches)
+        kinds.append(kw)
+    return windows, kinds, now
+
+
+class PartTimer:
+    """Host seconds per named part, accumulated by wrapping callables."""
+
+    def __init__(self):
+        self.acc = dict.fromkeys(MESH_SPLIT, 0.0)
+        self._undo = []
+
+    def wrap(self, obj, attr, part):
+        fn = getattr(obj, attr)
+        acc = self.acc
+
+        def timed(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                acc[part] += time.perf_counter() - t
+        had = attr in vars(obj)
+        setattr(obj, attr, timed)
+        self._undo.append((obj, attr, fn, had))
+
+    def take(self):
+        out = dict(self.acc)
+        for part in self.acc:
+            self.acc[part] = 0.0
+        return out
+
+    def restore(self):
+        for obj, attr, fn, had in reversed(self._undo):
+            if had:
+                setattr(obj, attr, fn)
+            else:  # an instance's wrapper over its class's method
+                delattr(obj, attr)
+        self._undo = []
+
+
+def split_timer(lim):
+    """A PartTimer over one limiter's host parts: routing (sharded only),
+    keymap resolves, request packing, the launch call (host-to-device
+    copy + kernel enqueue, asynchronous), measured per window."""
+    from throttlecrab_tpu_torch.parallel import sharded
+    from throttlecrab_tpu_torch.tpu import limiter as limiter_mod
+
+    timer = PartTimer()
+    if hasattr(lim, "keymaps"):
+        timer.wrap(lim, "_route", "route")
+        for km in lim.keymaps:
+            timer.wrap(km, "resolve", "resolve")
+        timer.wrap(sharded, "pack_requests", "pack")
+        timer.wrap(lim.table, "_launch", "launch")
+    else:
+        timer.wrap(lim.keymap, "resolve", "resolve")
+        timer.wrap(limiter_mod, "pack_requests", "pack")
+        timer.wrap(lim.table, "check_many_packed", "launch")
+    return timer
+
+
+def mesh_limiter(device, capacity=None, shards=None, **tenant_kw):
+    """ShardedTorchRateLimiter of phase 15: `shards` slices of one device
+    (`device` repeated in the mesh), native keymaps, insight rows, the
+    tenant layer at 65 tenants (id 0 is the overflow bucket, so each of
+    the 64 gets its own id)."""
+    from throttlecrab_tpu_torch.parallel import (
+        ShardedTorchRateLimiter,
+        make_mesh,
+    )
+    from throttlecrab_tpu_torch.parallel.tenants import TenantRegistry
+
+    return ShardedTorchRateLimiter(
+        capacity or MESH_CAPACITY,
+        mesh=make_mesh(devices=[device] * (shards or MESH_SHARDS)),
+        keymap="native", insight=True,
+        tenants=TenantRegistry(max_tenants=MESH_TENANTS + 1, delim=":",
+                               **tenant_kw))
+
+
+def same_results(a_list, b_list, where):
+    import numpy as np
+
+    for j, (a, b) in enumerate(zip(a_list, b_list)):
+        for f in ("allowed", "limit", "remaining", "reset_after_s",
+                  "retry_after_s", "status"):
+            if not np.array_equal(getattr(a, f), getattr(b, f)):
+                raise AssertionError(f"{where} batch {j}: {f} differs")
+
+
+def sorted_export(keys, shard, tat, exp):
+    """An export's columns as arrays sorted by key: (keys S, shard, tat,
+    expiry)."""
+    import numpy as np
+
+    k = np.array(keys, dtype="S")
+    order = np.argsort(k, kind="stable")
+    return k[order], shard[order], tat[order], exp[order]
+
+
+def export_arrays(limiter):
+    """sorted_export of an export through the snapshot path (row
+    gathers)."""
+    from throttlecrab_tpu_torch.tpu import snapshot
+
+    keys, _, shard, tat, exp, _, _ = snapshot.export_state(limiter)
+    return sorted_export(keys, shard, tat, exp)
+
+
+def same_export(a, b, where, shards=True):
+    import numpy as np
+
+    names = ("keys", "shard", "tat", "expiry")
+    for i, name in enumerate(names):
+        if name == "shard" and not shards:
+            continue
+        if not np.array_equal(a[i], b[i]):
+            raise AssertionError(f"{where}: {name} differs")
+
+
+class ShardLaunches:
+    """Row-kernel launches per shard: wraps row_ops.row_gather /
+    row_scatter (the snapshot module calls them through the module) to
+    note which shard's state each launch wrote or read, by data pointer.
+    The kernels' own counters count the launches; this only attributes
+    them."""
+
+    def __init__(self, limiters):
+        from throttlecrab_tpu_torch.tpu import row_ops
+
+        self._row_ops = row_ops
+        self._orig = (row_ops.row_gather, row_ops.row_scatter)
+        self.seen = {"row_gather": [], "row_scatter": []}
+
+        def note(name, fn):
+            def run(table, *a):
+                self.seen[name].append(table.data_ptr())
+                return fn(table, *a)
+            return run
+        row_ops.row_gather = note("row_gather", self._orig[0])
+        row_ops.row_scatter = note("row_scatter", self._orig[1])
+
+    def take(self, name, limiter):
+        """Launches of `name` since the last take, per shard of
+        `limiter`; the launch counter must agree."""
+        ptrs = [s.state.data_ptr() for s in limiter.table.shards]
+        got = [0] * len(ptrs)
+        for p in self.seen[name]:
+            got[ptrs.index(p)] += 1
+        self.seen[name] = []
+        return got
+
+    def close(self):
+        self._row_ops.row_gather, self._row_ops.row_scatter = self._orig
+
+
+def per_shard_chunks(limiter):
+    """ceil(n_d / 65,536) per shard: the row launches one export or
+    restore of every live key must make."""
+    from throttlecrab_tpu_torch.tpu import row_ops
+
+    return [-(-len(km) // row_ops.MAX_BATCH) for km in limiter.keymaps]
+
+
+def run_mesh(card, trace, device="cuda"):
+    """Phase 15: the mesh at BASELINE config 5's width.  Returns its
+    record for the kernels line."""
+    import numpy as np
+    import torch
+
+    from throttlecrab_tpu_torch.insight.collector import (
+        ShardedSlotKeyResolver,
+        SlotKeyResolver,
+    )
+    from throttlecrab_tpu_torch.persist import Checkpointer, recover_into
+    from throttlecrab_tpu_torch.replay import player
+    from throttlecrab_tpu_torch.tpu import fused, kernel, row_ops, snapshot
+    from throttlecrab_tpu_torch.tpu.limiter import (
+        STATUS_TENANT_QUOTA,
+        TorchRateLimiter,
+    )
+
+    t_phase = time.perf_counter()
+    n_keys = MESH_TENANTS * MESH_KEYS_PER_TENANT
+    rng = np.random.default_rng(15)
+    t = time.perf_counter()
+    population, steady, zipf, now = mesh_windows(rng, n_keys)
+    traffic_s = time.perf_counter() - t
+    mesh = mesh_limiter(device)
+    single = TorchRateLimiter(capacity=MESH_SINGLE_CAPACITY, keymap="native",
+                              device=device, insight=True)
+    state_mb = sum(s.state.numel() * 4 for s in mesh.table.shards) / 2**20
+    print(f"  {n_keys} keys ({MESH_TENANTS} tenants x "
+          f"{MESH_KEYS_PER_TENANT}), {len(population)} population windows + "
+          f"{len(steady)} Zipf windows of K={K} x B={B} (traffic built in "
+          f"{traffic_s:.1f} s); mesh state {state_mb:.0f} MiB on "
+          f"{MESH_SHARDS} shards of {device}")
+
+    # Sharded against single-device, window by window, alternately.
+    timers = {"mesh": split_timer(mesh), "single": split_timer(single)}
+    seconds = {"mesh": [], "single": []}
+    splits = {"mesh": [], "single": []}
+    mesh_launches = []
+    row0 = (row_ops.GATHER_LAUNCHES, row_ops.SCATTER_LAUNCHES)
+    t_drive = time.perf_counter()
+    for w, batches in enumerate(population + steady):
+        out = {}
+        for name, lim in (("mesh", mesh), ("single", single)):
+            if device == "cuda":
+                torch.cuda.synchronize()
+            fused.LAUNCHES = 0
+            t = time.perf_counter()
+            handle = lim.dispatch_many(batches, wire=True)
+            t_disp = time.perf_counter() - t
+            t = time.perf_counter()
+            out[name] = handle.fetch()
+            t_fetch = time.perf_counter() - t
+            seconds[name].append(t_disp + t_fetch)
+            parts = timers[name].take()
+            parts["other_prep"] = t_disp - sum(
+                parts[p] for p in ("route", "resolve", "pack", "launch"))
+            parts["fetch"] = t_fetch
+            splits[name].append(parts)
+            if name == "mesh":
+                mesh_launches.append(fused.LAUNCHES)
+        same_results(out["mesh"], out["single"], f"mesh window {w}")
+    drive_s = time.perf_counter() - t_drive
+    for timer in timers.values():
+        timer.restore()
+    if (row_ops.GATHER_LAUNCHES, row_ops.SCATTER_LAUNCHES) != row0:
+        raise AssertionError("row kernels launched while deciding")
+    if any(n != MESH_SHARDS for n in mesh_launches):
+        raise AssertionError(f"window launches per mesh window "
+                             f"{sorted(set(mesh_launches))}, expected "
+                             f"{MESH_SHARDS}")
+    if len(mesh) != n_keys or len(single) != n_keys:
+        raise AssertionError(f"{len(mesh)} / {len(single)} keys held")
+    if mesh.table.insight_counts() != single.table.insight_counts():
+        raise AssertionError("insight totals differ: "
+                             f"{mesh.table.insight_counts()} vs "
+                             f"{single.table.insight_counts()}")
+    stats = mesh.tenant_stats()
+    if (sum(s["allowed"] for s in stats.values()),
+            sum(s["denied"] for s in stats.values())) != (
+            mesh.total_allowed, mesh.total_denied):
+        raise AssertionError("per-tenant counters do not sum to the totals")
+    if len(stats) != MESH_TENANTS:
+        raise AssertionError(f"{len(stats)} tenants counted")
+    decisions = sum(len(b[0]) for w in population + steady for b in w)
+    print(f"  {decisions} decisions in {len(mesh_launches)} windows: "
+          f"identical valid-lane results on the mesh and the single-device "
+          f"TorchRateLimiter(capacity=2^23) (insight totals "
+          f"{mesh.table.insight_counts()} both; per-tenant counters of "
+          f"{len(stats)} tenants sum to them); {sum(mesh_launches)} window "
+          f"launches, {MESH_SHARDS} per mesh window; 0 row launches; "
+          f"{drive_s:.1f} s for both")
+    steady_ix = range(len(population), len(population) + len(steady))
+    report = {}
+    for name in ("mesh", "single"):
+        sec = [seconds[name][i] for i in steady_ix][1:]
+        lat = np.percentile(np.asarray(sec) * 1e3, [50, 99])
+        split = {p: float(np.median([splits[name][i][p] for i in
+                                     steady_ix][1:]) * 1e3)
+                 for p in MESH_SPLIT}
+        pop = seconds[name][1:len(population)]
+        report[name] = {
+            "decisions_per_s": K * B * len(sec) / sum(sec),
+            "population_decisions_per_s": K * B * len(pop) / sum(pop),
+            "window_ms_p50": float(lat[0]), "window_ms_p99": float(lat[1]),
+            "split_ms": split,
+        }
+        print(f"  {name}: Zipf windows {report[name]['decisions_per_s']:.0f}"
+              f" decisions/s, window p50 {lat[0]:.2f} ms p99 {lat[1]:.2f} ms;"
+              f" population {report[name]['population_decisions_per_s']:.0f}"
+              f" decisions/s; median host ms per window {split} ({card})")
+
+    # One more Zipf window on both under the profiler (twice each: the
+    # profiler's warm-up step and its recorded step), still in lockstep.
+    prof_window = [mesh_batch(zipf(B), now + 10_000_000) for _ in range(K)]
+    last = {}
+    for name, lim in (("mesh", mesh), ("single", single)):
+        def run(lim=lim, name=name):
+            last[name] = lim.dispatch_many(prof_window, wire=True).fetch()
+        if device == "cuda":
+            report[name]["profile"] = summarize_profile(
+                *profile_device(run), top=3)
+        else:
+            run()
+            run()
+        print(f"  {name}: one more window under the profiler: "
+              f"{report[name].get('profile')}")
+    same_results(last["mesh"], last["single"], "profiled window")
+
+    # Mesh-global top-K against the single device's.
+    mv, mi = mesh.table.insight_topk(MESH_TOPK)
+    sv, si = single.table.insight_topk(MESH_TOPK)
+    if mv.tolist() != sv.cpu().tolist():
+        raise AssertionError(f"top-K counts {mv.tolist()} vs "
+                             f"{sv.cpu().tolist()}")
+    mkeys = ShardedSlotKeyResolver(mesh).keys_for(mi.tolist())
+    skeys = SlotKeyResolver(single.keymap).keys_for(si.cpu().tolist())
+    deny_1 = kernel.unpack_deny(single.table.state).cpu()
+    slot_of = {}
+    for k in mkeys:
+        if k is None:
+            raise AssertionError("a mesh top-K id resolves to no key")
+        slot_of[k] = None
+    for k, s in single.keymap.items():
+        if k in slot_of:
+            slot_of[k] = s
+    if [int(deny_1[slot_of[k]]) for k in mkeys] != mv.tolist():
+        raise AssertionError("a mesh top-K key's count differs from its "
+                             "single-device count")
+    print(f"  top-{MESH_TOPK}: counts {mv.tolist()} on both; mesh keys "
+          f"{[k.decode() for k in mkeys[:4]]}..., single "
+          f"{[k.decode() for k in skeys[:4]]}...; every mesh key's count "
+          "equals its single-device count")
+    del single
+
+    # Restart paths on the 8-shard mesh: a snapshot saved and loaded, a
+    # checkpoint generation recovered onto 1 shard and onto 8.  Config
+    # 3's buckets lapse within seconds, so the restores run as of the
+    # population's first timestamp, where every key is live: all of them
+    # restore.
+    shards = ShardLaunches([mesh])
+    restart = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            want_chunks = per_shard_chunks(mesh)
+            g0 = row_ops.GATHER_LAUNCHES
+            t = time.perf_counter()
+            payload = snapshot.export_snapshot_payload(mesh)
+            export_ms = (time.perf_counter() - t) * 1e3
+            save = shards.take("row_gather", mesh)
+            if save != want_chunks or \
+                    row_ops.GATHER_LAUNCHES - g0 != sum(want_chunks):
+                raise AssertionError(f"snapshot save: row_gather per shard "
+                                     f"{save}, expected {want_chunks}")
+            t = time.perf_counter()
+            snapshot.write_snapshot_payload(payload, f"{tmp}/mesh")
+            write_ms = (time.perf_counter() - t) * 1e3
+            before = sorted_export(*(payload[c] for c in (
+                "keys", "shard", "tat", "expiry")))
+            del payload
+            loaded = mesh_limiter(device)
+            s0 = row_ops.SCATTER_LAUNCHES
+            t = time.perf_counter()
+            snapshot.load_snapshot(loaded, f"{tmp}/mesh.npz", MESH_T0)
+            load_ms = (time.perf_counter() - t) * 1e3
+            load = shards.take("row_scatter", loaded)
+            if load != per_shard_chunks(loaded) or \
+                    row_ops.SCATTER_LAUNCHES - s0 != sum(load):
+                raise AssertionError(f"snapshot load: row_scatter per shard "
+                                     f"{load}, expected "
+                                     f"{per_shard_chunks(loaded)}")
+            same_export(before, export_arrays(loaded), "snapshot load")
+            shards.take("row_gather", loaded)
+            if int(loaded.table.deny.sum()) != 0:
+                raise AssertionError("restored keys carry deny heat")
+            del loaded
+            restart["snapshot"] = {
+                "export_ms": export_ms, "write_ms": write_ms,
+                "load_ms": load_ms, "row_gather_per_shard": save,
+                "row_scatter_per_shard": load}
+            print(f"  snapshot of {n_keys} keys: export (gathers) "
+                  f"{export_ms:.0f} ms with row_gather per shard {save}, "
+                  f"write {write_ms:.0f} ms; load {load_ms:.0f} ms with "
+                  f"row_scatter per shard {load}; every key back on its "
+                  f"shard with its tat/expiry ({card})")
+
+            ck = Checkpointer(mesh, f"{tmp}/chain", interval_ns=1,
+                              now_fn=lambda: now)
+            t = time.perf_counter()
+            ck.checkpoint_now(now)
+            ck_ms = (time.perf_counter() - t) * 1e3
+            gen = shards.take("row_gather", mesh)
+            if gen != want_chunks:
+                raise AssertionError(f"checkpoint: row_gather per shard "
+                                     f"{gen}, expected {want_chunks}")
+            restart["checkpoint"] = {"ms": ck_ms,
+                                     "row_gather_per_shard": gen}
+            for n_shards, cap in ((1, MESH_SINGLE_CAPACITY),
+                                  (MESH_SHARDS, MESH_CAPACITY)):
+                target = mesh_limiter(device, capacity=cap, shards=n_shards)
+                t = time.perf_counter()
+                res = recover_into(target, f"{tmp}/chain", MESH_T0)
+                rec_ms = (time.perf_counter() - t) * 1e3
+                got = shards.take("row_scatter", target)
+                if res.restored != n_keys or got != per_shard_chunks(target):
+                    raise AssertionError(
+                        f"recovery onto {n_shards} shards: {res.restored} "
+                        f"keys, row_scatter per shard {got}")
+                same_export(before, export_arrays(target),
+                            f"recovery onto {n_shards}",
+                            shards=n_shards == MESH_SHARDS)
+                shards.take("row_gather", target)
+                restart[f"recover_{n_shards}"] = {
+                    "ms": rec_ms, "row_scatter_per_shard": got}
+                del target
+            print(f"  checkpoint generation {ck_ms:.0f} ms with row_gather "
+                  f"per shard {gen}; recovered onto 1 shard in "
+                  f"{restart['recover_1']['ms']:.0f} ms (row_scatter "
+                  f"{restart['recover_1']['row_scatter_per_shard']}) and "
+                  f"onto {MESH_SHARDS} in "
+                  f"{restart[f'recover_{MESH_SHARDS}']['ms']:.0f} ms "
+                  f"({restart[f'recover_{MESH_SHARDS}']['row_scatter_per_shard']}"
+                  f"); per-key state equal ({card})")
+    finally:
+        shards.close()
+    del mesh, before
+
+    # The quota: tenant-affine routing, 0.125 of each shard per tenant.
+    qlim = mesh_limiter(device, quota_frac=MESH_QUOTA, affinity=True)
+    for batches in population:
+        qlim.dispatch_many(batches, wire=True).fetch()
+    cap = qlim.table.capacity
+    grown = cap != MESH_CAPACITY
+    spray, kinds, now = spray_windows(rng, zipf, now)
+    headroom = int(MESH_QUOTA * cap) - MESH_KEYS_PER_TENANT
+    want_refused = MESH_SPRAY - max(headroom, 0)
+    if want_refused <= 0:
+        raise AssertionError("the spray does not reach t0's quota")
+    cpu_q = mesh_limiter("cpu", quota_frac=MESH_QUOTA, affinity=True)
+    keys_, _, _, tat_, exp_, _, _ = snapshot.export_state(qlim)
+    snapshot._bulk_insert(cpu_q, keys_, tat_, exp_)
+    del keys_, tat_, exp_
+    refused = 0
+    for w, batches in enumerate(spray):
+        got = qlim.dispatch_many(batches, wire=True).fetch()
+        if w == 0:
+            same_results(got, cpu_q.dispatch_many(batches, wire=True)
+                         .fetch(), "spray window on cpu shards")
+        for res, kind in zip(got, kinds[w]):
+            five = res.status == STATUS_TENANT_QUOTA
+            if (res.status[kind != 2] != 0).any() or \
+                    (res.status[kind == 2][~five[kind == 2]] != 0).any():
+                raise AssertionError("status 5 outside t0's fresh keys, or "
+                                     "another error status")
+            refused += int(five.sum())
+    if qlim.table.capacity != cap:
+        raise AssertionError("the spray grew the table")
+    rejections = qlim.tenant_stats()["t0"]["quota_rejections"]
+    if refused != want_refused or rejections != want_refused:
+        raise AssertionError(f"{refused} lanes / {rejections} rejections of "
+                             f"status 5, expected {want_refused}")
+    tenants_per_shard = np.bincount(
+        [qlim.shard_of(b"t%d" % i + b":") for i in range(MESH_TENANTS)],
+        minlength=MESH_SHARDS).tolist()
+    quota = {"refused": refused, "expected": want_refused,
+             "capacity_per_shard": cap, "grew": grown,
+             "tenants_per_shard": tenants_per_shard}
+    print(f"  quota {MESH_QUOTA} with affinity: tenants per shard "
+          f"{tenants_per_shard}, capacity per shard {cap} (grew: {grown}); "
+          f"t0 sprayed {MESH_SPRAY} fresh keys: {refused} refused with "
+          f"status 5 (expected {want_refused}), t0's existing keys and every "
+          f"other tenant decided (status 0); tenant_stats counts "
+          f"{rejections} rejections; the first spray window on cpu shards "
+          f"gave identical statuses and results")
+    del qlim, cpu_q
+
+    # The server: --shards beyond the cards refuses with make_mesh's
+    # message; --shards 1 --pallas-fused serves.
+    have = torch.cuda.device_count() if device == "cuda" else 0
+    if device == "cuda":
+        r = subprocess.run(
+            [sys.executable, "-m", "throttlecrab_tpu_torch.server", "--http",
+             "--http-host", "127.0.0.1", "--http-port", str(free_port()),
+             "--shards", str(have + 1), "--device", "cuda"],
+            capture_output=True, text=True, timeout=300)
+        msg = (f"requested a {have + 1}-device mesh but the backend exposes "
+               f"{have}")
+        if r.returncode == 0 or msg not in r.stdout + r.stderr:
+            raise AssertionError(f"--shards {have + 1}: exit {r.returncode}"
+                                 f"\n{(r.stdout + r.stderr)[-2000:]}")
+        proc, http_port, _ = boot_server(
+            "python", ("--shards", "1", "--pallas-fused"))
+        try:
+            status, body = http(http_port, "POST", "/throttle",
+                                throttle_body("mesh:k", 3))
+            if status != 200 or not json.loads(body)["allowed"]:
+                raise AssertionError(f"--shards 1 --pallas-fused: {status} "
+                                     f"{body!r}")
+        finally:
+            stop_server(proc)
+        print(f"  server: --shards {have + 1} on cuda exits "
+              f"{r.returncode} with \"{msg}\"; --shards 1 --pallas-fused "
+              "boots and answers")
+
+    # The phase-14 trace through the mesh targets.
+    replays = {}
+    for name, kw in (("sharded:1", {"device": device}),
+                     (f"sharded:{MESH_SHARDS}", {"device": "cpu"})):
+        target = player.make_target(name, trace, **kw)
+        fused.LAUNCHES = 0
+        t = time.perf_counter()
+        rep = player.differential_replay(trace, target)
+        sec = time.perf_counter() - t
+        if not rep.ok:
+            raise AssertionError(f"{name} replay: {rep.summary()}")
+        replays[name] = {"summary": rep.summary(), "seconds": sec,
+                         "launches": fused.LAUNCHES,
+                         "device": kw["device"]}
+        print(f"  replay of phase 14's trace through {name} on "
+              f"{kw['device']}: {rep.summary()}, {fused.LAUNCHES} window "
+              f"launches, {sec:.1f} s (oracle included)")
+    print(f"  phase {time.perf_counter() - t_phase:.1f} s ({card})")
+    return {
+        "mesh_shards": MESH_SHARDS,
+        "mesh_windows": len(mesh_launches),
+        "mesh_window_launches": sum(mesh_launches),
+        "mesh": report,
+        "mesh_topk_counts": mv.tolist(),
+        "mesh_restart": restart,
+        "mesh_quota": quota,
+        "mesh_replays": replays,
     }
 
 
@@ -3505,7 +4144,16 @@ def main() -> int:
           f"on cuda with the default tiers, a full-mode flight recorder and "
           f"a control plane (both, 100 ms); the trace replayed on cuda, cpu "
           f"and the oracle; rank ({card})")
-    record = run_record_replay(card, resp["resp_replies_per_s"])
+    record, trace14 = run_record_replay(card, resp["resp_replies_per_s"])
+
+    print(f"[15] the mesh at BASELINE config 5's width: "
+          f"ShardedTorchRateLimiter over {MESH_SHARDS} shards of the card "
+          f"(capacity 2^20 each, native keymaps, insight, "
+          f"{MESH_TENANTS} tenants x {MESH_KEYS_PER_TENANT} keys) against "
+          f"TorchRateLimiter(capacity=2^23); restarts, the quota, the "
+          f"server's --shards, the trace through sharded:D ({card})")
+    mesh = run_mesh(card, trace14)
+    del trace14
 
     print(f"card: {card_line()}")
     kernels = [{
@@ -3559,6 +4207,13 @@ def main() -> int:
         "insight_first_poll_ms": first_poll,
         "insight_decay_ms": insight_decay_ms,
         **record,
+        "mesh_window_launches": mesh["mesh_window_launches"],
+        "mesh_windows": mesh["mesh_windows"],
+        "mesh_shards": mesh["mesh_shards"],
+        "mesh": mesh["mesh"],
+        "mesh_topk_counts": mesh["mesh_topk_counts"],
+        "mesh_quota": mesh["mesh_quota"],
+        "mesh_replays": mesh["mesh_replays"],
         "card": card,
     }]
     for name, replaces in (("row_gather", "pallas_ops.py:128"),
@@ -3617,6 +4272,15 @@ def main() -> int:
                 [g["row_gather"] for g in chain["generations"]]
                 if name == "row_gather" else chain["row_scatter"]),
             "checkpoint_ms": chain,
+            "mesh_path": "sharded snapshot save and checkpoint generation "
+                         "(phase 15)" if name == "row_gather" else
+                         "sharded snapshot load and recoveries onto 1 and "
+                         f"{MESH_SHARDS} shards (phase 15)",
+            "mesh_launches_per_shard": {
+                part: v[f"{name}_per_shard"]
+                for part, v in mesh["mesh_restart"].items()
+                if f"{name}_per_shard" in v},
+            "mesh_restart_ms": mesh["mesh_restart"],
             "b4096": {
                 "ms": b4["kernel"], "plain_ms": b4["plain"],
                 "library_ms": b4["library"],

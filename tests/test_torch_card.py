@@ -786,3 +786,84 @@ def test_replay_on_card_equals_cpu_replay(cuda_device, pattern):
                                                     device="cpu")))
     assert got == want == trace.outcome_vector()
     assert launches == len(trace.windows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [1, 3, 8])
+def test_mesh_on_card_equals_single_device_and_cpu_shards(cuda_device,
+                                                          shards):
+    """chip_smoke.py phase 15's identity at a small size: a mesh of
+    `shards` slices of the card decides tenant traffic (K-deep windows
+    through dispatch_many(wire=True), quantity-0 probes in one window)
+    exactly as the single-device limiter on the card and as the same
+    mesh on CPU shards: results, insight totals, per-tenant counters,
+    the mesh top-K, each shard's real-slot state; `shards` window
+    launches per window and none of the row kernels.  Then a snapshot
+    of the mesh restores through `shards` x ceil(n_d / 65,536) row
+    launches, each key on its shard with its state."""
+    from throttlecrab_tpu_torch.parallel import (
+        ShardedTorchRateLimiter,
+        make_mesh,
+    )
+    from throttlecrab_tpu_torch.parallel.tenants import TenantRegistry
+
+    def mesh_on(devices, capacity=2048):
+        return ShardedTorchRateLimiter(
+            capacity, mesh=make_mesh(devices=devices), keymap="native",
+            insight=True, tenants=TenantRegistry(max_tenants=9))
+
+    card = mesh_on([cuda_device] * shards)
+    cpu = mesh_on(["cpu"] * shards)
+    single = TorchRateLimiter(capacity=1 << 14, keymap="native",
+                              insight=True)
+    rng = np.random.default_rng(shards)
+    t0 = 1_753_700_000 * NS
+    for w in range(6):
+        batches = []
+        for j in range(4):
+            ids = rng.integers(0, 4000, 1024)
+            q = np.where((w == 3) & (ids % 7 == 0), 0, 1)
+            keys = [b"t%d:k%d" % (i % 8, i) for i in ids.tolist()]
+            batches.append((keys, 2 + ids % 5, 5 + ids % 50,
+                            10 + ids % 30, q, t0 + w * NS // 4))
+        outs = []
+        for lim in (card, cpu, single):
+            before = (fused.LAUNCHES, row_ops.GATHER_LAUNCHES,
+                      row_ops.SCATTER_LAUNCHES)
+            outs.append(lim.dispatch_many(batches, wire=True).fetch())
+            torch.cuda.synchronize()
+            if lim is card:
+                assert (fused.LAUNCHES - before[0], row_ops.GATHER_LAUNCHES,
+                        row_ops.SCATTER_LAUNCHES) == (shards, *before[1:])
+        for res in outs[1:]:
+            for a, b in zip(outs[0], res):
+                for f in ("allowed", "remaining", "reset_after_s",
+                          "retry_after_s", "status"):
+                    assert np.array_equal(getattr(a, f), getattr(b, f)), f
+    assert card.table.insight_counts() == cpu.table.insight_counts() == (
+        single.table.insight_counts())
+    assert card.tenant_stats() == cpu.tenant_stats()
+    for d in range(shards):
+        assert sorted(card.keymaps[d].items()) == sorted(
+            cpu.keymaps[d].items())
+        cap = card.table.capacity  # grown on one shard: 4,000 keys
+        assert torch.equal(card.table.shards[d].state[:cap].cpu(),
+                           cpu.table.shards[d].state[:cap])
+    for got, want in zip(card.table.insight_topk(16),
+                         cpu.table.insight_topk(16)):
+        assert torch.equal(got, want)
+    want_chunks = [-(-len(km) // row_ops.MAX_BATCH) for km in card.keymaps]
+    payload = snapshot.export_snapshot_payload(card)
+    again = mesh_on([cuda_device] * shards, card.table.capacity)
+    before = row_ops.SCATTER_LAUNCHES
+    snapshot._bulk_insert(again, payload["keys"], payload["tat"],
+                          payload["expiry"])
+    torch.cuda.synchronize()
+    assert row_ops.SCATTER_LAUNCHES - before == sum(want_chunks)
+    for d in range(shards):
+        assert sorted(k for k, _ in again.keymaps[d].items()) == sorted(
+            k for k, _ in card.keymaps[d].items())
+    got = snapshot.export_state(again)
+    assert dict(zip(got[0], zip(got[3].tolist(), got[4].tolist()))) == dict(
+        zip(payload["keys"], zip(payload["tat"].tolist(),
+                                 payload["expiry"].tolist())))

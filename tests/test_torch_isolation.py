@@ -86,9 +86,29 @@ for name in (
     "throttlecrab_tpu_torch.server.http",
     "throttlecrab_tpu_torch.server.native_redis",
     "throttlecrab_tpu_torch.server.__main__",
+    "throttlecrab_tpu_torch.parallel",
+    "throttlecrab_tpu_torch.parallel.sharded",
+    "throttlecrab_tpu_torch.parallel.tenants",
 ):
     assert name in names, name
 print("imported", len(names))
+
+from throttlecrab_tpu_torch.parallel import ShardedTorchRateLimiter, make_mesh
+from throttlecrab_tpu_torch.parallel.tenants import TenantRegistry
+from throttlecrab_tpu_torch.tpu import snapshot
+mesh_lim = ShardedTorchRateLimiter(
+    64, mesh=make_mesh(2, device="cpu"), insight=True,
+    tenants=TenantRegistry(max_tenants=4, quota_frac=0.05, affinity=True))
+res = mesh_lim.rate_limit_batch(["t:a", "t:b", "t:c", "u:a"], 2, 1, 60, 1,
+                                10**18, wire=True)
+assert res.status.tolist() == [0, 0, 0, 0]
+res = mesh_lim.rate_limit_batch(["t:d", "t:e", "t:f", "t:g"], 2, 1, 60, 1,
+                                10**18, wire=True)
+assert 5 in res.status.tolist()  # the tenant quota (status 5)
+assert len(snapshot.export_state(mesh_lim)[0]) == len(mesh_lim)
+assert mesh_lim.table.insight_topk(2)[0].tolist() == [0, 0]
+assert sys.modules.get("jax") is None
+print("the sharded mesh runs without jax")
 
 import os, tempfile
 from throttlecrab_tpu_torch import control, replay
@@ -165,6 +185,8 @@ else:
         lambda: TorchRateLimiter(capacity=64),
         lambda: BucketTable(64, device="cuda"),
         lambda: create_limiter(Config(http=True, store_capacity=64)),
+        lambda: make_mesh(2),
+        lambda: create_limiter(Config(http=True, shards=2)),
     ):
         try:
             make()
@@ -274,3 +296,26 @@ def test_http_server_boots_and_saves_without_grpc(tmp_path):
     )
     assert r.returncode == 0, r.stdout + r.stderr[-3000:]
     assert r.stdout.strip().endswith("ok"), r.stdout
+
+
+def test_new_modules_name_no_jax_package_in_an_import():
+    """No module of the port — the mesh's among them — names `jax` or
+    `throttlecrab_tpu` in an import statement (docstrings may name the
+    counterpart file)."""
+    import ast
+
+    pkg = REPO / "throttlecrab_tpu_torch"
+    files = sorted(pkg.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert pkg / "parallel" / "sharded.py" in files
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                root = name.split(".")[0]
+                assert root not in ("jax", "jaxlib", "throttlecrab_tpu"), (
+                    path, name)

@@ -401,10 +401,15 @@ def test_from_config_and_tenant_delim_default(tmp_path):
             "--trace-windows", "9"]
     rj = jax_rec.from_config(JaxConfig.from_env_and_args(argv))
     rp = port_rec.from_config(PortConfig.from_env_and_args(argv))
-    assert not hasattr(PortConfig(), "tenant_delim")
     for attr in ("mode", "out_dir", "dump_on_degrade", "_delim"):
         assert getattr(rj, attr) == getattr(rp, attr), attr
     assert rj._ring.maxlen == rp._ring.maxlen == 9
+    # The tenant delimiter the recorder tallies by follows --tenant-delim
+    # (the flag came with the mesh) in both packages.
+    argv += ["--tenant-delim", "/"]
+    rj = jax_rec.from_config(JaxConfig.from_env_and_args(argv))
+    rp = port_rec.from_config(PortConfig.from_env_and_args(argv))
+    assert rj._delim == rp._delim
 
 
 def test_scheduled_injector_multi_firing_per_index():
@@ -670,12 +675,28 @@ def test_generated_trace_saves_and_replays(tmp_path):
 
 
 def test_unknown_pattern_and_sharded_target_refused():
+    """An unknown pattern or target is refused.  The sharded target is
+    the mesh: on cuda it is refused when the cards are missing (as JAX's
+    mesh refuses to shrink); on CPU shards it replays a trace to the
+    same per-window outcomes as JAX's `sharded:2`."""
+    import torch
+
     with pytest.raises(port_trace.TraceError):
         port_gen.synthesize("sawtooth")
-    with pytest.raises(ValueError, match="ROADMAP A7"):
-        port_player.make_target("sharded:2")
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    with pytest.raises((RuntimeError, ValueError), match="cuda|exposes"):
+        port_player.make_target(f"sharded:{have + 1}")
     with pytest.raises(ValueError, match="unknown replay target"):
         port_player.make_target("gpu")
+    args = dict(windows=6, batch=40, key_space=256, seed=5)
+    jt = jax_gen.synthesize("flash-crowd", **args)
+    pt = port_gen.synthesize("flash-crowd", **args)
+    got = port_player.replay(
+        pt, port_player.make_target("sharded:2", pt, device="cpu"))
+    want = jax_player.replay(jt, jax_player.make_target("sharded:2", jt))
+    for (ga, gs), (wa, ws) in zip(got, want):
+        np.testing.assert_array_equal(ga, wa)
+        np.testing.assert_array_equal(gs, ws)
 
 
 def test_device_target_defaults_to_the_card():
@@ -950,11 +971,25 @@ def test_cli_json_equals_jax(tmp_path, capsys):
     assert docs["port"][2]["identical"] is True
 
 
-def test_cli_refuses_sharded_target(tmp_path, capsys):
+def test_cli_refuses_sharded_target(tmp_path, capsys, monkeypatch):
+    """`--target sharded:D` on cuda without D cards exits 2 naming the
+    device (the mesh never shrinks); on `--device cpu` it replays and
+    prints JAX's JSON for `--target sharded:2`, plus the device."""
+    import torch
+
+    from throttlecrab_tpu.replay.__main__ import main as jax_main
     from throttlecrab_tpu_torch.replay.__main__ import main
 
+    monkeypatch.delenv("THROTTLECRAB_PALLAS_FUSED", raising=False)
     path = str(tmp_path / "t.tctr")
     port_gen.save(port_gen.synthesize("diurnal", windows=2, batch=8), path)
     capsys.readouterr()
-    assert main(["replay", path, "--target", "sharded:2"]) == 2
-    assert "ROADMAP A7" in capsys.readouterr().err
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    assert main(["replay", path, "--target", f"sharded:{have + 1}"]) == 2
+    err = capsys.readouterr().err
+    assert "cuda" in err or "exposes" in err
+    rc, doc = _cli(main, ["replay", path, "--target", "sharded:2",
+                          "--device", "cpu"], capsys)
+    assert rc == 0 and doc.pop("device") == "cpu"
+    assert _cli(jax_main, ["replay", path, "--target", "sharded:2"],
+                capsys) == (0, doc)

@@ -294,10 +294,12 @@ _FLAG_VALUES = {
     "control_mode": "hill", "control_target_wait_us": "1234.5",
     "control_w_throughput": "2.5", "control_w_wait": "0.5",
     "control_w_fairness": "0.125",
+    "shards": "4", "tenant_max": "8", "tenant_delim": "/",
+    "tenant_quota": "0.25",
 }
 _PORT_FLAGS = [
     (name, env, typ) for name, env, _, typ, _ in port_config._SPEC
-    if name != "device"
+    if name != "device" and not name.startswith("cluster_")
 ]
 
 
@@ -312,6 +314,8 @@ def test_ported_flag_parses_as_in_jax(monkeypatch, name, env, typ):
     base = ["--http"] if name != "http" else ["--redis"]
     if name == "checkpoint_interval_ms":
         base += ["--checkpoint-dir", "/data/ck"]  # the interval needs one
+    if name in ("tenant_quota", "tenant_affinity"):
+        base += ["--shards", "2"]  # isolation knobs need the mesh
     both = (jax_config.Config, port_config.Config)
     monkeypatch.delenv(env, raising=False)
     got = [getattr(c.from_env_and_args(base), name) for c in both]
@@ -345,6 +349,15 @@ def test_ported_flag_parses_as_in_jax(monkeypatch, name, env, typ):
     ["--trace-mode", "tape"], ["--trace-windows", "0"],
     ["--control-mode", "pid"], ["--control-tick-ms", "0"],
     ["--control-target-wait-us", "0"], ["--control-w-wait", "-1"],
+    ["--shards", "0"], ["--tenant-max", "-1"],
+    ["--shards", "2", "--tenant-max", "1"],
+    ["--shards", "2", "--tenant-delim", "::"],
+    ["--shards", "2", "--tenant-delim", ""],
+    ["--shards", "2", "--tenant-quota", "1.5"],
+    ["--shards", "2", "--tenant-quota", "-0.5"],
+    ["--tenant-quota", "0.5"], ["--tenant-affinity"],
+    ["--shards", "2", "--tenant-max", "0", "--tenant-affinity"],
+    ["--shards", "2", "--tenant-max", "0", "--tenant-quota", "0.5"],
 ], ids=["denied-keys-high", "denied-keys-negative", "drain-negative",
         "deadline-negative", "no-transport", "deny-cache-negative",
         "max-pending-negative", "max-wait-negative", "peek-frac-zero",
@@ -358,7 +371,11 @@ def test_ported_flag_parses_as_in_jax(monkeypatch, name, env, typ):
         "insight-hot-denies-zero", "insight-shed-weight-high",
         "trace-mode", "trace-windows-zero", "control-mode",
         "control-tick-zero", "control-target-wait-zero",
-        "control-weight-negative"])
+        "control-weight-negative", "shards-zero", "tenant-max-negative",
+        "tenant-max-one", "tenant-delim-two-bytes", "tenant-delim-empty",
+        "tenant-quota-high", "tenant-quota-negative",
+        "tenant-quota-one-device", "tenant-affinity-one-device",
+        "tenant-affinity-no-layer", "tenant-quota-no-layer"])
 def test_invalid_flags_refused_as_in_jax(argv):
     for mod in (jax_config, port_config):
         with pytest.raises(mod.ConfigError):
@@ -430,3 +447,112 @@ def test_default_limiter_row_width_as_in_jax(monkeypatch, insight):
     tiers = [jax_store.create_insight(jax_cfg, None, jax_lim, None),
              port_store.create_insight(port_cfg, None, port_lim, None)]
     assert [t is not None for t in tiers] == [insight, insight]
+
+
+# --------------------------------------------------------------------- #
+# C7: the JAX server's mesh, tenant, Pallas and cluster flags.
+
+
+@pytest.mark.parametrize("argv", [
+    ["--http", "--pallas-fused"], ["--http", "--shards", "1"],
+    ["--http", "--shards", "2", "--tenant-quota", "0.5",
+     "--tenant-affinity", "--tenant-max", "16", "--tenant-delim", "/"],
+    ["--http", "--shards", "3", "--tenant-max", "0"],
+], ids=["pallas-fused", "shards-1", "tenant-flags", "tenant-layer-off"])
+def test_mesh_flags_parse_as_in_jax(argv):
+    """Command lines of the JAX server that the port refused before it
+    had the mesh give the same values in both packages."""
+    names = ("shards", "tenant_max", "tenant_delim", "tenant_quota",
+             "tenant_affinity", "pallas_fused")
+    got = [tuple(getattr(c.from_env_and_args(argv), n) for n in names)
+           for c in (jax_config.Config, port_config.Config)]
+    assert got[0] == got[1]
+
+
+def test_mesh_env_builds_the_sharded_limiter_it_names(monkeypatch):
+    """THROTTLECRAB_SHARDS=2 THROTTLECRAB_TENANT_QUOTA=0.5
+    THROTTLECRAB_PALLAS_FUSED=1: both configs carry all three, and the
+    port builds the 2-shard mesh with the quota armed (on CPU shards)
+    instead of a single-device limiter without one."""
+    for env, value in (("THROTTLECRAB_SHARDS", "2"),
+                       ("THROTTLECRAB_TENANT_QUOTA", "0.5"),
+                       ("THROTTLECRAB_PALLAS_FUSED", "1")):
+        monkeypatch.setenv(env, value)
+    cfgs = [c.from_env_and_args(["--http"])
+            for c in (jax_config.Config, port_config.Config)]
+    for cfg in cfgs:
+        assert (cfg.shards, cfg.tenant_quota, cfg.pallas_fused) == (
+            2, 0.5, True)
+    from throttlecrab_tpu_torch.parallel import ShardedTorchRateLimiter
+
+    cfgs[1].device = "cpu"
+    lim = port_store.create_limiter(cfgs[1])
+    assert isinstance(lim, ShardedTorchRateLimiter)
+    assert lim.n_shards == 2 and lim.tenants.quota_frac == 0.5
+    assert "THROTTLECRAB_PALLAS_FUSED" in port_config.list_env_vars_text()
+
+
+def test_shards_on_missing_cards_refused_like_jax_mesh():
+    """--shards N on cuda takes N cards and refuses to shrink the mesh
+    (make_mesh's message, as JAX's on a host with fewer chips)."""
+    import torch
+
+    from throttlecrab_tpu_torch.parallel import make_mesh
+
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    cfg = port_config.Config.from_env_and_args(
+        ["--http", "--shards", str(have + 1)])
+    err = RuntimeError if have == 0 else ValueError
+    with pytest.raises(err, match="cuda|requested a"):
+        port_store.create_limiter(cfg)
+    if have:
+        with pytest.raises(ValueError, match=f"exposes {have}"):
+            make_mesh(have + 1)
+
+
+_CLUSTER_VALUES = {
+    "cluster_nodes": "127.0.0.1:9000,127.0.0.1:9001",
+    "cluster_index": "1", "cluster_bind_host": "127.0.0.9",
+    "cluster_timeout_ms": "250", "cluster_connect_timeout_ms": "250",
+    "cluster_breaker_failures": "5", "cluster_breaker_cooldown_ms": "250",
+    "cluster_vnodes": "0", "cluster_handoff_timeout_ms": "250",
+    "cluster_replica_cap": "10",
+}
+_CLUSTER_FLAGS = [
+    (name, env, typ) for name, env, _, typ, _ in port_config._SPEC
+    if name.startswith("cluster_")
+]
+
+
+@pytest.mark.parametrize(
+    "name,env,typ", _CLUSTER_FLAGS, ids=[f[0] for f in _CLUSTER_FLAGS]
+)
+def test_cluster_flag_default_parses_other_values_refused(
+        monkeypatch, name, env, typ):
+    """Each of the JAX server's 11 cluster flags parses at its default in
+    both packages; a value JAX accepts and the port cannot serve yet, by
+    flag or by environment, is refused with a message naming ROADMAP A8,
+    never ignored."""
+    assert len(_CLUSTER_FLAGS) == 11
+    monkeypatch.delenv(env, raising=False)
+    assert name in {n for n, *_ in jax_config._SPEC}
+    both = (jax_config.Config, port_config.Config)
+    got = [getattr(c.from_env_and_args(["--http"]), name) for c in both]
+    assert got[0] == got[1]
+    if typ is bool:  # store_true at a True default: only env can flip it
+        monkeypatch.setenv(env, "0")
+        assert jax_config.Config.from_env_and_args(["--http"]) is not None
+        with pytest.raises(port_config.ConfigError, match="ROADMAP A8"):
+            port_config.Config.from_env_and_args(["--http"])
+        return
+    flag = "--" + name.replace("_", "-")
+    argv = ["--http", flag, _CLUSTER_VALUES[name]]
+    if name == "cluster_index":
+        argv += ["--cluster-nodes", _CLUSTER_VALUES["cluster_nodes"]]
+    assert getattr(jax_config.Config.from_env_and_args(argv), name) != (
+        got[0])
+    with pytest.raises(port_config.ConfigError, match="ROADMAP A8"):
+        port_config.Config.from_env_and_args(argv)
+    monkeypatch.setenv(env, _CLUSTER_VALUES[name])
+    with pytest.raises(port_config.ConfigError, match="ROADMAP A8"):
+        port_config.Config.from_env_and_args(["--http"])

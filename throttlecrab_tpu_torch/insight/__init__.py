@@ -25,7 +25,10 @@ host nothing.  This tier is the host half:
 
 Exposed through ``GET /stats`` (asyncio and native HTTP), the
 ``throttlecrab_tpu_insight_*`` gauges and the ``THROTTLECRAB_INSIGHT_*``
-knobs.  The mesh-sharded resolver and its cluster poll lock are not
+knobs.  A sharded mesh limiter is served the same way: its table
+answers the poll with mesh-global totals and top-K, whose global slot
+ids resolve through the per-shard keymaps (ShardedSlotKeyResolver), and
+/stats gains its per-tenant counters.  The cluster's poll lock is not
 part of the port yet.
 """
 
@@ -36,7 +39,12 @@ import logging
 import threading
 from typing import Optional
 
-from .collector import NS_PER_SEC, RateWindow, SlotKeyResolver
+from .collector import (
+    NS_PER_SEC,
+    RateWindow,
+    ShardedSlotKeyResolver,
+    SlotKeyResolver,
+)
 from .sketch import SpaceSavingSketch
 
 __all__ = ["InsightTier", "SpaceSavingSketch"]
@@ -102,10 +110,14 @@ class InsightTier:
         self.sketch = SpaceSavingSketch(sketch_capacity)
         self._window = RateWindow(window_s)
         self.limiter = None
-        self._resolver: Optional[SlotKeyResolver] = None
+        self._resolver = None
         # Per-slot last-seen denied counts (delta extraction between
-        # polls; halved alongside the device column on decay).
+        # polls; halved alongside the device column on decay).  Keyed by
+        # the resolver's slot-id encoding: when that re-bases (sharded
+        # table growth), the map resets rather than diffing new ids
+        # against stale entries.
         self._slot_last: dict = {}
+        self._slot_id_base = None
         # Device totals (last fetched) + host-oracle counters: the sum
         # is the truthful all-paths total across degrade/recover.
         self._dev_allowed = 0
@@ -135,7 +147,10 @@ class InsightTier:
 
     def attach(self, limiter) -> None:
         """Bind the DEVICE limiter (a supervision wrapper is unwrapped:
-        polls read the device table and keymap directly)."""
+        polls read the device table and keymap directly).  The sharded
+        mesh limiter qualifies too: its table answers the same poll
+        surface with mesh-global results, and its GLOBAL slot ids
+        resolve through the per-shard keymaps."""
         dev = getattr(limiter, "inner", limiter)
         table = getattr(dev, "table", None)
         if table is None or not getattr(table, "insight", False):
@@ -144,8 +159,17 @@ class InsightTier:
                 "built with insight enabled"
             )
         self.limiter = dev
-        self._resolver = SlotKeyResolver(dev.keymap)
+        if hasattr(dev, "keymaps"):
+            self._resolver = ShardedSlotKeyResolver(dev)
+        else:
+            self._resolver = SlotKeyResolver(dev.keymap)
         self._slot_last = {}
+        # Pin the slot-id encoding base now, so only a LATER re-base
+        # (sharded growth) triggers the baseline-only poll.
+        id_base_fn = getattr(self._resolver, "id_base", None)
+        self._slot_id_base = (
+            id_base_fn() if id_base_fn is not None else None
+        )
 
     # ------------------------------------------------------------------ #
 
@@ -216,6 +240,19 @@ class InsightTier:
             return True
         hot_keys = []
         with self._lock:
+            # Growth re-based the global slot ids (sharded mesh): a stale
+            # delta map would re-record hot slots' whole cumulative counts
+            # under their new ids.  Re-baseline this poll WITHOUT
+            # recording: its inter-poll deltas are unknowable per slot,
+            # so the sketch under-counts once instead of counting whole
+            # histories twice (totals, rates and /stats counters come
+            # from the device totals, not the sketch).
+            id_base_fn = getattr(self._resolver, "id_base", None)
+            id_base = id_base_fn() if id_base_fn is not None else None
+            rebased = id_base != self._slot_id_base
+            if rebased:
+                self._slot_id_base = id_base
+                self._slot_last = {}
             # The concentration denominator is the ENGINE-decided denial
             # delta (device + host oracle), excluding cache-served
             # denials: it measures how concentrated the traffic that
@@ -232,6 +269,10 @@ class InsightTier:
             top_delta = 0
             for slot, val, key in zip(ids, vals, keys):
                 if val <= 0:
+                    continue
+                if rebased:
+                    # Baseline-only pass after an id re-base.
+                    new_last[slot] = val
                     continue
                 prev = slot_last.get(slot, 0)
                 # A count below last-seen means the slot was swept (or
@@ -355,6 +396,15 @@ class InsightTier:
                     "prewarmed_total": self.prewarmed_total,
                 },
             }
+        # Per-tenant dimensions (the sharded limiter's namespace layer,
+        # parallel/tenants.py): mesh-global counters summed from every
+        # window, so /stats answers per tenant with no host-side
+        # per-request accounting.
+        tenant_stats = getattr(self.limiter, "tenant_stats", None)
+        if tenant_stats is not None:
+            tenants = tenant_stats()
+            if tenants:
+                out["tenants"] = tenants
         if state is not None:
             out["engine_state"] = state
         return out

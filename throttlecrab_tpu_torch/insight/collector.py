@@ -79,3 +79,37 @@ class RateWindow:
         if span_s <= 0:
             return 0.0, 0.0
         return (a1 - a0) / span_s, (d1 - d0) / span_s
+
+
+class ShardedSlotKeyResolver:
+    """GLOBAL slot id -> key over a sharded limiter's per-shard keymaps.
+
+    The mesh top-K (parallel/sharded.py ShardedBucketTable.insight_topk)
+    reports global ids ``shard * capacity_per_shard + local_slot``; this
+    decodes them against the LIVE per-shard capacity and resolves each
+    shard's slots through a plain SlotKeyResolver, so the native
+    keymap's mutation-pinned reverse-map cache is reused per shard.
+    Table growth re-bases the id encoding — ``id_base()`` exposes the
+    live base so the insight tier can reset its per-slot delta map
+    instead of diffing new ids against stale ones.  Callers must hold
+    the limiter lock, like the single-device form.
+    """
+
+    def __init__(self, limiter) -> None:
+        self._table = limiter.table
+        self._per_shard = [SlotKeyResolver(km) for km in limiter.keymaps]
+
+    def id_base(self):
+        """The encoding base of the global slot ids; changes exactly
+        when growth re-bases them (InsightTier resets its delta map)."""
+        return self._table.capacity
+
+    def keys_for(self, slots) -> List[Optional[object]]:
+        cap = self._table.capacity
+        n_shards = len(self._per_shard)
+        out: List[Optional[object]] = [None] * len(slots)
+        for i, gid in enumerate(slots):
+            d, slot = divmod(int(gid), cap)
+            if 0 <= d < n_shards:
+                out[i] = self._per_shard[d].keys_for([slot])[0]
+        return out

@@ -640,7 +640,8 @@ class NativeKeyMap:
             blob,
         )
         raw = blob.raw[:total]
-        return [
-            (raw[offsets[i] : offsets[i + 1]], int(slots[i]))
-            for i in range(n)
-        ]
+        # Python ints, not numpy scalars, in the per-key loop.
+        bounds = offsets.tolist()
+        return list(zip(
+            [raw[a:b] for a, b in zip(bounds, bounds[1:])], slots.tolist()
+        ))

@@ -1,10 +1,12 @@
 """Boot-time checkpoint recovery: verify, fall back, restore warm.
 
 The port of `throttlecrab_tpu/persist/recovery.py` for the single-device
-limiter: the merged rows go through `tpu/snapshot.py`'s `_bulk_insert`,
-so on a card through the `row_scatter` kernel.  A recovery stamps a
-"checkpoint-recovery" event on the flight recorder when one is armed.
-The cluster branch is not part of the port yet.
+limiter and the sharded mesh: the merged rows go through
+`tpu/snapshot.py`'s `_bulk_insert`, so on a card through the
+`row_scatter` kernel, and a chain written on D shards restores onto any
+shard count.  A recovery stamps a "checkpoint-recovery" event on the
+flight recorder when one is armed.  The cluster branch is not part of
+the port yet.
 
 The scanner's contract is the opposite of THROTTLECRAB_SNAPSHOT_STRICT:
 a checkpoint directory is *best-effort durable state*, so corruption
@@ -33,6 +35,8 @@ import logging
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Dict, List, Optional, Union
+
+import numpy as np
 
 from ..tpu.snapshot import _bulk_insert, translate_key
 from .format import (
@@ -174,22 +178,27 @@ def recover_into(
     target_bytes_keys = limiter_uses_bytes_keys(limiter)
     merged: Dict = {}
     for rec in records:
-        for i, raw in enumerate(rec.keys_raw):
-            key = translate_key(
-                raw,
-                bool(rec.key_is_bytes[i]),
-                int(rec.key_codec[i]),
-                rec.source_bytes_keys,
-                target_bytes_keys,
-            )
-            merged[key] = (int(rec.tat[i]), int(rec.expiry[i]))
+        if target_bytes_keys:  # translate_key returns the raw bytes
+            keys_t = rec.keys_raw
+        else:
+            keys_t = [
+                translate_key(
+                    raw,
+                    bool(rec.key_is_bytes[i]),
+                    int(rec.key_codec[i]),
+                    rec.source_bytes_keys,
+                    target_bytes_keys,
+                )
+                for i, raw in enumerate(rec.keys_raw)
+            ]
+        merged.update(zip(keys_t, zip(np.asarray(rec.tat).tolist(),
+                                      np.asarray(rec.expiry).tolist())))
 
-    keys, tats, exps = [], [], []
-    for key, (tat, exp) in merged.items():
-        if exp > now_ns:  # restore-time TTL sweep across the chain
-            keys.append(key)
-            tats.append(tat)
-            exps.append(exp)
+    # Restore-time TTL sweep across the chain.
+    live = [(k, t, e) for k, (t, e) in merged.items() if e > now_ns]
+    keys = [k for k, _, _ in live]
+    tats = [t for _, t, _ in live]
+    exps = [e for _, _, e in live]
     if keys:
         result.restored = _bulk_insert(limiter, keys, tats, exps)
     result.generation = chain_used[-1]

@@ -7,11 +7,10 @@
 
 The port of `python -m throttlecrab_tpu.replay`, printing the same JSON
 (``replay`` adds the ``device`` it ran on).  ``replay`` re-runs the
-trace against ``--target`` (oracle / device, the latter on ``--device``
-cuda, the default, or cpu) and diffs the outcomes against the scalar
-oracle AND the trace's recorded planes; any mismatch is a non-zero
-exit.  ``--target sharded:D`` is refused (the mesh limiter is not part
-of the port).  ``diff`` compares two traces' outcome vectors
+trace against ``--target`` (oracle / device / sharded:D, the last two on
+``--device`` cuda, the default, or cpu) and diffs the outcomes against
+the scalar oracle AND the trace's recorded planes; any mismatch is a
+non-zero exit.  ``diff`` compares two traces' outcome vectors
 byte-for-byte.
 """
 
@@ -41,10 +40,10 @@ def main(argv=None) -> int:
     p = sub.add_parser("replay", help="differential replay")
     p.add_argument("path")
     p.add_argument("--target", default="device",
-                   help="oracle | device")
+                   help="oracle | device | sharded:D")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                   help="torch device of the device target (cuda: the "
-                        "card; cpu: the plain version)")
+                   help="torch device of the device and sharded targets "
+                        "(cuda: the card; cpu: the plain version)")
 
     p = sub.add_parser("diff", help="byte-diff two traces' outcomes")
     p.add_argument("a")
@@ -90,10 +89,11 @@ def main(argv=None) -> int:
         from .player import differential_replay, make_target
 
         trace = Trace.load(args.path)
-        kw = {"device": args.device} if args.target == "device" else {}
+        kw = {"device": args.device} if args.target != "oracle" else {}
         try:
             target = make_target(args.target, trace, **kw)
-        except ValueError as e:  # an unknown or unported target
+        except (ValueError, RuntimeError) as e:
+            # An unknown target, or a device (or card count) not present.
             print(f"error: {e}", file=sys.stderr)
             return 2
         report = differential_replay(trace, target)

@@ -1,7 +1,7 @@
 """Replay player: re-run a trace under virtual time, differentially.
 
-The port of `throttlecrab_tpu/replay/player.py` for the single-device
-targets.  A trace (trace.py) carries everything a decision depends on —
+The port of `throttlecrab_tpu/replay/player.py` (its cluster replayer
+is not part of the port yet).  A trace (trace.py) carries everything a decision depends on —
 key, params, quantity, and the server-side timestamp each window was
 stamped with — so replaying is exact by construction: time is an input
 (rate_limiter.rs:109), never ambient.  The player re-drives those
@@ -13,11 +13,10 @@ windows against a limiter:
   passes ``device="cpu"`` (the plain version); every window is one
   ``rate_limit_batch`` call, so on a card one launch of the
   decision-window kernel per conflict round of the window (one for a
-  window whose keys keep their params).
-
-The JAX package's mesh target (``sharded:D``) and its in-process
-cluster replayer are not part of the port: ``make_target`` refuses
-``sharded`` with a ValueError that names the missing piece.
+  window whose keys keep their params);
+* ``sharded:D`` — a `ShardedTorchRateLimiter` over ``make_mesh(D)`` on
+  the same device (D cards on ``cuda``, D shards of the CPU on
+  ``cpu``), one launch per shard per conflict round.
 
 Two modes:
 
@@ -61,9 +60,11 @@ def _next_pow2(n: int) -> int:
 
 
 def make_target(name: str, trace: Optional[Trace] = None, **kw):
-    """Build a replay target limiter: ``oracle`` or ``device`` (extra
+    """Build a replay target limiter: ``oracle``, ``device`` (extra
     keywords go to `TorchRateLimiter`, e.g. ``device="cpu"``; the
-    default is the card).  Capacity is sized from the trace's
+    default is the card) or ``sharded:D`` (D shards, ``device`` picks
+    the mesh's device type; other keywords go to
+    `ShardedTorchRateLimiter`).  Capacity is sized from the trace's
     distinct-key count so a replay can never fail on table growth."""
     cap = kw.pop("capacity", None)
     if cap is None:
@@ -79,9 +80,14 @@ def make_target(name: str, trace: Optional[Trace] = None, **kw):
 
         return TorchRateLimiter(capacity=cap, **kw)
     if name.startswith("sharded"):
-        raise ValueError(
-            f"replay target {name!r}: the sharded mesh limiter is not "
-            "part of the port yet (ROADMAP A7)"
+        from ..parallel.sharded import ShardedTorchRateLimiter, make_mesh
+
+        d = int(name.split(":", 1)[1]) if ":" in name else 2
+        device = kw.pop("device", "cuda")
+        return ShardedTorchRateLimiter(
+            capacity_per_shard=max(cap // d, 1024),
+            mesh=make_mesh(d, device=device),
+            **kw,
         )
     raise ValueError(f"unknown replay target {name!r}")
 

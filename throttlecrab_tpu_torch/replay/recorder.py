@@ -318,9 +318,6 @@ def from_config(config) -> Optional[FlightRecorder]:
         mode=config.trace_mode,
         out_dir=config.trace_dir,
         dump_on_degrade=config.trace_dump_on_degrade,
-        # The port's server has no tenant layer (no --tenant-delim) yet:
-        # ":" is the JAX server's default delimiter, so both packages
-        # derive the same tenant ids.
         tenant_delim=getattr(config, "tenant_delim", ":"),
     )
 

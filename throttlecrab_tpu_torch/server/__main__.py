@@ -248,6 +248,10 @@ async def run_server(config: Config) -> None:
     # degrade / re-promote decisions are made once, under the shared
     # limiter lock.
     device_limiter = create_limiter(config)
+    if getattr(device_limiter, "tenants", None) is not None:
+        # Sharded mesh with the tenant layer armed: export the
+        # mesh-global per-tenant counters on GET /metrics.
+        metrics.set_tenant_stats_provider(device_limiter.tenant_stats)
     supervisor = create_supervised_limiter(config, device_limiter, metrics)
     metrics.set_engine_state_provider(lambda: supervisor.state)
     checkpointer = None

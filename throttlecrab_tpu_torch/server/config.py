@@ -1,26 +1,32 @@
 """Server configuration: CLI flags + THROTTLECRAB_* environment variables.
 
-The subset of `throttlecrab_tpu/server/config.py` this server serves,
-with the same precedence (CLI > env > default, `config.rs:356-361`):
-the HTTP, gRPC and Redis/RESP transports and their backends (asyncio or
-the native C++ wire server), the store (which picks the cleanup policy)
-and its cleanup knobs, the reference's buffer size (accepted, unused) and
-top-denied leaderboard size, the micro-batching knobs, the keymap
-backend, the profiler capture (`--profile-dir`), the front tier (deny
-cache and admission control), the boot/shutdown snapshot,
-crash-durability checkpoints, the insight tier, the launch supervisor
-and fault injection, the flight recorder (`--trace-*`), the SIGTERM
-drain budget and the default request deadline, the adaptive control
-plane (`--control*`), and `--device` / THROTTLECRAB_DEVICE (default
-`cuda`; `cpu` runs the plain version).
+The flags of `throttlecrab_tpu/server/config.py`, with the same
+precedence (CLI > env > default, `config.rs:356-361`): the HTTP, gRPC and
+Redis/RESP transports and their backends (asyncio or the native C++ wire
+server), the store (which picks the cleanup policy) and its cleanup
+knobs, the reference's buffer size (accepted, unused) and top-denied
+leaderboard size, the micro-batching knobs, the keymap backend, the
+sharded mesh (`--shards`) and its tenant layer (`--tenant-*`), the
+profiler capture (`--profile-dir`), the front tier (deny cache and
+admission control), the boot/shutdown snapshot, crash-durability
+checkpoints, the insight tier, the launch supervisor and fault
+injection, the flight recorder (`--trace-*`), the SIGTERM drain budget
+and the default request deadline, the adaptive control plane
+(`--control*`), and `--device` / THROTTLECRAB_DEVICE (default `cuda`;
+`cpu` runs the plain version).
+
+`--pallas-fused` parses and changes nothing: the port has one route, the
+hand-written decision-window kernel.  The `--cluster-*` flags parse at
+their defaults; the cluster tier is not part of the port yet, so a
+non-default value, by flag or environment, is refused.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
-from dataclasses import dataclass
 from typing import List, Optional
 
 from ..faults import parse_spec
@@ -72,6 +78,32 @@ _SPEC = [
      "Max backlog sub-batches decided in one device launch"),
     ("keymap", "THROTTLECRAB_KEYMAP", "auto", str,
      "Host key->slot backend: auto, python, native"),
+    ("shards", "THROTTLECRAB_SHARDS", 1, int,
+     "Number of devices to shard the bucket table over (on cuda the "
+     "first N cards, refused when fewer exist; on cpu N shards of the "
+     "one CPU device)"),
+    # --- tenant/namespace layer (sharded mesh only, parallel/tenants.py)
+    ("tenant_max", "THROTTLECRAB_TENANT_MAX", 64, int,
+     "Max distinct tenants/namespaces tracked by the sharded mesh's "
+     "per-tenant counters and quotas (key prefix before the first "
+     "delimiter; extras share an overflow bucket; 0 disables the "
+     "tenant layer entirely; needs --shards > 1)"),
+    ("tenant_delim", "THROTTLECRAB_TENANT_DELIM", ":", str,
+     "Single-byte delimiter separating the tenant/namespace prefix "
+     "from the rest of the key"),
+    ("tenant_quota", "THROTTLECRAB_TENANT_QUOTA", 0.0, float,
+     "Per-tenant slot-capacity quota as a fraction of each shard's "
+     "capacity (0 disables): new keys past the quota are refused with "
+     "the tenant-quota status so one abusive tenant cannot fill the "
+     "table and evict others' slots"),
+    ("tenant_affinity", "THROTTLECRAB_TENANT_AFFINITY", False, bool,
+     "Route keys by their tenant/namespace hash instead of the full "
+     "key, making each tenant's keys shard-local (keys without a "
+     "delimiter still spread by full-key hash)"),
+    ("pallas_fused", "THROTTLECRAB_PALLAS_FUSED", False, bool,
+     "Accepted for the JAX server's command lines and changes nothing: "
+     "every decision window here is one launch of the hand-written "
+     "CUDA kernel (the cpu device runs its plain version)"),
     ("profile_dir", "THROTTLECRAB_PROFILE_DIR", "", str,
      "Directory for a torch.profiler Chrome trace of the first launches "
      "(empty: off)"),
@@ -161,6 +193,40 @@ _SPEC = [
      "declares the device down (persistent degrade), so every chaos "
      "failure leaves a replayable post-mortem artifact (env 0 "
      "disables)"),
+    # --- cluster tier: parses at its defaults, not part of the port yet
+    ("cluster_nodes", "THROTTLECRAB_CLUSTER_NODES", "", str,
+     "Comma-separated host:port cluster RPC addresses of every node "
+     "(empty: single-node; the cluster tier is not part of the port "
+     "yet, so only the default is accepted)"),
+    ("cluster_index", "THROTTLECRAB_CLUSTER_INDEX", 0, int,
+     "This node's position in --cluster-nodes (default only)"),
+    ("cluster_bind_host", "THROTTLECRAB_CLUSTER_BIND_HOST", "0.0.0.0", str,
+     "Bind host for the cluster RPC listener (default only)"),
+    ("cluster_timeout_ms", "THROTTLECRAB_CLUSTER_TIMEOUT_MS", 1000, int,
+     "Per-peer forward deadline in milliseconds (default only)"),
+    ("cluster_connect_timeout_ms",
+     "THROTTLECRAB_CLUSTER_CONNECT_TIMEOUT_MS", 1000, int,
+     "Per-peer TCP connect deadline in milliseconds (default only)"),
+    ("cluster_breaker_failures", "THROTTLECRAB_CLUSTER_BREAKER_FAILURES",
+     3, int,
+     "Consecutive peer failures that open the circuit breaker (default "
+     "only)"),
+    ("cluster_breaker_cooldown_ms",
+     "THROTTLECRAB_CLUSTER_BREAKER_COOLDOWN_MS", 1000, int,
+     "Circuit-breaker cooldown before the next probe in milliseconds "
+     "(default only)"),
+    ("cluster_vnodes", "THROTTLECRAB_CLUSTER_VNODES", 128, int,
+     "Virtual nodes per cluster node on the consistent-hash ring "
+     "(default only)"),
+    ("cluster_replicate", "THROTTLECRAB_CLUSTER_REPLICATE", True, bool,
+     "Warm-standby replication to the ring successor (default only)"),
+    ("cluster_handoff_timeout_ms",
+     "THROTTLECRAB_CLUSTER_HANDOFF_TIMEOUT_MS", 5000, int,
+     "How long a joining node waits for a migration in milliseconds "
+     "(default only)"),
+    ("cluster_replica_cap", "THROTTLECRAB_CLUSTER_REPLICA_CAP",
+     100_000, int,
+     "Bound on warm-standby replica rows (default only)"),
     ("drain_timeout_ms", "THROTTLECRAB_DRAIN_TIMEOUT_MS", 10_000, int,
      "SIGTERM drain budget in milliseconds: stop accepting, flush "
      "in-flight batches with real decisions and snapshot; past the "
@@ -229,7 +295,7 @@ _SPEC = [
 ]
 
 
-@dataclass
+@dataclasses.dataclass
 class Config:
     http: bool = False
     http_host: str = "0.0.0.0"
@@ -256,6 +322,12 @@ class Config:
     max_linger_us: int = 200
     max_scan_depth: int = 16
     keymap: str = "auto"
+    shards: int = 1
+    tenant_max: int = 64
+    tenant_delim: str = ":"
+    tenant_quota: float = 0.0
+    tenant_affinity: bool = False
+    pallas_fused: bool = False
     profile_dir: str = ""
     front_deny_cache: int = 65536
     front_max_pending: int = 100_000
@@ -278,6 +350,17 @@ class Config:
     trace_windows: int = 1024
     trace_mode: str = "ring"
     trace_dump_on_degrade: bool = True
+    cluster_nodes: str = ""
+    cluster_index: int = 0
+    cluster_bind_host: str = "0.0.0.0"
+    cluster_timeout_ms: int = 1000
+    cluster_connect_timeout_ms: int = 1000
+    cluster_breaker_failures: int = 3
+    cluster_breaker_cooldown_ms: int = 1000
+    cluster_vnodes: int = 128
+    cluster_replicate: bool = True
+    cluster_handoff_timeout_ms: int = 5000
+    cluster_replica_cap: int = 100_000
     drain_timeout_ms: int = 10_000
     deadline_default_ms: int = 0
     insight: bool = True
@@ -339,6 +422,47 @@ class Config:
                 f"Invalid keymap backend: {self.keymap!r} "
                 "(expected auto, python, or native)"
             )
+        if self.shards < 1:
+            raise ConfigError("shards must be >= 1")
+        if self.tenant_max < 0:
+            raise ConfigError("tenant_max must be >= 0")
+        if self.tenant_max == 1:
+            raise ConfigError(
+                "tenant_max must be 0 (off) or >= 2 (id 0 is the "
+                "overflow bucket)"
+            )
+        if len(self.tenant_delim.encode()) != 1:
+            raise ConfigError("tenant_delim must be exactly one byte")
+        if not 0.0 <= self.tenant_quota <= 1.0:
+            raise ConfigError("tenant_quota must be in [0, 1]")
+        if self.tenant_quota > 0 and self.tenant_max == 0:
+            raise ConfigError(
+                "tenant_quota needs the tenant layer (tenant_max > 0)"
+            )
+        if self.tenant_affinity and self.tenant_max == 0:
+            raise ConfigError(
+                "tenant_affinity needs the tenant layer (tenant_max > 0)"
+            )
+        if self.shards == 1 and (
+            self.tenant_affinity or self.tenant_quota > 0
+        ):
+            # Explicitly requested isolation knobs exist only on the
+            # sharded mesh: refusing beats silently dropping them
+            # (tenant_max alone keeps its default and stays quiet).
+            raise ConfigError(
+                "tenant_affinity/tenant_quota need a sharded mesh "
+                "(--shards > 1)"
+            )
+        for f in dataclasses.fields(self):
+            if f.name.startswith("cluster_") and (
+                getattr(self, f.name) != f.default
+            ):
+                raise ConfigError(
+                    f"--{f.name.replace('_', '-')} "
+                    f"{getattr(self, f.name)!r}: the cluster tier is not "
+                    "part of the port yet (ROADMAP A8); only its default "
+                    f"{f.default!r} is accepted"
+                )
         if self.front_deny_cache < 0:
             raise ConfigError("front_deny_cache must be >= 0")
         if self.front_max_pending < 0 or self.front_max_wait_us < 0:

@@ -53,6 +53,7 @@ from ..tpu.limiter import (
     STATUS_INVALID_PARAMS,
     STATUS_NEGATIVE_QUANTITY,
     STATUS_OK,
+    STATUS_TENANT_QUOTA,
 )
 from ..tpu.profiling import annotate
 from .supervisor import supervisor_state
@@ -68,6 +69,7 @@ STATUS_MESSAGES = {
     STATUS_NEGATIVE_QUANTITY: "quantity cannot be negative",
     STATUS_INVALID_PARAMS: "invalid rate limit parameters",
     STATUS_INTERNAL: "internal error",
+    STATUS_TENANT_QUOTA: "tenant capacity quota exceeded",
     STATUS_DEADLINE: "deadline exceeded",
 }
 
@@ -518,7 +520,15 @@ class BatchingEngine:
             if fut.done():
                 continue
             status = int(result.status[i])
-            if status == STATUS_DEADLINE:
+            if status == STATUS_TENANT_QUOTA:
+                # A capacity condition, not a server fault: the protocol
+                # overload status (HTTP 503 / gRPC RESOURCE_EXHAUSTED /
+                # RESP -ERR), so clients can tell "tenant over quota,
+                # back off" from a 500-class error.
+                fut.set_exception(
+                    OverloadError(STATUS_MESSAGES[STATUS_TENANT_QUOTA])
+                )
+            elif status == STATUS_DEADLINE:
                 fut.set_exception(
                     DeadlineError(STATUS_MESSAGES[STATUS_DEADLINE])
                 )

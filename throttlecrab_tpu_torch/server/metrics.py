@@ -55,6 +55,11 @@ METRIC_NAMES = (
     "throttlecrab_tpu_insight_tracked_keys",
     "throttlecrab_tpu_insight_prewarmed_total",
     "throttlecrab_tpu_insight_polls",
+    # Tenant/namespace layer (sharded mesh, parallel/tenants.py):
+    # mesh-global per-tenant counters.
+    "throttlecrab_tpu_tenant_allowed",
+    "throttlecrab_tpu_tenant_denied",
+    "throttlecrab_tpu_tenant_quota_rejections",
     # Control plane (control/).
     "throttlecrab_tpu_control_ticks",
     "throttlecrab_tpu_control_actuations",
@@ -135,6 +140,7 @@ class Metrics:
         self._insight_stats = None
         self._control_stats = None
         self._checkpoint_stats = None
+        self._tenant_stats = None
 
     @classmethod
     def builder(cls) -> "MetricsBuilder":
@@ -268,6 +274,12 @@ class Metrics:
         """`provider()` -> Checkpointer.metric_stats(); exported as the
         throttlecrab_tpu_checkpoint_* gauges (-1 / 0 when disarmed)."""
         self._checkpoint_stats = provider
+
+    def set_tenant_stats_provider(self, provider) -> None:
+        """`provider()` -> ShardedTorchRateLimiter.tenant_stats();
+        exported as per-tenant allowed/denied/quota-rejection counters
+        (sharded deployments with the tenant layer armed)."""
+        self._tenant_stats = provider
 
     def record_drain_shed(self, n: int = 1) -> None:
         with self._lock:
@@ -448,6 +460,28 @@ class Metrics:
         metric("throttlecrab_tpu_checkpoint_recoveries_total",
                "Boot-time recoveries that restored a checkpoint chain",
                "counter", ck.get("recoveries_total", 0))
+        if self._tenant_stats is not None:
+            # Tenant/namespace layer (sharded mesh deployments only).
+            stats = self._tenant_stats()
+            for name, field, help_ in (
+                ("throttlecrab_tpu_tenant_allowed", "allowed",
+                 "Allowed decisions per tenant (mesh-global, "
+                 "psum-reduced in-launch)"),
+                ("throttlecrab_tpu_tenant_denied", "denied",
+                 "Denied decisions per tenant (mesh-global, "
+                 "psum-reduced in-launch)"),
+                ("throttlecrab_tpu_tenant_quota_rejections",
+                 "quota_rejections",
+                 "New keys refused by the per-tenant slot-capacity "
+                 "quota"),
+            ):
+                out.append(f"# HELP {name} {help_}")
+                out.append(f"# TYPE {name} counter")
+                for tenant, counts in sorted(stats.items()):
+                    escaped = escape_label_value(tenant)
+                    out.append(
+                        f'{name}{{tenant="{escaped}"}} {counts[field]}'
+                    )
         return "\n".join(out) + "\n"
 
 

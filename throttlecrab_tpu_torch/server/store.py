@@ -1,7 +1,8 @@
 """Limiter/policy factory: config -> engine parts (reference: store.rs:57-87).
 
 The "store" choice selects the cleanup policy; the bucket table itself is
-always the device table of `TorchRateLimiter`.  The launch supervisor, the
+always a device table: `TorchRateLimiter`'s on one device, or the sharded
+mesh's (`ShardedTorchRateLimiter`) when `shards` > 1.  The launch supervisor, the
 front tier and the insight tier wrap, front and watch it, and the
 control plane tunes their knobs, as the JAX server's factories do
 (`throttlecrab_tpu/server/store.py`).
@@ -15,6 +16,8 @@ import logging
 
 from ..front import AdmissionController, DenyCache, FrontTier
 from ..insight import InsightTier
+from ..parallel.sharded import ShardedTorchRateLimiter, make_mesh
+from ..parallel.tenants import TenantRegistry
 from ..tpu.cleanup import CleanupPolicy, make_policy
 from ..tpu.limiter import TorchRateLimiter, limiter_uses_bytes_keys
 from .supervisor import SupervisedLimiter
@@ -22,11 +25,34 @@ from .supervisor import SupervisedLimiter
 log = logging.getLogger("throttlecrab.store")
 
 
-def create_limiter(config) -> TorchRateLimiter:
-    """The single-device limiter the engine will drive, on
-    `config.device` (raises when that device is absent).  With the
-    insight tier on (the default) its table stores the 6-wide rows and
-    every window accumulates the insight totals."""
+def create_limiter(config):
+    """The device limiter the engine will drive, on `config.device`
+    (raises when that device is absent).  `shards` > 1 builds the
+    sharded mesh limiter over `make_mesh(shards)` — the first N cards on
+    cuda (refused when fewer exist), N shards of the one CPU on cpu —
+    with `max(store_capacity // shards, 1024)` slots per shard and the
+    tenant layer from the `tenant_*` flags (`tenant_max` 0: off).  With
+    the insight tier on (the default) the table stores the 6-wide rows
+    and every window accumulates the insight totals."""
+    if config.shards > 1:
+        mesh = make_mesh(config.shards, device=config.device)
+        tenants = None
+        if config.tenant_max > 0:
+            tenants = TenantRegistry(
+                max_tenants=config.tenant_max,
+                delim=config.tenant_delim,
+                quota_frac=config.tenant_quota,
+                affinity=config.tenant_affinity,
+            )
+        return ShardedTorchRateLimiter(
+            capacity_per_shard=max(
+                config.store_capacity // config.shards, 1024
+            ),
+            mesh=mesh,
+            keymap=config.keymap,
+            insight=config.insight,
+            tenants=tenants,
+        )
     return TorchRateLimiter(
         capacity=config.store_capacity,
         keymap=config.keymap,

@@ -62,6 +62,9 @@ STATUS_OK = 0
 STATUS_NEGATIVE_QUANTITY = 1
 STATUS_INVALID_PARAMS = 2
 STATUS_INTERNAL = 3
+# Request needed a NEW table slot but its tenant is at its slot-capacity
+# quota (sharded mesh with the tenant layer, parallel/tenants.py).
+STATUS_TENANT_QUOTA = 5
 # Request outlived its client deadline: shed host-side before device
 # dispatch (server/engine.py).
 STATUS_DEADLINE = 6
@@ -195,8 +198,12 @@ def limiter_uses_bytes_keys(limiter) -> bool:
     """Whether a limiter's host keymap stores bytes keys (native backend)
     or str keys (python backend).  Transports that receive raw bytes must
     match the identity str-keyed transports use, or one client key
-    becomes two buckets."""
-    return bool(getattr(limiter.keymap, "BYTES_KEYS", False))
+    becomes two buckets.  Works across TorchRateLimiter (.keymap) and the
+    sharded limiter (._bytes_keys)."""
+    km = getattr(limiter, "keymap", None)
+    if km is not None:
+        return bool(getattr(km, "BYTES_KEYS", False))
+    return bool(getattr(limiter, "_bytes_keys", False))
 
 
 def sequential_fallback(batches, decide_fn, error_result_fn, wire,

@@ -1,17 +1,23 @@
 """Device-state snapshot / restore, with the rows moved by the row kernels.
 
-The port of `throttlecrab_tpu/tpu/snapshot.py` for the single-device
-limiter.  The file format is the JAX package's, field for field
-(`FORMAT_VERSION` 2: the zero `shard` column, `n_shards` 1,
-length-prefixed keys, the per-key codec and `source_bytes_keys`), so a
-file saved by either package loads in the other.
+The port of `throttlecrab_tpu/tpu/snapshot.py`, for the single-device
+limiter and the sharded mesh.  The file format is the JAX package's,
+field for field (`FORMAT_VERSION` 2: the per-key `shard` column,
+`n_shards`, length-prefixed keys, the per-key codec and
+`source_bytes_keys`), so a file saved by either package loads in the
+other.
 
 Export gathers the table's rows at the live slots with
 `row_ops.row_gather` (the CUDA kernel on a card, `index_select` on the
 CPU), in chunks of at most `row_ops.MAX_BATCH` rows, fetches them to the
 host once and joins the i64 tat/expiry there.  Restore allocates slots
 through the keymap, packs the rows on the table's device and writes them
-with `row_ops.row_scatter`, chunked the same way.
+with `row_ops.row_scatter`, chunked the same way.  On the mesh each
+shard's rows move this way on that shard's own table, ceil(n_d /
+MAX_BATCH) launches per shard (the JAX package copies the whole
+[D, rows, W] table through the host instead), and restored keys route
+through the target limiter's own `shard_of` (tenant affinity included),
+so a snapshot of D shards restores onto any shard count.
 
 Snapshots are best-effort soft state: keys whose TTL lapsed between
 snapshot and restore are dropped, so a stale snapshot degrades to an
@@ -40,7 +46,7 @@ from ..faults import fsync_with_faults, maybe_fail
 from . import row_ops
 from .kernel import pack_state
 from .limiter import limiter_uses_bytes_keys
-from .table import tats_cur_safe
+from .table import on_device, tats_cur_safe
 
 FORMAT_VERSION = 2  # v2 adds the per-key `shard` column (v1 loads fine)
 
@@ -56,6 +62,8 @@ class SnapshotError(ValueError):
 
 def _encode_keys(keys):
     """keys -> (key bytes, per-key is_bytes flag, per-key codec)."""
+    if all(type(k) is bytes for k in keys):  # a native keymap's export
+        return list(keys), [True] * len(keys), [0] * len(keys)
     out = []
     key_is_bytes = []
     key_codec = []  # 0 = surrogateescape, 1 = surrogatepass
@@ -87,10 +95,11 @@ def gather_rows(table, slots) -> np.ndarray:
     """The table's packed rows at `slots` (i64[n], live slots), fetched
     to the host once: ceil(n / MAX_BATCH) `row_gather` launches."""
     idx = torch.from_numpy(np.asarray(slots, np.int32)).to(table.device)
-    parts = [
-        row_ops.row_gather(table.state, idx[lo:hi])
-        for lo, hi in _chunks(len(slots))
-    ]
+    with on_device(table.device):
+        parts = [
+            row_ops.row_gather(table.state, idx[lo:hi])
+            for lo, hi in _chunks(len(slots))
+        ]
     return torch.cat(parts).cpu().numpy()
 
 
@@ -98,8 +107,20 @@ def scatter_rows(table, slots, rows) -> None:
     """table.state[slots] = rows in place, `slots` unique: ceil(n /
     MAX_BATCH) `row_scatter` launches."""
     idx = torch.from_numpy(np.asarray(slots, np.int32)).to(table.device)
-    for lo, hi in _chunks(len(slots)):
-        row_ops.row_scatter(table.state, idx[lo:hi], rows[lo:hi])
+    with on_device(table.device):
+        for lo, hi in _chunks(len(slots)):
+            row_ops.row_scatter(table.state, idx[lo:hi], rows[lo:hi])
+
+
+def _join_cols(rows):
+    """Packed i32[n, W] rows -> (tat i64[n], expiry i64[n])."""
+    tat = (rows[:, 1].astype(np.int64) << 32) | (
+        rows[:, 0].astype(np.int64) & _U32
+    )
+    expiry = (rows[:, 3].astype(np.int64) << 32) | (
+        rows[:, 2].astype(np.int64) & _U32
+    )
+    return tat, expiry
 
 
 def export_state(limiter):
@@ -107,7 +128,9 @@ def export_state(limiter):
 
     Returns ``(keys, slots, shard, tat, expiry, capacity, n_shards)``:
     the key objects as the keymap holds them (str or bytes) plus i64
-    tat/expiry columns; `shard` is all zero and `n_shards` 1.
+    tat/expiry columns.  A sharded limiter lists its shards in order,
+    each key with its shard; a single-device one has `shard` all zero
+    and `n_shards` 1.
 
     A degraded SupervisedLimiter exports its host oracle's state (the
     device copy is stale once the oracle takes over; slots are -1);
@@ -128,22 +151,29 @@ def export_state(limiter):
                 1,
             )
         limiter = limiter.inner
-    items = limiter.keymap.items()
-    keys = [k for k, _ in items]
-    slots = np.asarray([s for _, s in items], np.int64)
-    shard = np.zeros(len(slots), np.int32)
-    if len(slots):
-        rows = gather_rows(limiter.table, slots)
-        tat = (rows[:, 1].astype(np.int64) << 32) | (
-            rows[:, 0].astype(np.int64) & _U32
-        )
-        expiry = (rows[:, 3].astype(np.int64) << 32) | (
-            rows[:, 2].astype(np.int64) & _U32
-        )
+    if hasattr(limiter, "keymaps"):  # ShardedTorchRateLimiter
+        tables = limiter.table.shards
+        per_shard = [km.items() for km in limiter.keymaps]
     else:
-        tat = np.zeros(0, np.int64)
-        expiry = np.zeros(0, np.int64)
-    return keys, slots, shard, tat, expiry, limiter.table.capacity, 1
+        tables = [limiter.table]
+        per_shard = [limiter.keymap.items()]
+    keys = [k for p in per_shard for k, _ in p]
+    slots = np.asarray([s for p in per_shard for _, s in p], np.int64)
+    shard = np.asarray(
+        [d for d, p in enumerate(per_shard) for _ in p], np.int32
+    )
+    rows = [
+        gather_rows(table, [s for _, s in p])
+        for table, p in zip(tables, per_shard)
+        if p
+    ]
+    tat, expiry = _join_cols(
+        np.concatenate(rows) if rows else np.zeros((0, 4), np.int32)
+    )
+    return (
+        keys, slots, shard, tat, expiry, limiter.table.capacity,
+        len(tables),
+    )
 
 
 def translate_key(
@@ -348,17 +378,21 @@ def load_snapshot(
         raise SnapshotError("corrupt snapshot: key offsets inconsistent")
 
     target_bytes_keys = limiter_uses_bytes_keys(limiter)
-    live = np.flatnonzero(expiry > now_ns)
-    keys = [
-        translate_key(
-            key_blob[offsets[i]:offsets[i + 1]],
-            bool(key_is_bytes[i]),
-            int(key_codec[i]),
-            source_bytes_keys,
-            target_bytes_keys,
-        )
-        for i in live
-    ]
+    live = np.flatnonzero(expiry > now_ns).tolist()
+    bounds = offsets.tolist()
+    if target_bytes_keys:  # translate_key returns the raw bytes
+        keys = [key_blob[bounds[i]:bounds[i + 1]] for i in live]
+    else:
+        keys = [
+            translate_key(
+                key_blob[bounds[i]:bounds[i + 1]],
+                bool(key_is_bytes[i]),
+                int(key_codec[i]),
+                source_bytes_keys,
+                target_bytes_keys,
+            )
+            for i in live
+        ]
     if not keys:
         return 0
     return _bulk_insert(
@@ -367,11 +401,111 @@ def load_snapshot(
     )
 
 
+def _reattribute_tenants(limiter) -> None:
+    """Rebuild a sharded limiter's per-tenant slot-quota bookkeeping
+    after a bulk restore (no-op without the tenant layer): restored
+    slots were allocated behind the prepare path's back, and an
+    unattributed live slot would otherwise be mistaken for a fresh
+    allocation — and could be quota-refused and freed, losing its
+    restored state — on its first touch after the restore."""
+    tos_list = getattr(limiter, "_tenant_of_slot", None)
+    if tos_list is None:
+        return
+    reg = limiter.tenants
+    delim = reg.delim_byte
+    for d, km in enumerate(limiter.keymaps):
+        tos = tos_list[d]
+        used = limiter._tenant_used[d]
+        tos[:] = -1
+        used[:] = 0
+        items = km.items()
+        kbs = [
+            k if isinstance(k, bytes)
+            else str(k).encode("utf-8", "surrogateescape")
+            for k, _ in items
+        ]
+        names = [kb[:p] if (p := kb.find(delim)) > 0 else b"" for kb in kbs]
+        # Registry probes in keymap order of first sight, as JAX's
+        # per-key loop registers them; repeats reuse the answer.
+        tid = {name: reg.tid_of(name) for name in dict.fromkeys(names)}
+        tids = np.fromiter((tid[name] for name in names), np.int64,
+                           count=len(names))
+        slots = np.fromiter((s for _, s in items), np.int64,
+                            count=len(items))
+        ok = (slots >= 0) & (slots < len(tos))
+        tos[slots[ok]] = tids[ok]
+        used += np.bincount(tids[ok], minlength=len(used))
+
+
+def _insert_rows(table, keymap, keys, tat_arr, exp_arr) -> None:
+    """Allocate `keymap` slots for `keys` and scatter their packed rows
+    into `table` (one device's table)."""
+    if getattr(keymap, "BYTES_KEYS", False):
+        key_src = [
+            k if isinstance(k, bytes) else k.encode("utf-8", "surrogateescape")
+            for k in keys
+        ]
+    else:
+        key_src = keys  # original identity preserved (str stays str)
+    slots, _, _, n_full = keymap.resolve(key_src, np.ones(len(keys), bool))
+    if n_full:
+        raise ValueError("snapshot exceeds limiter capacity")
+    # Two keys can resolve to one slot ("a" and b"a" both become b"a" in
+    # a native keymap).  The JAX restore's `.at[slots].set(rows)` keeps
+    # the last; row_scatter needs unique slots, so keep the last here.
+    slots = np.asarray(slots, np.int64)
+    _, first_rev = np.unique(slots[::-1], return_index=True)
+    keep = np.sort(len(slots) - 1 - first_rev)
+    dev = table.device
+    rows = pack_state(
+        torch.from_numpy(tat_arr[keep]).to(dev),
+        torch.from_numpy(exp_arr[keep]).to(dev),
+    )
+    width = table.state.shape[-1]
+    if width > rows.shape[-1]:
+        # Insight-widened rows: restored keys start with a cold
+        # denied-hit counter.
+        rows = torch.cat(
+            [rows, rows.new_zeros((len(keep), width - rows.shape[-1]))],
+            dim=-1,
+        )
+    scatter_rows(table, slots[keep], rows.contiguous())
+
+
+def _route_restored(limiter, keys):
+    """Shard of each restored key under `limiter`'s own routing
+    (`_route`, the serving path's vectorized twin of `shard_of`, tenant
+    affinity included), or -1 for a str key that cannot be encoded: the
+    sharded decide path strict-encodes keys the same way, so it could
+    never serve such a key, and one odd key must not lose the whole
+    snapshot."""
+    bkeys = []
+    for k in keys:
+        if isinstance(k, bytes):
+            bkeys.append(k)
+            continue
+        try:
+            bkeys.append(str(k).encode())
+        except UnicodeEncodeError:
+            bkeys.append(None)
+    shard = np.full(len(keys), -1, np.int32)
+    ok = np.flatnonzero([b is not None for b in bkeys])
+    for lo, hi in _chunks(len(ok)):
+        part = [bkeys[i] for i in ok[lo:hi]]
+        shard[ok[lo:hi]] = limiter._route(part, len(part))[0]
+    return shard
+
+
 def _bulk_insert(limiter, keys, tats, expiries) -> int:
     """Allocate slots for `keys` and write their state rows; returns the
     number of keys inserted (duplicates included, as the JAX package
     counts them).  `tats` / `expiries` are any i64 sequences (the
-    supervisor's re-promotion hands over lists)."""
+    supervisor's re-promotion hands over lists).
+
+    A sharded target re-routes every key through its own key→shard hash
+    (a snapshot's shard column is advisory only), so a D-shard snapshot
+    restores onto any shard count; each shard's rows are scattered on
+    that shard's table."""
     tat_arr = np.asarray(tats, np.int64)
     exp_arr = np.asarray(expiries, np.int64)
     table = limiter.table
@@ -395,36 +529,16 @@ def _bulk_insert(limiter, keys, tats, expiries) -> int:
     restored_tat = int(tat_arr.max(initial=0))
     table.note_launch_now(restored_tat if restored_tat < (1 << 62) else None)
 
-    if getattr(limiter.keymap, "BYTES_KEYS", False):
-        key_src = [
-            k if isinstance(k, bytes) else k.encode("utf-8", "surrogateescape")
-            for k in keys
-        ]
-    else:
-        key_src = keys  # original identity preserved (str stays str)
-    slots, _, _, n_full = limiter.keymap.resolve(
-        key_src, np.ones(len(keys), bool)
-    )
-    if n_full:
-        raise ValueError("snapshot exceeds limiter capacity")
-    # Two keys can resolve to one slot ("a" and b"a" both become b"a" in
-    # a native keymap).  The JAX restore's `.at[slots].set(rows)` keeps
-    # the last; row_scatter needs unique slots, so keep the last here.
-    slots = np.asarray(slots, np.int64)
-    _, first_rev = np.unique(slots[::-1], return_index=True)
-    keep = np.sort(len(slots) - 1 - first_rev)
-    dev = table.device
-    rows = pack_state(
-        torch.from_numpy(tat_arr[keep]).to(dev),
-        torch.from_numpy(exp_arr[keep]).to(dev),
-    )
-    width = table.state.shape[-1]
-    if width > rows.shape[-1]:
-        # Insight-widened rows: restored keys start with a cold
-        # denied-hit counter.
-        rows = torch.cat(
-            [rows, rows.new_zeros((len(keep), width - rows.shape[-1]))],
-            dim=-1,
-        )
-    scatter_rows(table, slots[keep], rows.contiguous())
-    return len(keys)
+    if not hasattr(limiter, "keymaps"):
+        _insert_rows(table, limiter.keymap, keys, tat_arr, exp_arr)
+        return len(keys)
+    shard = _route_restored(limiter, keys)
+    for d, km in enumerate(limiter.keymaps):
+        ix = np.flatnonzero(shard == d)
+        if len(ix):
+            _insert_rows(
+                table.shards[d], km, [keys[i] for i in ix],
+                tat_arr[ix], exp_arr[ix],
+            )
+    _reattribute_tenants(limiter)
+    return int((shard >= 0).sum())

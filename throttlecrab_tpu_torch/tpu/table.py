@@ -19,6 +19,8 @@ the caller decides when to fetch.
 
 from __future__ import annotations
 
+from contextlib import nullcontext
+
 import numpy as np
 import torch
 
@@ -51,6 +53,13 @@ def resolve_device(device) -> torch.device:
             "False; pass device='cpu' to run the plain version"
         )
     return dev
+
+
+def on_device(dev: torch.device):
+    """The context a ctypes launch on `dev` needs: that card current (its
+    stream and context), or nothing on the CPU.  A mesh's shards may sit
+    on several cards while the calling thread's current card is another."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else nullcontext()
 
 
 # Stored-TAT bound of the compact="cur" output: the device emits
@@ -125,7 +134,31 @@ def _is_u16(a) -> bool:
     return np.asarray(a).dtype == np.uint16
 
 
-class BucketTable:
+class HwmMarksMixin:
+    """The compact="w32" certificate's cross-launch high-water marks,
+    shared by BucketTable and the mesh's ShardedBucketTable: every
+    stored TAT is <= its writing launch's now + tol <= now_hwm +
+    tol_hwm.  A launch that cannot report a value saturates its mark
+    (w32 off from then on).  Subclass __init__ sets `tol_hwm = now_hwm
+    = 0`."""
+
+    def note_max_tolerance(self, max_tol) -> None:
+        """Record a launch's max valid-lane tolerance (None = unknown:
+        the mark saturates, so w32 stays off)."""
+        if max_tol is None:
+            self.tol_hwm = I64_MAX
+        else:
+            self.tol_hwm = max(self.tol_hwm, int(max_tol))
+
+    def note_launch_now(self, now_ns) -> None:
+        """Record a launch's max timestamp (None = unknown: saturates)."""
+        if now_ns is None:
+            self.now_hwm = I64_MAX
+        else:
+            self.now_hwm = max(self.now_hwm, int(now_ns))
+
+
+class BucketTable(HwmMarksMixin):
     """Per-slot GCRA state on one device."""
 
     SCRATCH = 1 << 16  # max batch size; scratch rows for suppressed writes
@@ -147,21 +180,6 @@ class BucketTable:
         # TAT is <= its writing launch's now + tol <= now_hwm + tol_hwm.
         self.tol_hwm = 0
         self.now_hwm = 0
-
-    def note_max_tolerance(self, max_tol) -> None:
-        """Record a launch's max valid-lane tolerance (None = unknown:
-        the mark saturates, so w32 stays off)."""
-        if max_tol is None:
-            self.tol_hwm = I64_MAX
-        else:
-            self.tol_hwm = max(self.tol_hwm, int(max_tol))
-
-    def note_launch_now(self, now_ns) -> None:
-        """Record a launch's max timestamp (None = unknown: saturates)."""
-        if now_ns is None:
-            self.now_hwm = I64_MAX
-        else:
-            self.now_hwm = max(self.now_hwm, int(now_ns))
 
     def _alloc(self, rows: int) -> torch.Tensor:
         return pack_state(
