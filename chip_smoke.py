@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Fifteen phases, each printing its results; any failure raises and the
+Sixteen phases, each printing its results; any failure raises and the
 script exits nonzero without its last line:
 
 1. card: the card's name and power limit (nvidia-smi), and the builds of
@@ -212,7 +212,7 @@ script exits nonzero without its last line:
    make_mesh(devices=[cuda:0] * 8) (8 shards as slices of the card, as
    the v5e-8 has 8 devices), 2^20 slots per shard, native keymaps,
    insight rows, a 65-id tenant registry; 64 tenants x 100,000 keys
-   (b"t{i}:k{j}", config 3's per-key params) every key once, then 8
+   (b"t{i}:k{j}", config 3's per-key params) every key once, then 4
    Zipf-1.1 windows, K = 16 x B = 4,096 through dispatch_many(wire=True),
    window by window beside TorchRateLimiter(capacity=2^23,
    keymap="native", insight=True) on cuda: identical results every
@@ -236,7 +236,34 @@ script exits nonzero without its last line:
    identical results.  The server with --shards beyond the card count
    exits nonzero with make_mesh's message, --shards 1 --pallas-fused
    boots and answers; phase 14's trace replays through sharded:1 on
-   cuda and sharded:8 on cpu with 0 mismatches.
+   cuda and sharded:8 on cpu with 0 mismatches;
+16. the cluster (parallel/cluster.py): (a) three in-process nodes, each
+   TorchRateLimiter(capacity=2^20, keymap="native", insight=True) on the
+   card under ClusterLimiter(vnodes=128, replicate=True) with its
+   ClusterServer on its own event-loop thread, take 48 config-3 batches
+   of 4,096 round robin over the three frontends beside one
+   TorchRateLimiter(capacity=2^20) given the same batches: identical
+   results and statuses batch by batch, and window launches (the
+   counter read around each cluster call) equal to the sub-batches the
+   owners decided (each node's limiter calls, one per owner per batch).
+   Then node 2 is killed (its successors absorb their replica rows on
+   first use: row_scatter), rejoins fresh (each peer's export_state:
+   row_gather; the migrates installed: row_scatter) and node 1 leaves
+   (its export, each receiver's reconcile export and insert), 12
+   batches after each step: no client failure, every row outside the
+   killed range equal to the single-device limiter's, an exhausted key
+   of the killed range still denied, and row_gather / row_scatter
+   launches equal to the sum of ceil(rows / 65,536) over the exports and
+   inserts each step made.  Prints decisions/s through the cluster and
+   on the single limiter, the median ms per batch, and per step the
+   keys moved and ms.  (b) two `python -m throttlecrab_tpu_torch.server
+   --cluster-nodes ... --redis-backend native` processes on the card: a
+   key of node 1 is limited across both HTTP frontends, the harness
+   (`python -m throttlecrab_tpu_torch.harness perf-test`) drives each
+   node over RESP and HTTP with no error (replies/s, p50, p99),
+   /health/cluster shows the epoch and the peer, /metrics counts
+   forwards, SIGTERM on node 1 drains with a planned leave and exits 0,
+   and node 0 continues that node's bucket.
 
 The line before the last is the {"kernels": [...]} record; the last line
 is {"ok": true, "device": {...}}.
@@ -2905,7 +2932,7 @@ MESH_TENANTS = 64
 MESH_KEYS_PER_TENANT = 100_000
 MESH_CAPACITY = 1 << 20  # slots per shard
 MESH_SINGLE_CAPACITY = 1 << 23  # the single-device twin's and 1 shard's
-MESH_STEADY_WINDOWS = 8
+MESH_STEADY_WINDOWS = 4
 MESH_SPRAY = 50_000  # fresh keys t0 sprays in phase 15's quota run
 MESH_SPRAY_WINDOWS = 2
 MESH_QUOTA = 0.125  # of each shard's slots, per tenant
@@ -3828,6 +3855,614 @@ def build_kernels():
     return built
 
 
+# ---- the cluster (phase 16) ---------------------------------------------- #
+
+
+CLUSTER_NODES = 3
+CLUSTER_CAPACITY = 1 << 20  # per node, the default server's table
+CLUSTER_VNODES = 128  # the default --cluster-vnodes
+CLUSTER_STEADY = 48  # config-3 batches of B through the 3 frontends
+CLUSTER_STEP = 12  # batches after each lifecycle step
+ROW_CHUNK = 65_536  # row_ops.MAX_BATCH: rows per row-kernel launch
+
+
+class ClusterNode:
+    """One in-process node of phase 16: a 1M-key native limiter with the
+    insight rows (the default server's W=6) on the card, its
+    ClusterLimiter in ring mode with replication, and its ClusterServer
+    on a dedicated event-loop thread.  The nodes share the card's context
+    and default stream; each node's device_lock serializes its table.
+    `decided[index]` counts the sub-batches this node decides as owner
+    (its limiter's rate_limit_batch calls); the pump's submissions,
+    flushes, sends and the frames applied here are counted for
+    quiesce()."""
+
+    def __init__(self, index, nodes, device, decided, mu):
+        import asyncio
+
+        from throttlecrab_tpu_torch.parallel.cluster import (
+            ClusterLimiter,
+            ClusterServer,
+        )
+        from throttlecrab_tpu_torch.tpu.limiter import TorchRateLimiter
+
+        self.index = index
+        self.limiter = TorchRateLimiter(
+            capacity=CLUSTER_CAPACITY, keymap="native", device=device,
+            insight=True)
+        decide = self.limiter.rate_limit_batch
+
+        def counted(*a, **k):
+            with mu:
+                decided[index] += 1
+            return decide(*a, **k)
+        self.limiter.rate_limit_batch = counted
+        # Replicas are held for every row a node can own, so a takeover
+        # continues each key from its last replicated decision.
+        self.cl = ClusterLimiter(
+            self.limiter, nodes, index, vnodes=CLUSTER_VNODES,
+            replicate=True, io_timeout_s=120.0, handoff_timeout_s=120.0,
+            replica_cap=CLUSTER_CAPACITY)
+        self.submitted = self.flushed = 0
+        self.sent = {}
+        self.applied = {}
+        pump, cl = self.cl._pump, self.cl
+        submit, flush = pump.submit, cl._flush_replicas
+        push, apply = cl._push_replica_rows, cl.apply_replica
+
+        def counted_submit(entry):
+            with mu:
+                self.submitted += 1
+            submit(entry)
+
+        def counted_flush(entries):
+            try:
+                flush(entries)
+            finally:
+                with mu:
+                    self.flushed += len(entries)
+
+        def counted_push(dest, *a):
+            ok = push(dest, *a)
+            if ok:
+                with mu:
+                    self.sent[dest] = self.sent.get(dest, 0) + 1
+            return ok
+
+        def counted_apply(origin, *a):
+            try:
+                apply(origin, *a)
+            finally:
+                with mu:
+                    self.applied[origin] = self.applied.get(origin, 0) + 1
+        pump.submit = counted_submit
+        cl._flush_replicas = counted_flush
+        cl._push_replica_rows = counted_push
+        cl.apply_replica = counted_apply
+        port = int(nodes[index].rpartition(":")[2])
+        self.srv = ClusterServer("127.0.0.1", port, cl.local, cl.device_lock,
+                                 cluster=cl)
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self._run, daemon=True,
+                                       name=f"cluster-node{index}")
+        self.thread.start()
+        asyncio.run_coroutine_threadsafe(self.srv.start(),
+                                         self.loop).result(timeout=30)
+
+    def _run(self):
+        import asyncio
+
+        asyncio.set_event_loop(self.loop)
+        self.loop.run_forever()
+
+    def kill(self):
+        """Hard stop: listener down, pump stopped, sockets dropped."""
+        import asyncio
+
+        asyncio.run_coroutine_threadsafe(self.srv.stop(),
+                                         self.loop).result(timeout=30)
+        self.cl.close()
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(timeout=30)
+
+
+def wait_until(cond, what, seconds=120):
+    deadline = time.monotonic() + seconds
+    while not cond():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.002)
+
+
+def quiesce(nodes):
+    """Every replica entry submitted has been flushed, and every replica
+    frame sent to a live node has been applied there."""
+    live = {n.index: n for n in nodes if n is not None}
+
+    def done():
+        for n in live.values():
+            if n.submitted != n.flushed + n.cl.replica_drops:
+                return False
+            for dest, k in list(n.sent.items()):
+                if dest in live and live[dest].applied.get(n.index, 0) < k:
+                    return False
+        return True
+    wait_until(done, "the replica frames to land")
+
+
+def join_node(node, nodes):
+    """announce_join_all, then wait until every peer's migrate landed."""
+    node.cl.announce_join_all()
+    wait_until(lambda: not node.cl._pending_from, "the handoff gates")
+    for n in nodes:
+        if n is not None:
+            wait_until(lambda n=n: not n.cl._pending_from,
+                       "the handoff gates")
+
+
+class RowCounter:
+    """Counts the row kernels' expected launches on the cluster's paths:
+    every export_state gathers ceil(live / 65,536) chunks and every
+    _bulk_insert scatters ceil(rows / 65,536); the wrappers also time
+    each call, with the rows it moved."""
+
+    def __init__(self, device):
+        from throttlecrab_tpu_torch.tpu import snapshot
+
+        self.snapshot = snapshot
+        self.device = device
+        self.orig = (snapshot.export_state, snapshot._bulk_insert)
+        self.gathers, self.scatters = 0, 0
+        self.exports, self.inserts = [], []
+        self.mu = threading.Lock()
+        export, insert = self.orig
+
+        def counted_export(limiter):
+            t = time.perf_counter()
+            out = export(limiter)
+            n = len(out[0])
+            with self.mu:
+                self.gathers += -(-n // ROW_CHUNK)
+                self.exports.append((n, (time.perf_counter() - t) * 1e3))
+            return out
+
+        def counted_insert(limiter, keys, tats, exps):
+            t = time.perf_counter()
+            out = insert(limiter, keys, tats, exps)
+            with self.mu:
+                self.scatters += -(-len(keys) // ROW_CHUNK)
+                self.inserts.append((len(keys),
+                                     (time.perf_counter() - t) * 1e3))
+            return out
+        snapshot.export_state = counted_export
+        snapshot._bulk_insert = counted_insert
+
+    def take(self):
+        """(expected gathers, expected scatters, exports, inserts) since
+        the last take, then zero."""
+        with self.mu:
+            out = (self.gathers, self.scatters, self.exports, self.inserts)
+            self.gathers, self.scatters = 0, 0
+            self.exports, self.inserts = [], []
+        return out
+
+    def close(self):
+        self.snapshot.export_state, self.snapshot._bulk_insert = self.orig
+
+
+CLUSTER_FIELDS = ("allowed", "limit", "remaining", "reset_after_ns",
+                  "retry_after_ns", "status")
+
+
+def run_cluster_in_process(card, device="cuda"):
+    """Phase 16a: three nodes on the card against the single-device
+    limiter, then kill, rejoin and leave."""
+    import numpy as np
+    import torch
+
+    from throttlecrab_tpu_torch.parallel.ring import HashRing, batch_crc32
+    from throttlecrab_tpu_torch.tpu import fused, row_ops
+    from throttlecrab_tpu_torch.tpu.limiter import TorchRateLimiter
+
+    rng = np.random.default_rng(16)
+    n_batches = CLUSTER_STEADY + 3 * CLUSTER_STEP
+    traffic = [b for w in config3_windows(rng, N_KEYS, n_batches, 1, B, -1)
+               for b in w]
+    nodes_spec = [f"127.0.0.1:{free_port()}" for _ in range(CLUSTER_NODES)]
+    ring = HashRing(nodes_spec, CLUSTER_VNODES)
+    mu = threading.Lock()
+    decided = [0] * CLUSTER_NODES
+    rows = RowCounter(device)
+    nodes = [None] * CLUSTER_NODES
+    single = TorchRateLimiter(capacity=CLUSTER_CAPACITY, keymap="native",
+                              device=device, insight=True)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    record = {}
+    try:
+        t = time.perf_counter()
+        for i in range(CLUSTER_NODES):
+            nodes[i] = ClusterNode(i, nodes_spec, device, decided, mu)
+        for node in nodes:
+            join_node(node, nodes)
+        boot_ms = (time.perf_counter() - t) * 1e3
+
+        tainted = set()  # keys whose state the takeover re-derived
+
+        def drive(batches, via, where, exact_all):
+            """Each batch through a frontend, then the same batch through
+            the single-device limiter; returns counts and timings."""
+            out = {"cluster_s": 0.0, "single_s": 0.0, "batch_ms": [],
+                   "window_launches": 0, "decided": 0, "expected": 0,
+                   "rows": 0, "tainted_mismatches": 0}
+            for i, batch in enumerate(batches):
+                node = nodes[via[i % len(via)]]
+                l0, d0 = fused.LAUNCHES, sum(decided)
+                t0 = time.perf_counter()
+                got = node.cl.rate_limit_batch(*batch)
+                sync()
+                dt = time.perf_counter() - t0
+                out["cluster_s"] += dt
+                out["batch_ms"].append(dt * 1e3)
+                out["window_launches"] += fused.LAUNCHES - l0
+                out["decided"] += sum(decided) - d0
+                if exact_all:
+                    owners = ring.owners_of(batch_crc32(
+                        [k.encode() for k in batch[0]]))
+                    out["expected"] += len(np.unique(owners))
+                t0 = time.perf_counter()
+                want = single.rate_limit_batch(*batch)
+                sync()
+                out["single_s"] += time.perf_counter() - t0
+                if (got.status != 0).any():
+                    raise AssertionError(
+                        f"{where}: {(got.status != 0).sum()} client "
+                        "failures")
+                keep = np.array([k not in tainted for k in batch[0]])
+                for f in CLUSTER_FIELDS:
+                    a, b = getattr(got, f), getattr(want, f)
+                    if (a[keep] != b[keep]).any():
+                        raise AssertionError(
+                            f"{where} batch {i}: {f} differs from the "
+                            "single-device limiter")
+                    out["tainted_mismatches"] += int((a != b).sum())
+                out["rows"] += len(batch[0])
+            return out
+
+        # Steady state: all three up.
+        steady = drive(traffic[:CLUSTER_STEADY], [0, 1, 2], "steady", True)
+        if steady["decided"] != steady["expected"]:
+            raise AssertionError(
+                f"{steady['decided']} owner sub-batches decided, "
+                f"{steady['expected']} owners in the batches")
+        if device == "cuda" and steady["window_launches"] != steady[
+                "decided"]:
+            raise AssertionError(
+                f"{steady['window_launches']} window launches for "
+                f"{steady['decided']} owner-decided sub-batches")
+        record["steady"] = steady
+        cursor = CLUSTER_STEADY
+
+        # An exhausted key of node 2's range: burst 2, four hits.
+        hot = next(k for k in (f"cluster:hot:{i}" for i in range(10_000))
+                   if ring.owner_of(k.encode()) == 2)
+        hot_batch = ([hot], np.array([2]), np.array([2]), np.array([600]),
+                     np.array([1]))
+        now = int(traffic[cursor - 1][5])
+        for j in range(4):
+            a = nodes[2].cl.rate_limit_batch(*hot_batch, now + j)
+            b = single.rate_limit_batch(*hot_batch, now + j)
+            if a.allowed.tolist() != b.allowed.tolist():
+                raise AssertionError("hot key differs from the single")
+        if a.allowed[0]:
+            raise AssertionError("hot key not exhausted")
+
+        def step_record(name, batches, via, exact_all, t_step):
+            g0, r0 = row_ops.GATHER_LAUNCHES, row_ops.SCATTER_LAUNCHES
+            out = drive(batches, via, name, exact_all)
+            sync()
+            gathers, scatters, exports, inserts = rows.take()
+            out["row_gather"] = row_ops.GATHER_LAUNCHES - g0 + t_step[0]
+            out["row_scatter"] = row_ops.SCATTER_LAUNCHES - r0 + t_step[1]
+            out["expected_row_gather"] = gathers + t_step[2]
+            out["expected_row_scatter"] = scatters + t_step[3]
+            out["exports"] = t_step[4] + exports
+            out["inserts"] = t_step[5] + inserts
+            if device == "cuda" and (
+                out["row_gather"] != out["expected_row_gather"]
+                or out["row_scatter"] != out["expected_row_scatter"]
+            ):
+                raise AssertionError(
+                    f"{name}: row launches {out['row_gather']} gather / "
+                    f"{out['row_scatter']} scatter, expected "
+                    f"{out['expected_row_gather']} / "
+                    f"{out['expected_row_scatter']}")
+            if device == "cuda" and out["window_launches"] != out[
+                    "decided"]:
+                raise AssertionError(
+                    f"{name}: {out['window_launches']} window launches for "
+                    f"{out['decided']} owner-decided sub-batches")
+            return out
+
+        def lifecycle(fn):
+            """Run one membership change; its row launches and the
+            expected ones until now."""
+            quiesce(nodes)
+            rows.take()
+            g0, r0 = row_ops.GATHER_LAUNCHES, row_ops.SCATTER_LAUNCHES
+            t = time.perf_counter()
+            fn()
+            ms = (time.perf_counter() - t) * 1e3
+            sync()
+            gathers, scatters, exports, inserts = rows.take()
+            return ms, (row_ops.GATHER_LAUNCHES - g0,
+                        row_ops.SCATTER_LAUNCHES - r0, gathers, scatters,
+                        exports, inserts)
+
+        # Kill node 2: its range fails over to its ring successors, who
+        # absorb their replica rows on first use (row_scatter).
+        dead_keys = {k for b in traffic[:cursor] for k in b[0]
+                     if ring.owner_of(k.encode()) == 2}
+
+        def kill():
+            nodes[2].kill()
+            nodes[2] = None
+        kill_ms, t_kill = lifecycle(kill)
+        tainted |= dead_keys
+        batches = traffic[cursor:cursor + CLUSTER_STEP]
+        cursor += CLUSTER_STEP
+        t = time.perf_counter()
+        kill_rec = step_record("kill", batches, [0, 1], False, t_kill)
+        a = nodes[0].cl.rate_limit_batch(*hot_batch, now + 10)
+        b = single.rate_limit_batch(*hot_batch, now + 10)
+        if a.status[0] != 0 or a.allowed[0] or b.allowed[0]:
+            raise AssertionError("takeover re-allowed the exhausted key")
+        kill_rec["takeover_rows"] = sum(n for n, _ in kill_rec["inserts"])
+        kill_rec["takeover_ms"] = [ms for _, ms in kill_rec["inserts"]]
+        kill_rec["takeovers"] = sum(n.cl.takeover_count for n in nodes
+                                    if n is not None)
+        if kill_rec["takeovers"] < 1 or kill_rec[
+                "expected_row_scatter"] < 1:
+            raise AssertionError(f"no takeover after the kill: {kill_rec}")
+        record["kill"] = kill_rec
+
+        # Rejoin node 2 (fresh): each peer exports its table (row_gather)
+        # and migrates node 2's range back, installed with row_scatter.
+        def rejoin():
+            # A fresh incarnation counts from zero on both sides.
+            for n in nodes:
+                if n is not None:
+                    n.sent.pop(2, None)
+                    n.applied.pop(2, None)
+            nodes[2] = ClusterNode(2, nodes_spec, device, decided, mu)
+            join_node(nodes[2], nodes)
+        rejoin_ms, t_rejoin = lifecycle(rejoin)
+        batches = traffic[cursor:cursor + CLUSTER_STEP]
+        cursor += CLUSTER_STEP
+        rejoin_rec = step_record("rejoin", batches, [2, 0, 1], False,
+                                 t_rejoin)
+        rejoin_rec["ms"] = rejoin_ms
+        rejoin_rec["migrated_in"] = nodes[2].cl.migrated_in
+        a = nodes[2].cl.rate_limit_batch(*hot_batch, now + 20)
+        if a.status[0] != 0 or a.allowed[0]:
+            raise AssertionError("rejoin lost the exhausted key's state")
+        single.rate_limit_batch(*hot_batch, now + 20)
+        if rejoin_rec["migrated_in"] < 1 or rejoin_rec[
+                "expected_row_gather"] < 1:
+            raise AssertionError(f"no migrate back: {rejoin_rec}")
+        record["rejoin"] = rejoin_rec
+
+        # Planned leave of node 1: its whole table streams out
+        # (row_gather), each receiver reconciles against its own table
+        # (row_gather) and installs the rows (row_scatter).
+        left = []
+        leave_ms, t_leave = lifecycle(lambda: left.append(
+            nodes[1].cl.leave()))
+        if left != [True]:
+            raise AssertionError("planned leave did not ack")
+        quiesce(nodes)
+        batches = traffic[cursor:cursor + CLUSTER_STEP]
+        cursor += CLUSTER_STEP
+        leave_rec = step_record("leave", batches, [0, 2, 1], False, t_leave)
+        leave_rec["ms"] = leave_ms
+        leave_rec["keys"] = len(nodes[1].limiter)
+        leave_rec["leaves"] = nodes[0].cl.cluster_view()["leaves"]
+        if leave_rec["leaves"] < 1:
+            raise AssertionError("the survivors saw no leave")
+        record["leave"] = leave_rec
+        record["kill_ms"] = kill_ms
+        record["boot_ms"] = boot_ms
+        record["keys_per_node"] = [len(n.limiter) for n in nodes]
+        record["replica_rows"] = [n.cl.cluster_view()["replica_rows"]
+                                  for n in nodes]
+    finally:
+        rows.close()
+        for n in nodes:
+            if n is not None:
+                try:
+                    n.kill()
+                except Exception:
+                    pass
+    return record
+
+
+def cluster_server(index, nodes, http_port, redis_port):
+    """`python -m throttlecrab_tpu_torch.server` as node `index` of
+    `nodes` on the card: asyncio HTTP, native RESP."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "throttlecrab_tpu_torch.server", "--http",
+         "--http-host", "127.0.0.1", "--http-port", str(http_port),
+         "--redis", "--redis-host", "127.0.0.1", "--redis-port",
+         str(redis_port), "--redis-backend", "native",
+         "--cluster-nodes", ",".join(nodes), "--cluster-index", str(index),
+         "--cluster-bind-host", "127.0.0.1"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def wait_healthy(proc, http_port, seconds=180):
+    deadline = time.monotonic() + seconds
+    while True:
+        if proc.poll() is not None:
+            raise AssertionError(f"cluster node exited {proc.returncode}:"
+                                 f"\n{proc.stdout.read()}")
+        try:
+            if http(http_port, "GET", "/health", timeout=2)[1] == b"OK":
+                return
+        except OSError:
+            pass
+        if time.monotonic() > deadline:
+            raise AssertionError("cluster node did not come up")
+        time.sleep(0.25)
+
+
+def harness_run(transport, port, key_space, tag):
+    """`python -m throttlecrab_tpu_torch.harness perf-test` against one
+    node; its JSON summary."""
+    flag = "--redis-port" if transport == "redis" else "--port"
+    r = subprocess.run(
+        [sys.executable, "-m", "throttlecrab_tpu_torch.harness", "perf-test",
+         "--transport", transport, flag, str(port), "--workers", "16",
+         "--requests", "500", "--key-space", str(key_space),
+         "--key-pattern", "zipfian", "--seed", str(tag)],
+        capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"harness {transport}: rc {r.returncode}\n"
+                             f"{r.stderr[-2000:]}")
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    if out["errors"]:
+        raise AssertionError(f"harness {transport}: {out}")
+    return out
+
+
+def run_cluster_servers(card):
+    """Phase 16b: two server processes on the card as one cluster."""
+    from throttlecrab_tpu_torch.parallel.ring import HashRing
+
+    rpc = [free_port(), free_port()]
+    http_ports = [free_port(), free_port()]
+    redis_ports = [free_port(), free_port()]
+    nodes = [f"127.0.0.1:{p}" for p in rpc]
+    ring = HashRing(nodes, CLUSTER_VNODES)
+    procs = []
+    out = {}
+    try:
+        t = time.perf_counter()
+        for i in (0, 1):
+            procs.append(cluster_server(i, nodes, http_ports[i],
+                                        redis_ports[i]))
+        for p, port in zip(procs, http_ports):
+            wait_healthy(p, port)
+        wait_until(lambda: all(
+            not json.loads(http(p, "GET", "/health/cluster")[1])[
+                "pending_handoffs"] for p in http_ports), "the handoffs")
+        out["boot_s"] = time.perf_counter() - t
+
+        def hit(port, key, burst=3):
+            return json.loads(http(port, "POST", "/throttle",
+                                   throttle_body(key, burst))[1])
+        key1 = next(k for k in (f"xproc:{i}" for i in range(10_000))
+                    if ring.owner_of(k.encode()) == 1)
+        seq = [hit(http_ports[0], key1)["allowed"],
+               hit(http_ports[0], key1)["allowed"],
+               hit(http_ports[1], key1)["allowed"],
+               hit(http_ports[0], key1)["allowed"]]
+        if seq != [True, True, True, False]:
+            raise AssertionError(f"limit across frontends: {seq}")
+        out["harness"] = {
+            "redis_node0": harness_run("redis", redis_ports[0], 100_000, 1),
+            "http_node1": harness_run("http", http_ports[1], 100_000, 2),
+            "redis_node1": harness_run("redis", redis_ports[1], 100_000, 3),
+            "http_node0": harness_run("http", http_ports[0], 100_000, 4),
+        }
+        view = json.loads(http(http_ports[0], "GET", "/health/cluster")[1])
+        if view["mode"] != "ring" or view["epoch"] < 1 or nodes[1] not in (
+                view["peers"]):
+            raise AssertionError(f"/health/cluster: {view}")
+        metrics = http(http_ports[0], "GET", "/metrics")[1].decode()
+        fwd = [int(line.split()[-1]) for line in metrics.splitlines()
+               if line.startswith("throttlecrab_cluster_forwarded_total{")]
+        if not fwd or fwd[0] < 1:
+            raise AssertionError("/metrics counts no forwards")
+        out["forwarded_total"] = fwd[0]
+        out["epoch"] = view["epoch"]
+        # SIGTERM on node 1 mid-bucket: the drain's planned leave hands
+        # its range to node 0, which continues the bucket.
+        key_h = next(k for k in (f"handover:{i}" for i in range(10_000))
+                     if ring.owner_of(k.encode()) == 1)
+        rem = [hit(http_ports[1], key_h)["remaining"] for _ in range(2)]
+        if rem != [2, 1]:
+            raise AssertionError(f"handover key: {rem}")
+        t = time.perf_counter()
+        log = stop_server(procs[1])
+        out["leave_s"] = time.perf_counter() - t
+        if "leaving cluster" not in log or "drain complete" not in log:
+            raise AssertionError(f"no planned leave in the log:\n{log}")
+        seq = [hit(http_ports[0], key_h)["allowed"] for _ in range(2)]
+        if seq != [True, False]:
+            raise AssertionError(f"survivor lost the migrated bucket: {seq}")
+        view = json.loads(http(http_ports[0], "GET", "/health/cluster")[1])
+        if view["leaves"] != 1 or view["takeovers"] != 0:
+            raise AssertionError(f"after the leave: {view}")
+        out["migrated_in"] = view["migrated_in"]
+        stop_server(procs[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    return out
+
+
+def run_cluster(card):
+    """Phase 16: the cluster tier on the card.  Returns its record."""
+    t = time.perf_counter()
+    rec = run_cluster_in_process(card)
+    in_s = time.perf_counter() - t
+    st = rec["steady"]
+    rate = st["rows"] / st["cluster_s"]
+    single_rate = st["rows"] / st["single_s"]
+    med = sorted(st["batch_ms"])[len(st["batch_ms"]) // 2]
+    print(f"  3 nodes x 2^20 (W=6, native keymaps) on one card, "
+          f"{st['rows']} config-3 decisions through 3 frontends: "
+          f"{rate:.0f} decisions/s through the cluster vs {single_rate:.0f} "
+          f"on the single-device limiter, identical batch by batch; median "
+          f"{med:.2f} ms per 4096-row batch (forwards included); "
+          f"{st['window_launches']} window launches = {st['decided']} owner "
+          f"sub-batches ({card})")
+    for name in ("kill", "rejoin", "leave"):
+        r = rec[name]
+        moved = {"kill": r.get("takeover_rows"),
+                 "rejoin": r.get("migrated_in"),
+                 "leave": r.get("keys")}[name]
+        print(f"  {name}: {moved} keys moved, {r.get('ms', rec['kill_ms']):.1f}"
+              f" ms; exports {[n for n, _ in r['exports']]} rows "
+              f"({[round(ms, 1) for _, ms in r['exports']]} ms), inserts "
+              f"{[n for n, _ in r['inserts']]} rows "
+              f"({[round(ms, 1) for _, ms in r['inserts']]} ms); row_gather "
+              f"{r['row_gather']} (expected {r['expected_row_gather']}), "
+              f"row_scatter {r['row_scatter']} (expected "
+              f"{r['expected_row_scatter']}); {r['window_launches']} window "
+              f"launches = {r['decided']} owner sub-batches; 0 client "
+              f"failures; {r['tainted_mismatches']} rows of the killed "
+              f"range differ from the single-device limiter")
+    t = time.perf_counter()
+    srv = run_cluster_servers(card)
+    srv_s = time.perf_counter() - t
+    for name, h in srv["harness"].items():
+        print(f"  server {name}: {h['rps']} replies/s, p50 {h['p50_ms']} ms, "
+              f"p99 {h['p99_ms']} ms, {h['allowed']} allowed / "
+              f"{h['denied']} denied / 0 errors ({card})")
+    print(f"  2 server nodes: a key of node 1 limited across both "
+          f"frontends; {srv['forwarded_total']} forwards counted; SIGTERM "
+          f"on node 1: planned leave in {srv['leave_s']:.1f} s, exit 0, "
+          f"the survivor continues its bucket ({srv['migrated_in']} keys "
+          f"migrated in); phase 16a {in_s:.1f} s, 16b {srv_s:.1f} s")
+    return {"cluster": rec, "cluster_servers": srv,
+            "cluster_decisions_per_s": rate,
+            "cluster_single_decisions_per_s": single_rate,
+            "cluster_median_batch_ms": med,
+            "cluster_phase_s": {"in_process": in_s, "servers": srv_s}}
+
+
 def main() -> int:
     import torch
 
@@ -4155,6 +4790,16 @@ def main() -> int:
     mesh = run_mesh(card, trace14)
     del trace14
 
+    print(f"[16] the cluster: 3 in-process nodes of "
+          f"TorchRateLimiter(capacity=2^20, keymap='native', insight=True) "
+          f"on the card under ClusterLimiter(vnodes={CLUSTER_VNODES}, "
+          f"replicate=True), BASELINE config 3 traffic against the "
+          f"single-device limiter, then kill, rejoin and leave; 2 server "
+          f"processes as one cluster driven by the harness ({card})")
+    cluster = run_cluster(card)
+    crec = cluster["cluster"]
+    cluster_steps = ("steady", "kill", "rejoin", "leave")
+
     print(f"card: {card_line()}")
     kernels = [{
         "name": "fused_window",
@@ -4214,6 +4859,16 @@ def main() -> int:
         "mesh_topk_counts": mesh["mesh_topk_counts"],
         "mesh_quota": mesh["mesh_quota"],
         "mesh_replays": mesh["mesh_replays"],
+        "cluster_window_launches": {
+            step: crec[step]["window_launches"] for step in cluster_steps},
+        "cluster_owner_subbatches": {
+            step: crec[step]["decided"] for step in cluster_steps},
+        "cluster_decisions_per_s": cluster["cluster_decisions_per_s"],
+        "cluster_single_decisions_per_s":
+            cluster["cluster_single_decisions_per_s"],
+        "cluster_median_batch_ms": cluster["cluster_median_batch_ms"],
+        "cluster_servers": cluster["cluster_servers"],
+        "cluster_phase_s": cluster["cluster_phase_s"],
         "card": card,
     }]
     for name, replaces in (("row_gather", "pallas_ops.py:128"),
@@ -4281,6 +4936,19 @@ def main() -> int:
                 for part, v in mesh["mesh_restart"].items()
                 if f"{name}_per_shard" in v},
             "mesh_restart_ms": mesh["mesh_restart"],
+            "cluster_path": "export_state on join / rejoin / leave and the "
+                            "migrate reconcile (phase 16)"
+                            if name == "row_gather" else
+                            "_bulk_insert of migrates and the takeover's "
+                            "replica absorb (phase 16)",
+            "cluster_launches": {
+                step: {"launches": crec[step][name],
+                       "expected": crec[step][f"expected_{name}"]}
+                for step in cluster_steps[1:]},
+            "cluster_moves": {
+                step: crec[step]["exports" if name == "row_gather"
+                                 else "inserts"]
+                for step in cluster_steps[1:]},
             "b4096": {
                 "ms": b4["kernel"], "plain_ms": b4["plain"],
                 "library_ms": b4["library"],

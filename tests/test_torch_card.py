@@ -867,3 +867,47 @@ def test_mesh_on_card_equals_single_device_and_cpu_shards(cuda_device,
     assert dict(zip(got[0], zip(got[3].tolist(), got[4].tolist()))) == dict(
         zip(payload["keys"], zip(payload["tat"].tolist(),
                                  payload["expiry"].tolist())))
+
+
+def _small_cluster_phase(monkeypatch):
+    """chip_smoke.py's phase 16a at a small size: 3 nodes of 2^14 slots,
+    20,000 config-3 keys, batches of 512."""
+    from pathlib import Path
+
+    monkeypatch.syspath_prepend(str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    for name, value in (("CLUSTER_CAPACITY", 1 << 14), ("N_KEYS", 20_000),
+                        ("B", 512), ("CLUSTER_STEADY", 12),
+                        ("CLUSTER_STEP", 6)):
+        monkeypatch.setattr(chip_smoke, name, value)
+    return chip_smoke
+
+
+def test_cluster_phase_on_cpu_equals_single_device(monkeypatch):
+    """The phase's own checks on the CPU (the plain versions, so no
+    launch is counted): three nodes decide every batch as one limiter
+    does, through a kill with a replica takeover, a fresh rejoin and a
+    planned leave, with no client failure, and each owner decides one
+    sub-batch per batch while all are up."""
+    rec = _small_cluster_phase(monkeypatch).run_cluster_in_process(
+        "cpu", device="cpu")
+    assert rec["steady"]["decided"] == rec["steady"]["expected"] == 36
+    assert rec["kill"]["takeovers"] >= 1
+    assert rec["kill"]["expected_row_scatter"] >= 1
+    assert rec["rejoin"]["migrated_in"] > 0 and rec["leave"]["leaves"] == 1
+    assert rec["rejoin"]["expected_row_gather"] >= 2
+
+
+@pytest.mark.cuda
+def test_cluster_on_card_equals_single_device(cuda_device, monkeypatch):
+    """The same on the card: every window launch is an owner-decided
+    sub-batch, and the row kernels launch ceil(rows / 65,536) times per
+    export and per insert of the takeover, the rejoin and the leave."""
+    rec = _small_cluster_phase(monkeypatch).run_cluster_in_process(
+        "card", device="cuda")
+    for step in ("steady", "kill", "rejoin", "leave"):
+        assert rec[step]["window_launches"] == rec[step]["decided"] > 0
+    for step in ("kill", "rejoin", "leave"):
+        for name in ("row_gather", "row_scatter"):
+            assert rec[step][name] == rec[step][f"expected_{name}"]

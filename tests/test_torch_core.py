@@ -193,3 +193,54 @@ def test_f64_to_u64_sat_matches_jax():
     for x in (math.nan, -1.0, 0.0, 0.5, 1.9, 2.0 ** 63, float(U64_MAX),
               1e300, math.inf, -math.inf, 8571428571.43):
         assert jax_i64.f64_to_u64_sat(x) == port_i64.f64_to_u64_sat(x), x
+
+
+@pytest.mark.parametrize("sub", ["", ".tpu", ".parallel", ".harness",
+                                 ".core", ".replay", ".control"])
+def test_public_names_as_in_jax(sub):
+    """Each package's public surface (`__all__`) names what JAX's does,
+    with the backend's limiter classes named for their device; and
+    `tpu.gcra_batch` decides a batch as JAX's does."""
+    import importlib
+
+    jax_mod = importlib.import_module("throttlecrab_tpu" + sub)
+    port_mod = importlib.import_module("throttlecrab_tpu_torch" + sub)
+    rename = {"TpuRateLimiter": "TorchRateLimiter",
+              "ShardedTpuRateLimiter": "ShardedTorchRateLimiter"}
+    want = {rename.get(n, n) for n in jax_mod.__all__}
+    got = set(port_mod.__all__)
+    assert want <= got, sorted(want - got)
+    assert all(hasattr(port_mod, n) for n in got)
+    if sub == "":
+        assert port_mod.__version__ == jax_mod.__version__
+    if sub == ".tpu":
+        import numpy as np
+        import torch
+        from throttlecrab_tpu.tpu import kernel as jk
+        from throttlecrab_tpu_torch.tpu import kernel as pk
+
+        B, N = 8, 32
+        rng = np.random.default_rng(3)
+        slots = np.array([1, 2, 3, 1, 4, 5, 6, 7], np.int32)
+        rank = np.array([0, 0, 0, 1, 0, 0, 0, 0], np.int32)
+        is_last = np.array([0, 1, 1, 1, 1, 1, 1, 1], bool)
+        em = np.full(B, 10**9, np.int64)
+        tol = np.full(B, 3 * 10**9, np.int64)
+        q = rng.integers(0, 3, B).astype(np.int64)
+        q[0] = q[3]
+        valid = np.ones(B, bool)
+        now = 1_700_000_000 * 10**9
+        j_state = jk.pack_state(np.zeros(N, np.int64),
+                                np.full(N, jk.EMPTY_EXPIRY, np.int64))
+        p_state = pk.pack_state(torch.zeros(N, dtype=torch.int64),
+                                torch.full((N,), pk.EMPTY_EXPIRY,
+                                           dtype=torch.int64))
+        j_state, j_out = jax_mod.gcra_batch(
+            j_state, slots, rank, is_last, em, tol, q, valid, now)
+        t = torch.from_numpy
+        p_state, p_out = port_mod.gcra_batch(
+            p_state, t(slots), t(rank), t(is_last), t(em), t(tol), t(q),
+            t(valid), now)
+        np.testing.assert_array_equal(np.asarray(j_out), p_out.numpy())
+        np.testing.assert_array_equal(np.asarray(j_state)[:N - B],
+                                      p_state.numpy()[:N - B])

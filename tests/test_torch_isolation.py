@@ -5,7 +5,9 @@ Runs in a fresh interpreter with `sys.modules["jax"] = None` (any jax
 import raises), imports every module of throttlecrab_tpu_torch, and
 checks that no module named `throttlecrab_tpu` or `throttlecrab_tpu.*`
 got loaded (`throttlecrab_tpu_torch` shares the prefix, so the check is
-exact); the failure domain, the front tier, the insight tier, crash
+exact); the cluster tier and its ring (parallel/cluster.py, ring.py) and
+the load harness (harness/) are among them and a one-node cluster
+decides, with no jax; the failure domain, the front tier, the insight tier, crash
 durability, record/replay, the control plane and the profiling hook
 (faults/, front/, server/supervisor.py, insight/, persist/, replay/,
 control/, tpu/profiling.py) are among them, and no module touches
@@ -89,9 +91,33 @@ for name in (
     "throttlecrab_tpu_torch.parallel",
     "throttlecrab_tpu_torch.parallel.sharded",
     "throttlecrab_tpu_torch.parallel.tenants",
+    "throttlecrab_tpu_torch.parallel.ring",
+    "throttlecrab_tpu_torch.parallel.cluster",
+    "throttlecrab_tpu_torch.harness",
+    "throttlecrab_tpu_torch.harness.__main__",
+    "throttlecrab_tpu_torch.harness.loadgen",
+    "throttlecrab_tpu_torch.harness.workload",
 ):
     assert name in names, name
 print("imported", len(names))
+
+from throttlecrab_tpu_torch.parallel.cluster import (
+    ClusterLimiter, decode_reply, encode_reply)
+from throttlecrab_tpu_torch.parallel.ring import HashRing
+from throttlecrab_tpu_torch.harness.workload import make_keys
+from throttlecrab_tpu_torch.tpu.limiter import TorchRateLimiter
+solo = ClusterLimiter(TorchRateLimiter(capacity=64, device="cpu"),
+                      ["127.0.0.1:1"], 0, vnodes=16)
+res = solo.rate_limit_batch(["a", "b", "a"], 2, 1, 60, 1, 10**18)
+assert res.allowed.tolist() == [True, True, True]
+frame = encode_reply(res.status, res.allowed, res.limit, res.remaining,
+                     res.reset_after_ns, res.retry_after_ns)
+assert len(decode_reply(frame[5:])) == 3  # the body after u32 len, u8 op
+assert HashRing(["a:1", "b:2"], 8).owner_of(b"k") in (0, 1)
+assert len(make_keys("random", 8, 4, seed=1)) == 8
+solo.close()
+assert sys.modules.get("jax") is None
+print("the cluster tier and the harness run without jax")
 
 from throttlecrab_tpu_torch.parallel import ShardedTorchRateLimiter, make_mesh
 from throttlecrab_tpu_torch.parallel.tenants import TenantRegistry

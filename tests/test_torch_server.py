@@ -16,6 +16,7 @@ line and from its environment variable, to the same value in both.
 """
 
 import asyncio
+import dataclasses
 import json
 import os
 import subprocess
@@ -358,6 +359,13 @@ def test_ported_flag_parses_as_in_jax(monkeypatch, name, env, typ):
     ["--tenant-quota", "0.5"], ["--tenant-affinity"],
     ["--shards", "2", "--tenant-max", "0", "--tenant-affinity"],
     ["--shards", "2", "--tenant-max", "0", "--tenant-quota", "0.5"],
+    ["--cluster-vnodes", "-1"], ["--cluster-handoff-timeout-ms", "0"],
+    ["--cluster-replica-cap", "-1"],
+    ["--cluster-nodes", "127.0.0.1:9000", "--cluster-index", "1"],
+    ["--cluster-nodes", "127.0.0.1:9000", "--cluster-index", "-1"],
+    ["--cluster-nodes", "127.0.0.1"],
+    ["--cluster-nodes", "127.0.0.1:90x0,127.0.0.1:9001"],
+    ["--cluster-nodes", ":9000"],
 ], ids=["denied-keys-high", "denied-keys-negative", "drain-negative",
         "deadline-negative", "no-transport", "deny-cache-negative",
         "max-pending-negative", "max-wait-negative", "peek-frac-zero",
@@ -375,7 +383,11 @@ def test_ported_flag_parses_as_in_jax(monkeypatch, name, env, typ):
         "tenant-max-one", "tenant-delim-two-bytes", "tenant-delim-empty",
         "tenant-quota-high", "tenant-quota-negative",
         "tenant-quota-one-device", "tenant-affinity-one-device",
-        "tenant-affinity-no-layer", "tenant-quota-no-layer"])
+        "tenant-affinity-no-layer", "tenant-quota-no-layer",
+        "cluster-vnodes-negative", "cluster-handoff-zero",
+        "cluster-replica-cap-negative", "cluster-index-high",
+        "cluster-index-negative", "cluster-node-no-port",
+        "cluster-node-bad-port", "cluster-node-no-host"])
 def test_invalid_flags_refused_as_in_jax(argv):
     for mod in (jax_config, port_config):
         with pytest.raises(mod.ConfigError):
@@ -529,30 +541,34 @@ _CLUSTER_FLAGS = [
 )
 def test_cluster_flag_default_parses_other_values_refused(
         monkeypatch, name, env, typ):
-    """Each of the JAX server's 11 cluster flags parses at its default in
-    both packages; a value JAX accepts and the port cannot serve yet, by
-    flag or by environment, is refused with a message naming ROADMAP A8,
-    never ignored."""
+    """Each of the JAX server's 11 cluster flags parses in the port
+    exactly as in JAX: at its default, at another value by flag, and at
+    that value by environment (the whole Config agrees field by field).
+    The name is kept from when the port refused non-default values; the
+    cluster tier now takes them all."""
     assert len(_CLUSTER_FLAGS) == 11
     monkeypatch.delenv(env, raising=False)
     assert name in {n for n, *_ in jax_config._SPEC}
     both = (jax_config.Config, port_config.Config)
-    got = [getattr(c.from_env_and_args(["--http"]), name) for c in both]
-    assert got[0] == got[1]
+
+    def parsed(argv):
+        cfgs = [c.from_env_and_args(argv) for c in both]
+        shared = [f.name for f in dataclasses.fields(cfgs[0])
+                  if f.name.startswith("cluster_")]
+        got = [[getattr(c, n) for n in shared] for c in cfgs]
+        assert got[0] == got[1], argv
+        assert cfgs[0].cluster_node_list() == cfgs[1].cluster_node_list()
+        return getattr(cfgs[1], name)
+
+    default = parsed(["--http"])
     if typ is bool:  # store_true at a True default: only env can flip it
         monkeypatch.setenv(env, "0")
-        assert jax_config.Config.from_env_and_args(["--http"]) is not None
-        with pytest.raises(port_config.ConfigError, match="ROADMAP A8"):
-            port_config.Config.from_env_and_args(["--http"])
+        assert parsed(["--http"]) is False and default is True
         return
     flag = "--" + name.replace("_", "-")
     argv = ["--http", flag, _CLUSTER_VALUES[name]]
     if name == "cluster_index":
         argv += ["--cluster-nodes", _CLUSTER_VALUES["cluster_nodes"]]
-    assert getattr(jax_config.Config.from_env_and_args(argv), name) != (
-        got[0])
-    with pytest.raises(port_config.ConfigError, match="ROADMAP A8"):
-        port_config.Config.from_env_and_args(argv)
+    assert parsed(argv) == typ(_CLUSTER_VALUES[name]) != default
     monkeypatch.setenv(env, _CLUSTER_VALUES[name])
-    with pytest.raises(port_config.ConfigError, match="ROADMAP A8"):
-        port_config.Config.from_env_and_args(["--http"])
+    assert parsed(argv[:1] + argv[3:]) == typ(_CLUSTER_VALUES[name])

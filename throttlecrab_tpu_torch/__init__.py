@@ -12,6 +12,8 @@ like it (`tpu/table.py` here is the counterpart of `tpu/table.py` there):
   (`tpu/fused.py` over `csrc/fused_window.cu`).
 - **server**: the micro-batching engine and the HTTP/JSON, Redis/RESP and
   gRPC transports.
+- **parallel**: the sharded mesh and the multi-node cluster tier;
+  **harness**: the load generator that drives a server's transports.
 
 Every entry point runs on `cuda` unless the caller asks for the CPU.
 Time is always an explicit input in integer nanoseconds since the epoch.
@@ -32,6 +34,8 @@ from .core.store import (
     Store,
 )
 
+__version__ = "0.1.0"
+
 __all__ = [
     "AdaptiveStore",
     "CellError",
@@ -44,4 +48,5 @@ __all__ = [
     "RateLimiter",
     "RateLimitResult",
     "Store",
+    "__version__",
 ]

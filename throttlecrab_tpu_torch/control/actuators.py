@@ -13,7 +13,7 @@ checks).
 The vetted subset: admission ``hot_shed_weight`` and queue thresholds,
 deny-cache capacity and prewarm cadence, insight poll rate, sweep
 cadence, and the cluster replica pump cadence (registered only for a
-limiter with a replica pump, which no port limiter has yet).  Absent
+ring-mode ClusterLimiter, the one limiter with a replica pump).  Absent
 subsystems simply never register their actuators, so one registry
 shape serves every deployment and the offline simulator.
 """

@@ -1,13 +1,15 @@
-"""Multi-device sharding of the GCRA bucket table.
+"""Multi-device sharding of the GCRA bucket table, and the cluster's ring.
 
-The port of `throttlecrab_tpu/parallel/` (the mesh; the cluster and its
-hash ring are not part of the port yet): the bucket table is split over
+The port of `throttlecrab_tpu/parallel/`: the bucket table is split over
 a mesh of devices, keys route to shards by a stable hash on the host,
 and each shard's requests are decided by the same decision-window kernel
 — one launch per shard per window, with the allowed/denied counters
-summed over the shards.
+summed over the shards.  Across processes, the cluster tier
+(`parallel/cluster.py`) gives every key one owner node on the weighted
+consistent-hash ring (`HashRing`) and forwards remote keys over TCP.
 """
 
+from .ring import HashRing
 from .sharded import (
     ShardedBucketTable,
     ShardedTorchRateLimiter,
@@ -16,6 +18,7 @@ from .sharded import (
 )
 
 __all__ = [
+    "HashRing",
     "ShardedBucketTable",
     "ShardedTorchRateLimiter",
     "make_mesh",

@@ -5,8 +5,8 @@ limiter and the sharded mesh: the merged rows go through
 `tpu/snapshot.py`'s `_bulk_insert`, so on a card through the
 `row_scatter` kernel, and a chain written on D shards restores onto any
 shard count.  A recovery stamps a "checkpoint-recovery" event on the
-flight recorder when one is armed.  The cluster branch is not part of
-the port yet.
+flight recorder when one is armed.  A ClusterLimiter recovers its local
+node.
 
 The scanner's contract is the opposite of THROTTLECRAB_SNAPSHOT_STRICT:
 a checkpoint directory is *best-effort durable state*, so corruption
@@ -138,6 +138,10 @@ def recover_into(
     limiter) or state exceeding capacity.
     """
     from ..tpu.limiter import limiter_uses_bytes_keys
+
+    local = getattr(limiter, "local", None)
+    if local is not None:  # ClusterLimiter: restore the local node
+        return recover_into(local, directory, now_ns, front=front)
 
     directory = Path(directory)
     if not directory.is_dir():

@@ -17,9 +17,10 @@ can *produce* failures on demand; this package makes any observed run
   ``None`` check, the fault hooks' discipline), dumped automatically on
   persistent degrade and on demand via ``GET /trace/dump``.
 * ``player.py`` — re-runs a trace under virtual time against the
-  scalar oracle or a `TorchRateLimiter` (the card, or ``device="cpu"``),
-  differentially against the scalar oracle and against the recorded
-  outcomes.
+  scalar oracle, a `TorchRateLimiter` (the card, or ``device="cpu"``),
+  the sharded mesh, or an in-process multi-node cluster reconstructed
+  from the recorded membership timeline, differentially against the
+  scalar oracle and against the recorded outcomes.
 * ``generators.py`` — synthetic diurnal / flash-crowd / slow-drift
   traces.
 """

@@ -5,9 +5,11 @@ The port of `throttlecrab_tpu/replay/recorder.py`.  Armed via the
 global-hook plumbing as fault injection (faults/injector.py): when
 nothing is armed every capture hook is one global ``None`` check, and
 the hooks ride per-*batch* paths (the engine flush path, the native
-driver's dispatch) — never per-request.  The recorder lives on the
-host: a window's outcome planes are already host arrays when it is
-captured, so capture never touches the card.
+driver's dispatch, the cluster frontend) — never per-request; the
+cluster tier stamps its membership events (``cluster-join``,
+``cluster-takeover``, ``cluster-leave``, ``cluster-epoch``) on it.  The
+recorder lives on the host: a window's outcome planes are already host
+arrays when it is captured, so capture never touches the card.
 
 Two modes:
 

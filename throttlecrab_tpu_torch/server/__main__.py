@@ -3,16 +3,19 @@
 Lifecycle as the reference's `main.rs:49-184`: parse config -> logging ->
 metrics -> fault injection when `--faults` is set -> the flight recorder
 when `--trace-dir` is set -> limiter on the device (6-wide insight rows
-by default), wrapped in the launch supervisor -> checkpointer when
+by default), wrapped in the launch supervisor -> with `--cluster-nodes`,
+the cluster tier around it (parallel/cluster.py) -> checkpointer when
 `--checkpoint-dir` is set -> front tier (deny cache + admission control)
 -> boot restore (the newest verifiable checkpoint chain, else
 `--snapshot-path` when the file exists) -> insight tier -> control plane
 when `--control` is set -> micro-batching engine (a profiler capture of
 its first launches with `--profile-dir`) -> transports (HTTP, gRPC
 and/or Redis/RESP, HTTP and RESP each on asyncio or the native C++ wire
-server) -> wait for SIGINT/SIGTERM or a transport failure -> shutdown.
-SIGTERM drains first (de-route, flush queued requests with real
-decisions, bounded by `--drain-timeout-ms`; 0 skips the drain); SIGINT
+server; a cluster node adds its RPC listener and announces its
+membership) -> wait for SIGINT/SIGTERM or a transport failure ->
+shutdown.  SIGTERM drains first (de-route, flush queued requests with
+real decisions, a cluster node's planned leave, bounded by
+`--drain-timeout-ms`; 0 skips the drain); SIGINT
 flushes and stops.  After the engine stops, the flight recorder closes
 (a full-mode trace is then complete); after the transports stop, the
 checkpointer writes a final generation and, with `--snapshot-path`, the
@@ -29,6 +32,7 @@ import sys
 import time
 
 from ..faults import FaultInjector, arm, parse_spec
+from ..parallel.cluster import ClusterLimiter, ClusterServer
 from ..persist import Checkpointer, recover_into
 from ..replay import recorder as replay_recorder
 from .config import Config, ConfigError
@@ -254,13 +258,47 @@ async def run_server(config: Config) -> None:
         metrics.set_tenant_stats_provider(device_limiter.tenant_stats)
     supervisor = create_supervised_limiter(config, device_limiter, metrics)
     metrics.set_engine_state_provider(lambda: supervisor.state)
+    limiter = supervisor
+    cluster_nodes = config.cluster_node_list()
+    if cluster_nodes:
+        # Multi-node deployment: every key has one owner node; remote
+        # keys forward over the cluster RPC and limits hold globally
+        # (parallel/cluster.py).
+        log.info(
+            "cluster mode: node %d of %d (%s)",
+            config.cluster_index, len(cluster_nodes),
+            cluster_nodes[config.cluster_index],
+        )
+        limiter = ClusterLimiter(
+            supervisor, cluster_nodes, config.cluster_index,
+            io_timeout_s=config.cluster_timeout_ms / 1000.0,
+            breaker_failures=config.cluster_breaker_failures,
+            breaker_cooldown_s=config.cluster_breaker_cooldown_ms / 1000.0,
+            connect_timeout_s=config.cluster_connect_timeout_ms / 1000.0,
+            vnodes=config.cluster_vnodes,
+            replicate=config.cluster_replicate,
+            handoff_timeout_s=config.cluster_handoff_timeout_ms / 1000.0,
+            replica_cap=config.cluster_replica_cap,
+        )
+        metrics.set_cluster_stats_provider(limiter.peer_stats)
+        metrics.set_cluster_view_provider(limiter.cluster_view)
+        if config.cluster_vnodes > 0:
+            # A degraded node shrinks its ring weight so its neighbours
+            # absorb load; re-promotion restores it.  The hooks run
+            # under the limiter lock, so they only schedule: the
+            # cluster's pump applies the weight outside it.
+            cluster = limiter
+            supervisor.on_degrade = lambda: cluster.schedule_reweight(0.5)
+            supervisor.on_repromote = (
+                lambda: cluster.schedule_reweight(1.0)
+            )
     checkpointer = None
     if config.checkpoint_dir:
         # Crash durability: background generation-chain checkpoints plus
         # boot-time recovery.  With interval 0 it is recovery and the
         # shutdown flush only (no ticks, no dirty tracking).
         checkpointer = Checkpointer(
-            supervisor,
+            limiter,
             config.checkpoint_dir,
             interval_ns=config.checkpoint_interval_ms * 1_000_000,
             retain=config.checkpoint_retain,
@@ -275,27 +313,37 @@ async def run_server(config: Config) -> None:
     # The front tier is shared by the engine and the native transports;
     # a re-promotion rewrites bucket state, so the supervisor invalidates
     # the deny cache through it.
-    front = create_front_tier(config, metrics, supervisor)
+    front = create_front_tier(config, metrics, limiter)
     supervisor.front = front
     loop = asyncio.get_running_loop()
     # The restore is a device bulk insert: executor, not the event loop,
-    # and done before any transport starts.
+    # and done before any transport (the cluster listener included)
+    # starts.
     await loop.run_in_executor(
-        None, restore_on_boot, supervisor, config, checkpointer, front
+        None, restore_on_boot, limiter, config, checkpointer, front
     )
     # The insight tier watches the device limiter; the supervisor feeds
     # it from the host oracle while degraded so /stats stays truthful.
     insight = create_insight(config, metrics, device_limiter, front)
     supervisor.insight = insight
+    if cluster_nodes and insight is not None:
+        # A cluster node's table is serialized by the cluster's device
+        # lock (the RPC listener decides under it, not under the
+        # engine's limiter lock): the insight poll takes the same one.
+        insight.poll_lock = limiter.device_lock
     cleanup_policy = create_cleanup_policy(config)
     # The control plane tunes the knobs of the tiers just built; off by
     # default (THROTTLECRAB_CONTROL=0), when nothing ticks and no knob
     # moves.
     control = create_control(
-        config, metrics, supervisor, front, insight, cleanup_policy
+        config, metrics, limiter, front, insight, cleanup_policy
     )
+    if cluster_nodes and control is not None:
+        # As for the insight poll: the tick's sensor reads ride the
+        # cluster's device lock.
+        control.tick_lock = limiter.device_lock
     engine = BatchingEngine(
-        supervisor,
+        limiter,
         batch_size=config.batch_size,
         max_linger_us=config.max_linger_us,
         max_scan_depth=config.max_scan_depth,
@@ -309,8 +357,26 @@ async def run_server(config: Config) -> None:
         profile_dir=config.profile_dir or None,
     )
     transports = build_transports(config, engine, metrics)
+    if cluster_nodes:
+        # The RPC listener decides on the local limiter under the
+        # cluster's device lock, not the engine's limiter lock, which is
+        # held across outbound peer RPCs: sharing it would deadlock two
+        # nodes forwarding to each other.
+        rpc_port = int(
+            cluster_nodes[config.cluster_index].rpartition(":")[2]
+        )
+        transports.append(
+            ClusterServer(
+                config.cluster_bind_host, rpc_port, limiter.local,
+                limiter.device_lock, cluster=limiter,
+            )
+        )
     for transport in transports:
         await transport.start()
+    if cluster_nodes and config.cluster_vnodes > 0:
+        # Announce membership once the RPC listener is up, so peers can
+        # stream this node's key range back (join and rejoin).
+        limiter.start_membership()
 
     stop = asyncio.Event()
     drain_requested = False
@@ -352,6 +418,16 @@ async def run_server(config: Config) -> None:
                 if drain_hook is not None:
                     await drain_hook()
             await engine.drain()
+            # Planned cluster leave: stream this node's key range to its
+            # new owners (no lost decisions, no replica staleness);
+            # blocking socket work, so on the executor.
+            if cluster_nodes and config.cluster_vnodes > 0:
+                left = await loop.run_in_executor(None, limiter.leave)
+                if not left:
+                    log.warning(
+                        "planned leave unavailable; peers take over "
+                        "via the kill path"
+                    )
 
         try:
             await asyncio.wait_for(_drain(), config.drain_timeout_ms / 1000.0)

@@ -16,9 +16,8 @@ and the default request deadline, the adaptive control plane
 `cpu` runs the plain version).
 
 `--pallas-fused` parses and changes nothing: the port has one route, the
-hand-written decision-window kernel.  The `--cluster-*` flags parse at
-their defaults; the cluster tier is not part of the port yet, so a
-non-default value, by flag or environment, is refused.
+hand-written decision-window kernel.  The `--cluster-*` flags build the
+multi-node cluster tier (`parallel/cluster.py`) with JAX's validation.
 """
 
 from __future__ import annotations
@@ -193,45 +192,53 @@ _SPEC = [
      "declares the device down (persistent degrade), so every chaos "
      "failure leaves a replayable post-mortem artifact (env 0 "
      "disables)"),
-    # --- cluster tier: parses at its defaults, not part of the port yet
+    # --- cluster tier
     ("cluster_nodes", "THROTTLECRAB_CLUSTER_NODES", "", str,
      "Comma-separated host:port cluster RPC addresses of every node "
-     "(empty: single-node; the cluster tier is not part of the port "
-     "yet, so only the default is accepted)"),
+     "(same list on every node; empty: single-node)"),
     ("cluster_index", "THROTTLECRAB_CLUSTER_INDEX", 0, int,
-     "This node's position in --cluster-nodes (default only)"),
+     "This node's position in --cluster-nodes"),
     ("cluster_bind_host", "THROTTLECRAB_CLUSTER_BIND_HOST", "0.0.0.0", str,
-     "Bind host for the cluster RPC listener (default only)"),
+     "Bind host for the cluster RPC listener"),
     ("cluster_timeout_ms", "THROTTLECRAB_CLUSTER_TIMEOUT_MS", 1000, int,
-     "Per-peer forward deadline in milliseconds (default only)"),
+     "Per-peer forward deadline in milliseconds (must cover the owner's "
+     "remote decision incl. one device launch)"),
     ("cluster_connect_timeout_ms",
      "THROTTLECRAB_CLUSTER_CONNECT_TIMEOUT_MS", 1000, int,
-     "Per-peer TCP connect deadline in milliseconds (default only)"),
+     "Per-peer TCP connect deadline in milliseconds"),
     ("cluster_breaker_failures", "THROTTLECRAB_CLUSTER_BREAKER_FAILURES",
-     3, int,
-     "Consecutive peer failures that open the circuit breaker (default "
-     "only)"),
+     3, int, "Consecutive peer failures that open the circuit breaker"),
     ("cluster_breaker_cooldown_ms",
      "THROTTLECRAB_CLUSTER_BREAKER_COOLDOWN_MS", 1000, int,
-     "Circuit-breaker cooldown before the next probe in milliseconds "
-     "(default only)"),
+     "Circuit-breaker cooldown before the next probe (milliseconds)"),
     ("cluster_vnodes", "THROTTLECRAB_CLUSTER_VNODES", 128, int,
      "Virtual nodes per cluster node on the consistent-hash ring "
-     "(default only)"),
+     "(elastic membership: join/leave only remaps the affected vnode "
+     "ranges).  0 is the kill switch: the legacy static crc32-modulo "
+     "routing, bit-identical to the pre-ring cluster tier.  MUST be "
+     "identical on every node — a mixed ring/modulo (or mixed-vnodes) "
+     "cluster splits key ownership"),
     ("cluster_replicate", "THROTTLECRAB_CLUSTER_REPLICATE", True, bool,
-     "Warm-standby replication to the ring successor (default only)"),
+     "Warm-standby replication (ring mode): each node streams async "
+     "state deltas for its decided keys to their ring successor, so a "
+     "dead node's range keeps serving from the replica instead of "
+     "failing (env 0 disables; failover then starts those keys fresh)"),
     ("cluster_handoff_timeout_ms",
      "THROTTLECRAB_CLUSTER_HANDOFF_TIMEOUT_MS", 5000, int,
-     "How long a joining node waits for a migration in milliseconds "
-     "(default only)"),
+     "How long a joining node holds decisions on a gained key range "
+     "waiting for the predecessor's migration before serving without "
+     "it (milliseconds)"),
     ("cluster_replica_cap", "THROTTLECRAB_CLUSTER_REPLICA_CAP",
      100_000, int,
-     "Bound on warm-standby replica rows (default only)"),
+     "Bound on warm-standby replica rows held for ring predecessors "
+     "(overflow evicts the coldest row)"),
     ("drain_timeout_ms", "THROTTLECRAB_DRAIN_TIMEOUT_MS", 10_000, int,
      "SIGTERM drain budget in milliseconds: stop accepting, flush "
-     "in-flight batches with real decisions and snapshot; past the "
-     "budget the server falls back to the abrupt kill path.  0 skips "
-     "the drain entirely: SIGTERM behaves like SIGINT"),
+     "in-flight batches with real decisions, run the planned cluster "
+     "leave (zero-staleness handoff) and snapshot; past the budget "
+     "the node falls back to the abrupt kill path (replica takeover "
+     "bounds the damage).  0 skips the drain entirely — SIGTERM "
+     "behaves like SIGINT"),
     ("deadline_default_ms", "THROTTLECRAB_DEADLINE_DEFAULT_MS", 0, int,
      "Default per-request deadline stamped on requests that carry "
      "none (milliseconds; 0, the default, stamps nothing).  Requests "
@@ -453,16 +460,6 @@ class Config:
                 "tenant_affinity/tenant_quota need a sharded mesh "
                 "(--shards > 1)"
             )
-        for f in dataclasses.fields(self):
-            if f.name.startswith("cluster_") and (
-                getattr(self, f.name) != f.default
-            ):
-                raise ConfigError(
-                    f"--{f.name.replace('_', '-')} "
-                    f"{getattr(self, f.name)!r}: the cluster tier is not "
-                    "part of the port yet (ROADMAP A8); only its default "
-                    f"{f.default!r} is accepted"
-                )
         if self.front_deny_cache < 0:
             raise ConfigError("front_deny_cache must be >= 0")
         if self.front_max_pending < 0 or self.front_max_wait_us < 0:
@@ -535,14 +532,38 @@ class Config:
             )
         if self.trace_windows <= 0:
             raise ConfigError("trace_windows must be > 0")
+        if self.cluster_vnodes < 0:
+            raise ConfigError(
+                "cluster_vnodes must be >= 0 (0 = legacy modulo routing)"
+            )
+        if self.cluster_handoff_timeout_ms <= 0:
+            raise ConfigError("cluster_handoff_timeout_ms must be > 0")
+        if self.cluster_replica_cap < 0:
+            raise ConfigError("cluster_replica_cap must be >= 0")
         if self.drain_timeout_ms < 0:
             raise ConfigError("drain_timeout_ms must be >= 0")
         if self.deadline_default_ms < 0:
             raise ConfigError("deadline_default_ms must be >= 0")
+        nodes = self.cluster_node_list()
+        if nodes:
+            if not 0 <= self.cluster_index < len(nodes):
+                raise ConfigError(
+                    "cluster_index must index into cluster_nodes"
+                )
+            for addr in nodes:
+                host, _, port = addr.rpartition(":")
+                if not host or not port.isdigit():
+                    raise ConfigError(
+                        f"Invalid cluster node address: {addr!r} "
+                        "(expected host:port)"
+                    )
         if self.device.split(":")[0] not in ("cuda", "cpu"):
             raise ConfigError(
                 f"Invalid device: {self.device!r} (expected cuda or cpu)"
             )
+
+    def cluster_node_list(self) -> List[str]:
+        return [a.strip() for a in self.cluster_nodes.split(",") if a.strip()]
 
 
 class ConfigError(ValueError):

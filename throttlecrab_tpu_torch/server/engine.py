@@ -162,6 +162,11 @@ class BatchingEngine:
         self.now_fn = now_fn or time.time_ns
         self.max_scan_depth = max_scan_depth
         self.deadline_default_ms = int(deadline_default_ms)
+        #: A ClusterLimiter advertises this: forwards carry each row's
+        #: remaining deadline budget to the owning node.
+        self._limiter_takes_deadlines = bool(
+            getattr(limiter, "accepts_deadlines", False)
+        )
         # The flush pops whole windows from the left while transports
         # append on the right.
         self._pending: deque = deque()
@@ -276,14 +281,16 @@ class BatchingEngine:
                 if windows:
                     now_ns = self.now_fn()
                     self._profile_tick()
+                    dl_kw = self._deadline_many_kw(windows)
 
-                    def do_dispatch(ws=windows, t=now_ns):
+                    def do_dispatch(ws=windows, t=now_ns, dk=dl_kw):
                         with self.limiter_lock, annotate("gcra_dispatch"):
                             # The deny cache's dispatch-order stamp, under
                             # the lock that orders launches.
                             return self._next_seq(), self.limiter.dispatch_many(
                                 [self._columns(w, t) for w in ws],
                                 **self._wire_many_kw,
+                                **dk,
                             )
 
                     try:
@@ -452,6 +459,24 @@ class BatchingEngine:
             finally:
                 front.end_inflight(r.key)
 
+    def _deadline_many_kw(self, windows) -> dict:
+        """Per-window deadline columns for a deadline-aware limiter (a
+        ClusterLimiter: forwards carry the remaining budget, so a
+        hop-chained request cannot outlive its client).  An empty dict,
+        the unchanged call, when the limiter takes none or no request in
+        the flush carries one."""
+        if not self._limiter_takes_deadlines:
+            return {}
+        if not any(
+            r.deadline_ns is not None for w in windows for r, _ in w
+        ):
+            return {}
+        return {
+            "deadlines": [
+                [r.deadline_ns or 0 for r, _ in w] for w in windows
+            ]
+        }
+
     async def _fetch_complete(self, in_flight) -> None:
         """Fetch an in-flight launch's results and resolve its futures."""
         windows, handle, now_ns, seq = in_flight
@@ -470,12 +495,14 @@ class BatchingEngine:
         now_ns = self.now_fn()
         loop = asyncio.get_running_loop()
         self._profile_tick()
+        dl_kw = self._deadline_many_kw(windows)
 
         def launch():
             with self.limiter_lock, annotate("gcra_scan_decide"):
                 return self._next_seq(), self.limiter.rate_limit_many(
                     [self._columns(w, now_ns) for w in windows],
                     **self._wire_many_kw,
+                    **dl_kw,
                 )
 
         t0 = time.monotonic()
@@ -494,11 +521,16 @@ class BatchingEngine:
         now_ns = self.now_fn()
         loop = asyncio.get_running_loop()
         self._profile_tick()
+        dl_kw = {}
+        if self._limiter_takes_deadlines and any(
+            r.deadline_ns is not None for r, _ in batch
+        ):
+            dl_kw = {"deadlines_ns": [r.deadline_ns or 0 for r, _ in batch]}
 
         def launch():
             with self.limiter_lock, annotate("gcra_batch_decide"):
                 return self._next_seq(), self.limiter.rate_limit_batch(
-                    *self._columns(batch, now_ns), **self._wire_kw
+                    *self._columns(batch, now_ns), **self._wire_kw, **dl_kw
                 )
 
         t0 = time.monotonic()

@@ -5,9 +5,11 @@ Same wire surface as the reference's router (`http.rs:103-163`) and as
 count_per_period, period, quantity?}` (quantity defaults to 1), `GET
 /health` returning "OK" (or the serving state's name; with checkpoints
 armed, followed by " checkpoint_age_s=..."), `GET /metrics` returning
-Prometheus text, `GET /stats` returning the insight tier's JSON, `GET
-/trace/dump` dumping the flight recorder (replay/) and `GET /control`
-returning the control plane's document (control/).
+Prometheus text, `GET /stats` returning the insight tier's JSON (with the
+cluster view folded in on a cluster node), `GET /health/cluster`
+returning the cluster view (parallel/cluster.py), `GET /trace/dump`
+dumping the flight recorder (replay/) and `GET /control` returning the
+control plane's document (control/).
 Timestamps are always server-side.  Errors return `{"error": ...}` with
 400 (malformed request), 500 (validation), 503 (draining, or shed by the
 front tier's admission control) or 504 (client deadline lapsed in the
@@ -25,7 +27,7 @@ import logging
 from typing import Optional
 
 from .engine import BatchingEngine, DeadlineError, OverloadError, ThrottleError
-from .metrics import Metrics
+from .metrics import Metrics, merge_cluster_stats
 from .transport_base import ConnTrackingMixin
 from .types import ThrottleRequest
 
@@ -43,7 +45,7 @@ _REASONS = {
 
 class HttpTransport(ConnTrackingMixin):
     """`POST /throttle` + `GET /health` + `GET /metrics` + `GET /stats`
-    + `GET /trace/dump` + `GET /control`."""
+    + `GET /health/cluster` + `GET /trace/dump` + `GET /control`."""
 
     name = "http"
 
@@ -160,6 +162,16 @@ class HttpTransport(ConnTrackingMixin):
                 # durability is armed (the bare "OK" is a wire contract).
                 body += b" " + ck.health_suffix().encode()
             return 200, body, "text/plain"
+        if method == "GET" and path == "/health/cluster":
+            # The cluster view: membership epoch, per-peer breaker and
+            # migration state, handoff and replica status.  A single
+            # node answers {"mode": "none"} so pollers need no probe
+            # logic.
+            view_fn = getattr(self.engine.limiter, "cluster_view", None)
+            payload = json.dumps(
+                view_fn() if view_fn is not None else {"mode": "none"}
+            ).encode()
+            return 200, payload, "application/json"
         if method == "GET" and path == "/trace/dump":
             # Admin: dump the flight recorder's retained windows to a
             # trace file.  Disarmed servers answer enabled:false so
@@ -209,6 +221,8 @@ class HttpTransport(ConnTrackingMixin):
                 payload = insight.stats_json(
                     state=self.engine.health_state()
                 )
+            # A cluster node folds its membership view into the poll.
+            payload = merge_cluster_stats(payload, self.engine.limiter)
             return 200, payload.encode(), "application/json"
         return 404, b"Not Found", "text/plain"
 

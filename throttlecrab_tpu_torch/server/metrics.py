@@ -4,7 +4,8 @@ The counters the engine and the transports touch, under the metric
 names of `throttlecrab_tpu/server/metrics.py` (the reference's names,
 `metrics.rs:233-310`, plus the `throttlecrab_tpu_*` launch/sweep,
 front-tier, supervisor, fault-injection, insight, control-plane and
-checkpoint extensions), so dashboards
+checkpoint extensions, and the cluster tier's `throttlecrab_cluster_*`
+per-peer counters and membership gauges), so dashboards
 read either server unchanged, and the reference's top-denied leaderboard
 `throttlecrab_top_denied_keys{key,rank}` (`metrics.rs:24-76`).
 Invariant: allowed + denied + errors == total.
@@ -48,6 +49,16 @@ METRIC_NAMES = (
     "throttlecrab_tpu_drain_shed_total",
     "throttlecrab_tpu_deadline_shed_total",
     "throttlecrab_tpu_faults_injected_total",
+    # Cluster tier (parallel/cluster.py + parallel/ring.py).
+    "throttlecrab_cluster_forwarded_total",
+    "throttlecrab_cluster_failed_total",
+    "throttlecrab_cluster_breaker_open",
+    "throttlecrab_cluster_migrated_keys",
+    "throttlecrab_cluster_migrated_in_total",
+    "throttlecrab_cluster_replica_rows",
+    "throttlecrab_cluster_takeovers_total",
+    "throttlecrab_cluster_leaves_total",
+    "throttlecrab_cluster_epoch",
     # Insight tier (insight/).
     "throttlecrab_tpu_insight_allowed_rate",
     "throttlecrab_tpu_insight_denied_rate",
@@ -141,6 +152,8 @@ class Metrics:
         self._control_stats = None
         self._checkpoint_stats = None
         self._tenant_stats = None
+        self._cluster_stats = None
+        self._cluster_view = None
 
     @classmethod
     def builder(cls) -> "MetricsBuilder":
@@ -280,6 +293,18 @@ class Metrics:
         exported as per-tenant allowed/denied/quota-rejection counters
         (sharded deployments with the tenant layer armed)."""
         self._tenant_stats = provider
+
+    def set_cluster_stats_provider(self, provider) -> None:
+        """`provider()` -> {peer_addr: {"forwarded": n, "failed": n,
+        "breaker_open": 0|1, "migrated_keys": n}}; exported as per-peer
+        counters (cluster deployments only)."""
+        self._cluster_stats = provider
+
+    def set_cluster_view_provider(self, provider) -> None:
+        """`provider()` -> ClusterLimiter.cluster_view(); exported as
+        the cluster-scalar gauges (epoch, replica rows, takeovers) and
+        served on GET /health/cluster (cluster deployments only)."""
+        self._cluster_view = provider
 
     def record_drain_shed(self, n: int = 1) -> None:
         with self._lock:
@@ -482,7 +507,64 @@ class Metrics:
                     out.append(
                         f'{name}{{tenant="{escaped}"}} {counts[field]}'
                     )
+        if self._cluster_stats is not None:
+            stats = self._cluster_stats()
+            for name, field, typ, help_ in (
+                ("throttlecrab_cluster_forwarded_total", "forwarded",
+                 "counter", "Batches forwarded to each cluster peer"),
+                ("throttlecrab_cluster_failed_total", "failed",
+                 "counter", "Forward failures per cluster peer"),
+                ("throttlecrab_cluster_breaker_open", "breaker_open",
+                 "gauge",
+                 "1 while the peer's circuit breaker is open (its key "
+                 "range is failing over to ring successors)"),
+                ("throttlecrab_cluster_migrated_keys", "migrated_keys",
+                 "counter",
+                 "Keys handed off to each peer by ring migrations "
+                 "(join/reweight/rejoin)"),
+            ):
+                out.append(f"# HELP {name} {help_}")
+                out.append(f"# TYPE {name} {typ}")
+                for peer, counts in sorted(stats.items()):
+                    escaped = escape_label_value(peer)
+                    out.append(
+                        f'{name}{{peer="{escaped}"}} '
+                        f'{counts.get(field, 0)}'
+                    )
+        if self._cluster_view is not None:
+            view = self._cluster_view()
+            metric("throttlecrab_cluster_epoch",
+                   "Cluster membership epoch (bumps on join/reweight)",
+                   "gauge", view.get("epoch", 0))
+            metric("throttlecrab_cluster_migrated_in_total",
+                   "Keys received through ring migrations",
+                   "counter", view.get("migrated_in", 0))
+            metric("throttlecrab_cluster_replica_rows",
+                   "Warm-standby replica rows held for ring predecessors",
+                   "gauge", view.get("replica_rows", 0))
+            metric("throttlecrab_cluster_takeovers_total",
+                   "Dead-peer ranges absorbed from the warm replica",
+                   "counter", view.get("takeovers", 0))
+            metric("throttlecrab_cluster_leaves_total",
+                   "Planned departures observed (own leave + peers' "
+                   "OP_LEAVE announcements applied)",
+                   "counter", view.get("leaves", 0))
         return "\n".join(out) + "\n"
+
+
+def merge_cluster_stats(payload: str, limiter) -> str:
+    """Fold the cluster view into a /stats JSON payload (shared by the
+    python HTTP route and the native wire driver's pushed snapshot, so
+    the two transports cannot diverge).  Non-cluster limiters return
+    the payload untouched."""
+    view_fn = getattr(limiter, "cluster_view", None)
+    if view_fn is None:
+        return payload
+    import json
+
+    stats = json.loads(payload)
+    stats["cluster"] = view_fn()
+    return json.dumps(stats)
 
 
 def escape_label_value(value: str) -> str:

@@ -64,6 +64,7 @@ from ..tpu.limiter import (
     WireBatchResult,
     limiter_uses_bytes_keys,
 )
+from .metrics import merge_cluster_stats
 from .supervisor import supervisor_state
 
 log = logging.getLogger("throttlecrab.redis.native")
@@ -301,7 +302,9 @@ class NativeRedisTransport:
         further batches without lingering and decide the whole window in
         ONE device launch, exactly like the asyncio engine's backlog
         path."""
-        state = getattr(getattr(self.limiter, "table", None), "state", None)
+        # A cluster node's table is its local limiter's.
+        dev = getattr(self.limiter, "local", self.limiter)
+        state = getattr(getattr(dev, "table", None), "state", None)
         if state is not None and state.is_cuda:
             # This thread launches the window kernel on the current
             # stream of the table's card (a tensor's device has an index).
@@ -783,7 +786,11 @@ class NativeRedisTransport:
             body += b" " + self.checkpointer.health_suffix().encode()
         self._lib.ws_set_health(self._h, body, len(body))
         if self.insight is not None:
-            stats = self.insight.stats_json(state=state).encode()
+            # A cluster node folds its membership view into the snapshot
+            # (the helper the python HTTP route uses too).
+            stats = merge_cluster_stats(
+                self.insight.stats_json(state=state), self.limiter
+            ).encode()
             self._lib.ws_set_stats(self._h, stats, len(stats))
 
     def _maybe_sweep(self, now_ns: int, n_ops: int) -> None:

@@ -358,9 +358,8 @@ class SupervisedLimiter:
         self.retry_count = 0
         self.degrade_count = 0
         self.repromote_count = 0
-        #: Capacity-change hooks (the JAX server wires these to the
-        #: cluster tier's schedule_reweight; the port has no cluster
-        #: tier yet, so its server sets neither): a node whose device
+        #: Capacity-change hooks (run_server wires these to the cluster
+        #: tier's schedule_reweight in ring mode): a node whose device
         #: died serves from the host oracle at a fraction of device
         #: throughput, so it announces a reduced ring weight and its
         #: neighbours absorb the difference; re-promotion restores it.

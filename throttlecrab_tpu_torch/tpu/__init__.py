@@ -2,7 +2,7 @@
 hand-written decision-window kernel."""
 
 from .keymap import PyKeyMap
-from .kernel import EMPTY_EXPIRY
+from .kernel import EMPTY_EXPIRY, gcra_batch, sweep_expired
 from .limiter import (
     STATUS_INVALID_PARAMS,
     STATUS_NEGATIVE_QUANTITY,
@@ -23,4 +23,6 @@ __all__ = [
     "STATUS_OK",
     "TorchRateLimiter",
     "derive_params",
+    "gcra_batch",
+    "sweep_expired",
 ]

@@ -544,6 +544,28 @@ def decide_window(state, packed, now, *, with_degen=True, compact=False):
     return torch.stack(outs), torch.stack(n_exp)
 
 
+def gcra_batch(
+    state, slots, rank, is_last, emission, tolerance, quantity, valid, now,
+    *, with_degen=True, compact=False,
+):
+    """Decide B requests against the bucket table (the JAX package's
+    single-batch `gcra_batch`, on the plain version): `state` i32[N, W]
+    is updated in place (its last B rows are scratch); `slots` i32[B],
+    `rank` [B], `is_last` / `valid` bool[B], `emission`, `tolerance`,
+    `quantity` i64[B] and `now` an i64 scalar, all on the state's device.
+    Duplicate slots must share (emission, tolerance, quantity).  Returns
+    (state, out) with out[4, B] = (allowed, remaining, reset_after,
+    retry_after) per the `compact` tier."""
+    now = torch.as_tensor(now, dtype=torch.int64, device=state.device)
+    out, _ = _gcra_body(
+        state,
+        (slots, rank.to(torch.int64), is_last, emission, tolerance,
+         quantity, valid, now),
+        rowops=row_ops.PLAIN, with_degen=with_degen, compact=compact,
+    )
+    return state, out
+
+
 def _lanes_allowed(out, compact):
     """The valid-masked allowed bit of any output tier, [..., B]."""
     if compact in ("cur", "w32"):

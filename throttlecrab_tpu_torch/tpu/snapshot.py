@@ -23,6 +23,10 @@ Snapshots are best-effort soft state: keys whose TTL lapsed between
 snapshot and restore are dropped, so a stale snapshot degrades to an
 empty table, never to wrong decisions.
 
+A ClusterLimiter (parallel/cluster.py) exports, saves and restores its
+local node; the cluster's migrations, leaves and takeovers move their
+rows through :func:`export_state` and :func:`_bulk_insert` too.
+
 The launch supervisor (server/supervisor.py) uses both halves: a degrade
 seeds its host oracle from :func:`export_state` (the gathers), and a
 re-promotion writes the host-mutated buckets back with
@@ -134,7 +138,11 @@ def export_state(limiter):
 
     A degraded SupervisedLimiter exports its host oracle's state (the
     device copy is stale once the oracle takes over; slots are -1);
-    otherwise the wrapped limiter's table is gathered."""
+    otherwise the wrapped limiter's table is gathered.  A ClusterLimiter
+    exports its local node."""
+    local = getattr(limiter, "local", None)
+    if local is not None:  # ClusterLimiter
+        return export_state(local)
     degraded = getattr(limiter, "export_degraded_state", None)
     if degraded is not None:  # SupervisedLimiter
         host = degraded()
@@ -230,6 +238,9 @@ def export_snapshot_payload(limiter) -> dict:
     keymap walk, no encoding and no file I/O, so it is the one part of a
     snapshot that belongs under the limiter lock.  Hand the payload to
     :func:`write_snapshot_payload` outside the lock."""
+    local = getattr(limiter, "local", None)
+    if local is not None:  # ClusterLimiter
+        return export_snapshot_payload(local)
     raw_keys, slots, shard, tat, expiry, capacity, n_shards = (
         export_state(limiter)
     )
@@ -312,7 +323,11 @@ def load_snapshot(
     holds across restarts).  `front` (an optional front.FrontTier) is
     fully invalidated: the restore rewrites bucket state out from under
     any cached denials.  Every corruption of the file surfaces as
-    SnapshotError."""
+    SnapshotError.  A ClusterLimiter restores into its local node (each
+    node pairs with its own snapshot file)."""
+    local = getattr(limiter, "local", None)
+    if local is not None:  # ClusterLimiter
+        return load_snapshot(local, path, now_ns, front=front)
     if front is not None:
         front.on_restore()
     if len(limiter) != 0:
