@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Sixteen phases, each printing its results; any failure raises and the
+Seventeen phases, each printing its results; any failure raises and the
 script exits nonzero without its last line:
 
 1. card: the card's name and power limit (nvidia-smi), and the builds of
@@ -264,6 +264,14 @@ script exits nonzero without its last line:
    /health/cluster shows the epoch and the peer, /metrics counts
    forwards, SIGTERM on node 1 drains with a planned leave and exits 0,
    and node 0 continues that node's bucket.
+17. the static invariant suite: `python -m throttlecrab_tpu_torch.analysis
+   --strict --json` over this checkout in a subprocess (its twelve
+   checkers over the port's Python, its CUDA sources in csrc/ and the
+   shared native/*.cpp); prints the finding count, the waived count, the
+   seconds per checker, the suite's and the phase's wall time beside the
+   card, and whether it imported torch, numpy or jax.  Any unwaived
+   finding, stale or violated waiver, heavy import or nonzero exit
+   fails the run.
 
 The line before the last is the {"kernels": [...]} record; the last line
 is {"ok": true, "device": {...}}.
@@ -4463,6 +4471,47 @@ def run_cluster(card):
             "cluster_phase_s": {"in_process": in_s, "servers": srv_s}}
 
 
+# ---- the static invariant suite (phase 17) ------------------------------- #
+
+
+def run_invariants(card):
+    """Run the port's invariant suite over the tree this script sits in,
+    in a subprocess, and fail on any finding, stale or violated waiver,
+    heavy import or nonzero exit.  Returns the suite's JSON report."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "throttlecrab_tpu_torch.analysis", "--strict",
+         "--json", "--root", root],
+        cwd=root, capture_output=True, text=True, timeout=300,
+    )
+    wall = time.monotonic() - t0
+    try:
+        report = json.loads(proc.stdout)
+    except ValueError:
+        raise AssertionError(
+            f"the invariant suite printed no report (exit "
+            f"{proc.returncode}): {proc.stderr[-2000:]}") from None
+    imported = {m: report[f"{m}_imported"] for m in ("torch", "numpy", "jax")}
+    print(f"  {len(report['findings'])} unwaived finding(s), "
+          f"{report['waived']} waived, {len(report['stale_waivers'])} stale "
+          f"or violated waiver(s); torch_imported {imported['torch']}, "
+          f"numpy_imported {imported['numpy']}, jax_imported "
+          f"{imported['jax']}")
+    print(f"  seconds per checker: {json.dumps(report['checker_s'])}")
+    print(f"  suite {report['elapsed_s']:.3f} s, phase wall {wall:.3f} s "
+          f"({card})")
+    for f in report["findings"]:
+        print(f"  {f['path']}:{f['line']}: {f['code']} [{f['symbol']}] "
+              f"{f['message']}")
+    if (proc.returncode != 0 or report["findings"]
+            or report["stale_waivers"] or any(imported.values())):
+        raise AssertionError(
+            f"the invariant suite failed (exit {proc.returncode}): "
+            f"{proc.stderr[-2000:]}")
+    return report
+
+
 def main() -> int:
     import torch
 
@@ -4799,6 +4848,10 @@ def main() -> int:
     cluster = run_cluster(card)
     crec = cluster["cluster"]
     cluster_steps = ("steady", "kill", "rejoin", "leave")
+
+    print("[17] the static invariant suite over this checkout "
+          "(python -m throttlecrab_tpu_torch.analysis --strict --json)")
+    run_invariants(card)
 
     print(f"card: {card_line()}")
     kernels = [{

@@ -14,16 +14,19 @@ default); the port's nodes run the plain version on the CPU.
 
 import pytest
 
-from torch_cluster import compare_runs, free_ports, run_lifecycle
+from torch_cluster import Ports, compare_runs, run_lifecycle
 
 pytestmark = pytest.mark.filterwarnings("ignore::DeprecationWarning")
 
 
 @pytest.fixture(scope="module")
 def lifecycle_runs():
-    ports = free_ports(3)
-    return (run_lifecycle(["jax"] * 3, ports),
-            run_lifecycle(["port"] * 3, ports))
+    ports = Ports(3)  # held between runs and while a node is down
+    try:
+        return (run_lifecycle(["jax"] * 3, ports),
+                run_lifecycle(["port"] * 3, ports))
+    finally:
+        ports.close()
 
 
 @pytest.mark.parametrize("step", ["boot", "join", "kill", "rejoin",

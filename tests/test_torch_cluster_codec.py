@@ -20,6 +20,18 @@ from throttlecrab_tpu.parallel import ring as jr
 from throttlecrab_tpu.parallel.sharded import shard_of_key
 from throttlecrab_tpu_torch.parallel import cluster as pc
 from throttlecrab_tpu_torch.parallel import ring as pr
+from throttlecrab_tpu_torch.parallel.cluster import (
+    OP_DROUTE_BATCH,
+    OP_JOIN,
+    OP_LEAVE,
+    OP_MIGRATE,
+    OP_REPLICA,
+    OP_RING,
+    OP_RING_STATE,
+    OP_ROUTE_BATCH,
+    OP_THROTTLE_BATCH,
+    OP_THROTTLE_REPLY,
+)
 
 NS = 1_000_000_000
 T0 = 1_700_000_000 * NS
@@ -72,6 +84,24 @@ DECODER = {"batch": "decode_batch", "route": "decode_route",
            "migrate": "decode_rows", "replica": "decode_rows",
            "ring": "decode_ring", "ring-state": "decode_ring",
            "join": "decode_join", "leave": "decode_leave"}
+
+
+#: The frame kind whose mutation cases (`test_malformed_frames_refused_as_in_jax`,
+#: `test_encoder_bytes_and_decode_equal_jax`) cover each op.  Keyed by
+#: op, so the port's invariant suite (`wire` checker) can hold it to the
+#: ops the cluster declares.
+MUTATION_ARMS = {
+    OP_THROTTLE_BATCH: "batch",
+    OP_THROTTLE_REPLY: "reply",
+    OP_MIGRATE: "migrate",
+    OP_RING: "ring",
+    OP_JOIN: "join",
+    OP_RING_STATE: "ring-state",
+    OP_REPLICA: "replica",
+    OP_ROUTE_BATCH: "route",
+    OP_LEAVE: "leave",
+    OP_DROUTE_BATCH: "droute",
+}
 
 
 def _norm(v):
@@ -127,6 +157,17 @@ def test_malformed_frames_refused_as_in_jax(kind):
         assert _decode(pc, kind, b) == want, (kind, len(b))
         refused += want[0] == "refused"
     assert refused >= len(body) // 2
+
+
+def test_mutation_arms_cover_every_frame_op():
+    """Every op the cluster decodes has its mutation cases, run under
+    the kind its FRAME_DECODERS entry names, with that kind's decoder."""
+    assert set(MUTATION_ARMS) == set(pc.FRAME_DECODERS)
+    assert sorted(set(MUTATION_ARMS.values())) == sorted(ENCODER)
+    for op, kind in MUTATION_ARMS.items():
+        name, fn = pc.FRAME_DECODERS[op]
+        assert name == kind
+        assert fn is getattr(pc, DECODER[kind])
 
 
 def test_frame_decoders_table_equals_jax():

@@ -30,7 +30,7 @@ from throttlecrab_tpu_torch.tpu.limiter import (
     STATUS_INTERNAL,
     TorchRateLimiter,
 )
-from torch_cluster import NS, T0, Cluster, free_ports, result_planes, wait_for
+from torch_cluster import NS, T0, Cluster, Ports, result_planes, wait_for
 
 pytestmark = pytest.mark.filterwarnings("ignore::DeprecationWarning")
 
@@ -343,7 +343,7 @@ def _leave_fault(pkg, ports):
 @pytest.mark.parametrize("drill", [_migrate_fault, _leave_fault],
                          ids=["migrate", "leave"])
 def test_fault_site_fires_as_in_jax(drill):
-    ports = free_ports(2)
+    ports = Ports(2)
     got = {pkg: drill(pkg, ports) for pkg in ("jax", "port")}
     assert got["port"] == got["jax"]
     if drill is _migrate_fault:
@@ -375,7 +375,7 @@ def _lame_duck(pkg, ports):
 
 
 def test_lame_duck_forwards_not_decides_as_in_jax():
-    ports = free_ports(2)
+    ports = Ports(2)
     got = {pkg: _lame_duck(pkg, ports) for pkg in ("jax", "port")}
     assert got["port"] == got["jax"]
     _first, (allowed, _lim, remaining, *_r, status), fwd, lame, leaves = (
@@ -408,7 +408,7 @@ def _deadline(pkg, ports):
 def test_deadline_shed_as_in_jax():
     """Rows past their client deadline shed with STATUS_DEADLINE before
     any decide or forward, and consume nothing."""
-    ports = free_ports(2)
+    ports = Ports(2)
     got = {pkg: _deadline(pkg, ports) for pkg in ("jax", "port")}
     assert got["port"] == got["jax"]
     shed = got["port"][1]
@@ -419,7 +419,7 @@ def test_deadline_shed_as_in_jax():
 
 
 def test_breaker_open_failover_is_fast():
-    cl = _two("port", free_ports(2))
+    cl = _two("port", Ports(2))
     try:
         a = cl.nodes[0]
         key = _owned_by(cl, 1, "bo")
@@ -482,7 +482,7 @@ def _degrade_reweight(pkg, ports):
 
 
 def test_degrade_reweights_the_ring_as_in_jax():
-    ports = free_ports(2)
+    ports = Ports(2)
     got = {pkg: _degrade_reweight(pkg, ports) for pkg in ("jax", "port")}
     assert got["port"] == got["jax"]
     assert got["port"][0][0] == "degraded" and got["port"][2][0] == "ok"

@@ -12,7 +12,7 @@ run, and must match it batch by batch and node by node.
 
 import pytest
 
-from torch_cluster import compare_runs, free_ports, run_lifecycle
+from torch_cluster import Ports, compare_runs, run_lifecycle
 
 pytestmark = pytest.mark.filterwarnings("ignore::DeprecationWarning")
 
@@ -23,10 +23,13 @@ STEPS = ["boot", "join", "kill", "rejoin", "reweight", "leave"]
 
 @pytest.fixture(scope="module")
 def runs():
-    ports = free_ports(3)
-    out = {"jax": run_lifecycle(["jax"] * 3, ports, seed=23)}
-    for name, pkgs in MIXES.items():
-        out[name] = run_lifecycle(pkgs, ports, seed=23)
+    ports = Ports(3)  # held between runs and while a node is down
+    try:
+        out = {"jax": run_lifecycle(["jax"] * 3, ports, seed=23)}
+        for name, pkgs in MIXES.items():
+            out[name] = run_lifecycle(pkgs, ports, seed=23)
+    finally:
+        ports.close()
     return out
 
 

@@ -20,7 +20,7 @@ from throttlecrab_tpu_torch.replay.player import (
     outcome_vector,
 )
 from throttlecrab_tpu_torch.replay.trace import Trace
-from torch_cluster import CAP, NS, T0, Cluster, free_ports
+from torch_cluster import CAP, NS, T0, Cluster, Ports
 
 pytestmark = pytest.mark.filterwarnings("ignore::DeprecationWarning")
 
@@ -29,7 +29,7 @@ def _record(tmp_path):
     recorder = port_replay.FlightRecorder(capacity=4096,
                                           out_dir=str(tmp_path))
     port_replay.arm(recorder)
-    cl = Cluster(free_ports(3), ["port"] * 3)
+    cl = Cluster(Ports(3), ["port"] * 3)
     try:
         a = cl.boot(0, join=False)
         b = cl.boot(1, join=False)

@@ -38,7 +38,7 @@ from throttlecrab_tpu_torch.server.engine import BatchingEngine
 from throttlecrab_tpu_torch.server.http import HttpTransport
 from throttlecrab_tpu_torch.server.metrics import Metrics
 from throttlecrab_tpu_torch.server.types import ThrottleRequest
-from torch_cluster import NS, T0, Cluster, free_ports
+from torch_cluster import NS, T0, Cluster, Ports, free_ports
 
 pytestmark = pytest.mark.filterwarnings("ignore::DeprecationWarning")
 
@@ -113,7 +113,7 @@ def test_cluster_routes_and_metrics_byte_identical():
                 "count_per_period": 1 + k % 3, "period": 60,
             }).encode())
         bodies.append(wave)
-    ports = free_ports(2)
+    ports = Ports(2)
     got = {pkg: _serve(pkg, ports, bodies) for pkg in ("jax", "port")}
     assert len(got["port"]) == len(got["jax"])
     for a, b in zip(got["jax"], got["port"]):
@@ -372,7 +372,7 @@ def test_control_plane_registers_the_pump_actuator_as_in_jax():
     from throttlecrab_tpu_torch.control import actuators as port_act
     from throttlecrab_tpu_torch.control.telemetry import SensorBus
 
-    ports = free_ports(2)
+    ports = Ports(2)
     got = []
     for pkg, act, bus_cls in (("jax", jax_act, JaxBus),
                               ("port", port_act, SensorBus)):

@@ -345,3 +345,54 @@ def test_new_modules_name_no_jax_package_in_an_import():
                 root = name.split(".")[0]
                 assert root not in ("jax", "jaxlib", "throttlecrab_tpu"), (
                     path, name)
+
+
+_ANALYSIS_CODE = r"""
+import sys
+sys.modules["jax"] = None
+import throttlecrab_tpu_torch.analysis as analysis
+import throttlecrab_tpu_torch.analysis.__main__  # the CLI's module
+findings = analysis.run_all(sys.argv[1])
+assert findings, "the suite checked nothing"
+heavy = sorted(m for m in ("torch", "numpy", "jax")
+               if sys.modules.get(m) is not None)
+assert not heavy, heavy
+leaked = sorted(
+    m for m in sys.modules
+    if m == "throttlecrab_tpu" or m.startswith("throttlecrab_tpu.")
+)
+assert not leaked, leaked
+print("ok")
+"""
+
+
+def test_analysis_stands_alone():
+    """The port's invariant suite imports and runs over the repo with
+    `sys.modules["jax"] = None` and loads none of torch, numpy, jax or
+    the JAX package; no module of it names `throttlecrab_tpu` (nor
+    torch, numpy or jax) in an import statement."""
+    import ast
+
+    env = {
+        k: v for k, v in os.environ.items() if not k.startswith("PYTEST")
+    }
+    env["PYTHONPATH"] = str(REPO)
+    r = subprocess.run(
+        [sys.executable, "-c", _ANALYSIS_CODE, str(REPO)], cwd=REPO,
+        env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert r.returncode == 0, r.stdout + r.stderr[-3000:]
+    assert r.stdout.strip().endswith("ok"), r.stdout
+    files = sorted((REPO / "throttlecrab_tpu_torch" / "analysis").glob("*.py"))
+    assert len(files) == 15, files
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in (
+                    "throttlecrab_tpu", "torch", "numpy", "jax"), (path, name)

@@ -50,6 +50,8 @@ NS_FIELDS = ("allowed", "limit", "remaining", "reset_after_ns",
 
 
 def free_ports(n: int):
+    """`n` port numbers that were free when asked (the sockets are
+    closed): for a process that binds them itself."""
     socks = [socket.socket() for _ in range(n)]
     try:
         for s in socks:
@@ -59,6 +61,50 @@ def free_ports(n: int):
     finally:
         for s in socks:
             s.close()
+
+
+class Ports(list):
+    """The port numbers of one `Cluster`'s nodes, each held by a bound,
+    non-listening socket whenever no node of the cluster serves it.
+
+    A connection to a held port is refused, exactly as a dead node's
+    is; and while it is held no other process can be handed it (a
+    `bind(("", 0))` elsewhere, an ephemeral client port) between a
+    node's kill and its next boot, or between two clusters on the same
+    ports.  `Cluster` releases a port right before its index boots and
+    holds it again once the node is down; `close()` (or dropping the
+    object) releases them all."""
+
+    def __init__(self, n: int):
+        socks = [self._bind(0) for _ in range(n)]
+        super().__init__(s.getsockname()[1] for s in socks)
+        self._held = dict(enumerate(socks))
+
+    @staticmethod
+    def _bind(port: int) -> socket.socket:
+        s = socket.socket()
+        # SO_REUSEADDR: the port may still carry a dead node's TIME_WAIT
+        # connections; a bound socket that never listens keeps the port
+        # out of every other socket's automatic choice all the same.
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        s.bind(("127.0.0.1", port))
+        return s
+
+    def hold(self, i: int) -> None:
+        if i not in self._held:
+            self._held[i] = self._bind(self[i])
+
+    def release(self, i: int) -> None:
+        s = self._held.pop(i, None)
+        if s is not None:
+            s.close()
+
+    def close(self) -> None:
+        for i in list(self._held):
+            self.release(i)
+
+    def __del__(self):
+        self.close()
 
 
 def wait_for(cond, what, deadline_s=60.0):
@@ -196,15 +242,18 @@ class Node:
 
 
 class Cluster:
-    """Up to N nodes on fixed ports; a node index may mix packages."""
+    """Up to N nodes on the held ports of one `Ports`; a node index may mix
+    packages."""
 
-    def __init__(self, ports, pkgs, **kw):
+    def __init__(self, ports: Ports, pkgs, **kw):
+        self.ports = ports
         self.nodes_spec = [f"127.0.0.1:{p}" for p in ports]
         self.pkgs = list(pkgs)
         self.kw = kw
         self.nodes = [None] * len(ports)
 
     def boot(self, i, join=True):
+        self.ports.release(i)
         node = Node(self.pkgs[i], i, self.nodes_spec, **self.kw)
         for other in self.live():
             # A fresh incarnation of `i` counts from zero: frames sent to
@@ -258,6 +307,7 @@ class Cluster:
         self.quiesce()
         self.nodes[i].kill()
         self.nodes[i] = None
+        self.ports.hold(i)
         self.probe_absent()
 
     def settle(self):
@@ -286,12 +336,13 @@ class Cluster:
         wait_for(done, "replica and migrate frames to land")
 
     def close(self):
-        for n in self.nodes:
+        for i, n in enumerate(self.nodes):
             if n is not None:
                 try:
                     n.kill()
                 except Exception:
                     pass
+            self.ports.hold(i)
 
 
 def result_planes(res):

@@ -38,10 +38,16 @@ LAUNCHES = 0
 
 MAX_BATCH = 1 << 16  # the table's scratch tail bounds a sub-batch
 
+# Output tier codes of the C entry point (gcra_lane.cuh TIER_*).
+TIER_NS = 0  # compact=False
+TIER_WIRE = 1  # compact=True
+TIER_CUR = 2  # compact="cur"
+TIER_W32 = 3  # compact="w32"
+
 LIB_STEM = "libtc_fused"
 SOURCES = ("fused_window.cu", "gcra_lane.cuh")
 
-_TIERS = {"cur": 2, "w32": 3}
+_TIERS = {"cur": TIER_CUR, "w32": TIER_W32}
 _lib = None
 _launch = None  # the bound tc_fused_window
 _raw_stream = None  # device index -> the current stream's handle
@@ -54,7 +60,7 @@ def _tier(compact) -> int:
         if compact not in _TIERS:
             raise ValueError(f"unknown output tier {compact!r}")
         return _TIERS[compact]
-    return 1 if compact else 0
+    return TIER_WIRE if compact else TIER_NS
 
 
 def build():
@@ -123,7 +129,7 @@ def _check(state, packed, now, with_degen, tier):
         raise ValueError(f"batch width {B} outside [1, {MAX_BATCH}]")
     if state.data_ptr() % 16:  # the kernel moves rows in 16-byte vectors
         raise ValueError("state must be 16-byte aligned")
-    if tier >= 2 and with_degen:
+    if tier >= TIER_CUR and with_degen:
         raise ValueError('compact="cur"/"w32" require with_degen=False')
 
 
@@ -144,14 +150,14 @@ def fused_window(state, packed, now, *, with_degen=True, compact=False):
     K, B = packed.shape[0], packed.shape[1]
     N, W = state.shape
     dev = state.device
-    if tier in (0, 1):
+    if tier in (TIER_NS, TIER_WIRE):
         out = torch.empty(
-            (K, 4, B), dtype=torch.int64 if tier == 0 else torch.int32,
+            (K, 4, B), dtype=torch.int64 if tier == TIER_NS else torch.int32,
             device=dev,
         )
     else:
         out = torch.empty(
-            (K, B), dtype=torch.int64 if tier == 2 else torch.int32,
+            (K, B), dtype=torch.int64 if tier == TIER_CUR else torch.int32,
             device=dev,
         )
     n_exp = torch.empty(K, dtype=torch.int64, device=dev)  # kernel-written

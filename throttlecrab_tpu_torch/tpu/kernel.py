@@ -292,7 +292,7 @@ def _request_outputs(t, inc, emission, tol, now):
     allowed = now >= allow_at
     cur = torch.where(allowed, new_tat, t)
     # WRAPPING add: the reference's burst_limit wraps on i64 overflow.
-    burst_limit = now + tol
+    burst_limit = now + tol  # inv: allow(i64-raw-op)
     room = sat_sub(burst_limit, cur)
     remaining = torch.where(
         emission > 0, torch.clamp(div_trunc(room, emission), min=0), 0
@@ -355,7 +355,7 @@ def _gcra_body(state, batch, *, rowops, with_degen=True, compact=False):
     tat_denied = s_add(t0, s_mul(m_raw, inc))
     cur_main = torch.where(allowed_main, new_tat_r, tat_denied)
     tat_fin_main = s_add(t0, s_mul(torch.minimum(m_raw, rank + 1), inc))
-    burst_limit = now + tol  # wrapping, as the reference
+    burst_limit = now + tol  # inv: allow(i64-raw-op)  wrapping, as the reference
     room_main = sat_sub(burst_limit, cur_main)
     remaining_main = torch.where(
         em > 0, torch.clamp(div_trunc(room_main, em), min=0), 0
@@ -495,7 +495,7 @@ def _finish(
     if compact == "cur":
         if cur is None:
             raise ValueError('compact="cur" requires with_degen=False')
-        return cur * 2 + allowed.to(torch.int64)
+        return cur * 2 + allowed.to(torch.int64)  # inv: allow(i64-raw-op)
     if compact == "w32":
         if cur is None:
             raise ValueError('compact="w32" requires with_degen=False')

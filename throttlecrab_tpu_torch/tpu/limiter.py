@@ -273,7 +273,7 @@ def derive_params(max_burst, count_per_period, period):
 
     b32 = (max_burst - 1).astype(np.uint64) & np.uint64(0xFFFFFFFF)
     # Deliberately WRAPPING u64 product (rate_limiter.rs:122 semantics).
-    tolerance = (emission.astype(np.uint64) * b32).astype(np.int64)
+    tolerance = (emission.astype(np.uint64) * b32).astype(np.int64)  # inv: allow(i64-raw-op)
     return emission, tolerance, invalid
 
 

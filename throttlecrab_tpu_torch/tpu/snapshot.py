@@ -537,7 +537,7 @@ def _bulk_insert(limiter, keys, tats, expiries) -> int:
     if bool(sat.any()):
         table.note_max_tolerance(None)
     else:
-        table.note_max_tolerance(int((exp_arr - tat_arr).max(initial=0)))
+        table.note_max_tolerance(int((exp_arr - tat_arr).max(initial=0)))  # inv: allow(i64-raw-op)
     # Restored TATs embed the writer's clock (tat <= writer_now + tol):
     # seeding now_hwm with the max restored TAT keeps stored <= now_hwm
     # + tol_hwm, so w32 stays off until this clock catches up.
