@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Seventeen phases, each printing its results; any failure raises and the
+Eighteen phases, each printing its results; any failure raises and the
 script exits nonzero without its last line:
 
 1. card: the card's name and power limit (nvidia-smi), and the builds of
@@ -272,6 +272,27 @@ script exits nonzero without its last line:
    card, and whether it imported torch, numpy or jax.  Any unwaived
    finding, stale or violated waiver, heavy import or nonzero exit
    fails the run.
+18. the tier-ladder campaign (tools/fuzz_wire_tiers.py) on the card
+   against the scalar oracle RateLimiter(PeriodicStore()): (a) the JAX
+   campaign's CI run, 24 seeds x 10 steps of benign, edges and hostile
+   streams (w32-edge params, poison tolerances, quantity-0 probes, param
+   churn, sweeps, clock regressions, a snapshot round trip) through
+   dispatch_many on python and native keymaps, dispatch_wire_window, and
+   a 2-shard mesh as two slices of the card; (b) seeds 3100 and 3101
+   (the insight tier's 6-wide rows) beside a device="cpu" twin of each
+   limiter, the card's kernel against the plain version, states equal
+   after every window and handed across on alternate steps; (c) 24
+   hot-key seeds through BatchingEngine with the deny cache on and off;
+   (d) 6 seeds of each codec arm (host-only); (e) the wide arm at
+   BASELINE config 3's width (2^20 slots, native keymap, 1M keys,
+   Zipf-1.1, K = 16 x B = 4096, 12 windows, every third through the wire
+   window, a mid-run snapshot round trip, then a fleet-wide limit change)
+   for seeds 3000-3002.  Prints requests, windows, tier mix, window
+   launches against windows decided on the card, row launches against
+   rows moved and the oracle's seconds per arm, beside the card.  Any
+   divergence, a tier never ridden, a window launch count off the windows
+   decided, or row launches other than ceil(rows / 65,536) per round
+   trip fails the run.
 
 The line before the last is the {"kernels": [...]} record; the last line
 is {"ok": true, "device": {...}}.
@@ -4512,6 +4533,105 @@ def run_invariants(card):
     return report
 
 
+# ---- the tier-ladder campaign (phase 18) ---------------------------------- #
+
+
+CAMPAIGN_SEEDS = 24  # the JAX campaign's CI run: --seeds 24 --steps 10
+CAMPAIGN_STEPS = 10
+ALTERNATE_SEEDS = (3100, 3101)  # edges (4-wide) and hostile (insight, 6-wide)
+ALTERNATE_STEPS = 6
+HOTKEY_SEEDS = 24
+CODEC_SEEDS = 6  # the codec arms touch no card: fewer than the CI run's 24
+WIDE_SEEDS = (3000, 3001, 3002)  # benign, edges, hostile
+WIDE_WINDOWS = 12  # the oracle: ~0.7 s a window of K x B on the card host
+
+
+def campaign_arm(fz, name, fn):
+    """Run one arm of the campaign; returns (fn's value, the arm's record:
+    what TOTAL moved by, and seconds with the card drained)."""
+    import torch
+
+    mark = dict(fz.TOTAL, tiers=dict(fz.TOTAL["tiers"]))
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    rec = {key: fz.TOTAL[key] - mark[key] for key in fz.TOTAL
+           if key != "tiers"}
+    rec["tiers"] = {t: fz.TOTAL["tiers"][t] - mark["tiers"][t]
+                    for t in fz.TOTAL["tiers"]}
+    rec["seconds"] = time.perf_counter() - t
+    if rec["launches"] != rec["card_windows"]:
+        raise AssertionError(f"phase 18 {name}: {rec['launches']} window "
+                             f"launches for {rec['card_windows']} windows "
+                             "decided on the card")
+    print(f"  {name}: {rec['requests']} requests, {rec['windows']} windows, "
+          f"tiers {rec['tiers']}; {rec['launches']} window launches = "
+          f"{rec['card_windows']} windows on the card; row_gather "
+          f"{rec['row_gather']} / row_scatter {rec['row_scatter']} launches "
+          f"for {rec['rows_gathered']} / {rec['rows_scattered']} rows; oracle "
+          f"{rec['oracle_s']:.2f} s of {rec['seconds']:.2f} s")
+    return out, rec
+
+
+def run_campaign(card):
+    """Phase 18: the port's tier-ladder campaign on the card against the
+    scalar oracle.  Returns its record; any divergence, a tier the phase
+    never rode, or a launch count off by one fails the run."""
+    from throttlecrab_tpu_torch.tools import fuzz_wire_tiers as fz
+
+    t_phase = time.perf_counter()
+    mesh = fz.campaign_mesh("cuda")
+    arms = {}
+    _, arms["ladder"] = campaign_arm(fz, "ladder", lambda: [
+        fz.run_seed(3000 + s, CAMPAIGN_STEPS, mesh)
+        for s in range(CAMPAIGN_SEEDS)])
+    _, arms["alternate"] = campaign_arm(fz, "alternate", lambda: [
+        fz.run_seed(s, ALTERNATE_STEPS, mesh, alternate=True,
+                    insight_single=bool(s % 2)) for s in ALTERNATE_SEEDS])
+    hits, arms["hotkey"] = campaign_arm(fz, "hotkey", lambda: [
+        fz.run_hotkey_deny_seed(4000 + s, CAMPAIGN_STEPS * 2)
+        for s in range(HOTKEY_SEEDS)])
+    _, arms["cluster_frames"] = campaign_arm(fz, "cluster_frames", lambda: [
+        fz.run_cluster_frame_fuzz(5000 + s, CAMPAIGN_STEPS * 40)
+        for s in range(CODEC_SEEDS)])
+    _, arms["trace_frames"] = campaign_arm(fz, "trace_frames", lambda: [
+        fz.run_trace_frame_fuzz(6000 + s, CAMPAIGN_STEPS * 20)
+        for s in range(CODEC_SEEDS)])
+    wide, arms["wide"] = campaign_arm(fz, "wide", lambda: [
+        fz.run_wide_seed(s, WIDE_WINDOWS) for s in WIDE_SEEDS])
+    for rec in wide:
+        snap = rec["snapshot"]
+        want = [-(-n // ROW_CHUNK) for n in (snap["keys"], snap["restored"])]
+        if [rec["row_gather"], rec["row_scatter"]] != want:
+            raise AssertionError(f"phase 18 wide seed {rec['seed']}: row "
+                                 f"launches {rec['row_gather']}, "
+                                 f"{rec['row_scatter']}; expected {want}")
+        print(f"  wide seed {rec['seed']} ({rec['profile']}): "
+              f"{rec['requests']} requests in {rec['windows']} windows of "
+              f"K={rec['k']} x B={rec['b']}; tiers {rec['tiers']} "
+              f"({rec['wire_refused']} wire windows handed back); snapshot "
+              f"of {snap['keys']} keys, {snap['restored']} restored: "
+              f"row_gather {rec['row_gather']}, row_scatter "
+              f"{rec['row_scatter']} (expected {want}); {rec['launches']} "
+              f"window launches = {rec['card_windows']} windows on the card; "
+              f"oracle {rec['oracle_s']:.2f} s of {rec['seconds']:.2f} s")
+    tiers = {t: sum(a["tiers"][t] for a in arms.values())
+             for t in fz.TOTAL["tiers"]}
+    if min(tiers.values()) == 0:
+        raise AssertionError(f"phase 18 rode no window of a tier: {tiers}")
+    if sum(hits) == 0:
+        raise AssertionError("phase 18: the deny cache never served")
+    seconds = time.perf_counter() - t_phase
+    oracle_s = sum(a["oracle_s"] for a in arms.values())
+    print(f"  tier mix {tiers}; deny-cache hits {sum(hits)}; "
+          f"{sum(a['requests'] for a in arms.values())} requests over "
+          f"{sum(a['windows'] for a in arms.values())} windows, 0 divergences;"
+          f" oracle {oracle_s:.1f} s = {oracle_s / seconds:.3f} of the phase's "
+          f"{seconds:.1f} s ({card})")
+    return {"arms": arms, "wide": wide, "tiers": tiers, "seconds": seconds,
+            "oracle_share": oracle_s / seconds, "deny_hits": sum(hits)}
+
+
 def main() -> int:
     import torch
 
@@ -4853,6 +4973,18 @@ def main() -> int:
           "(python -m throttlecrab_tpu_torch.analysis --strict --json)")
     run_invariants(card)
 
+    print(f"[18] the tier-ladder campaign on the card against the scalar "
+          f"oracle: {CAMPAIGN_SEEDS} ladder seeds x {CAMPAIGN_STEPS} steps "
+          f"through dispatch_many, the wire window and a 2-shard mesh of the "
+          f"card; seeds {ALTERNATE_SEEDS} beside their cpu twins; "
+          f"{HOTKEY_SEEDS} hot-key deny-cache seeds; {CODEC_SEEDS} seeds of "
+          f"each codec arm; wide seeds {WIDE_SEEDS} at 2^20 slots, "
+          f"{N_KEYS} keys, {WIDE_WINDOWS} windows of K={K} x B={B} ({card})")
+    campaign = run_campaign(card)
+    campaign_rows = {name: sum(a[name] for a in campaign["arms"].values())
+                     for name in ("row_gather", "row_scatter", "rows_gathered",
+                                  "rows_scattered")}
+
     print(f"card: {card_line()}")
     kernels = [{
         "name": "fused_window",
@@ -4922,6 +5054,13 @@ def main() -> int:
         "cluster_median_batch_ms": cluster["cluster_median_batch_ms"],
         "cluster_servers": cluster["cluster_servers"],
         "cluster_phase_s": cluster["cluster_phase_s"],
+        "campaign_window_launches": {
+            name: a["launches"] for name, a in campaign["arms"].items()},
+        "campaign_card_windows": {
+            name: a["card_windows"] for name, a in campaign["arms"].items()},
+        "campaign_tiers": campaign["tiers"],
+        "campaign_s": campaign["seconds"],
+        "campaign_oracle_share": campaign["oracle_share"],
         "card": card,
     }]
     for name, replaces in (("row_gather", "pallas_ops.py:128"),
@@ -5002,6 +5141,10 @@ def main() -> int:
                 step: crec[step]["exports" if name == "row_gather"
                                  else "inserts"]
                 for step in cluster_steps[1:]},
+            "campaign_path": "the campaign's snapshot round trips (phase 18)",
+            "campaign_launches": campaign_rows[name],
+            "campaign_rows": campaign_rows[
+                "rows_gathered" if name == "row_gather" else "rows_scattered"],
             "b4096": {
                 "ms": b4["kernel"], "plain_ms": b4["plain"],
                 "library_ms": b4["library"],

@@ -55,6 +55,9 @@ from throttlecrab_tpu_torch.analysis import (
 REPO = Path(__file__).resolve().parent.parent
 JAX_PKG, PORT_PKG = "throttlecrab_tpu/", "throttlecrab_tpu_torch/"
 JAX_FUZZER = "scripts/fuzz_wire_tiers.py"
+#: The port's fuzzers, which JAX's one fuzzer file stands for.
+PORT_FUZZERS = sorted({rel for rels in wire_surface.FUZZERS.values()
+                       for rel in rels})
 LANE = PORT_PKG + "csrc/gcra_lane.cuh"
 
 #: Port files a checker reads beyond what the JAX fixtures provide.
@@ -104,7 +107,7 @@ CASES = [
 
 def _port_rels(rel: str, checker: str):
     if rel == JAX_FUZZER:
-        return list(wire_surface.FUZZERS.values())
+        return PORT_FUZZERS
     if rel.startswith(JAX_PKG):
         return [PORT_PKG + rel[len(JAX_PKG):]]
     if rel == "README.md" and checker == "registry":
@@ -157,7 +160,7 @@ def _keys(findings, checker: str):
             if path.startswith(pkg):
                 path = "<pkg>/" + path[len(pkg):]
                 break
-        if path == JAX_FUZZER or path in wire_surface.FUZZERS.values():
+        if path == JAX_FUZZER or path in PORT_FUZZERS:
             path = "<fuzzer>"
         if checker == "ktwin" and path in (
             "<pkg>/tpu/pallas_fused.py", "<pkg>/csrc/gcra_lane.cuh",
@@ -291,7 +294,7 @@ def _port_copy(tmp_path: Path) -> Path:
         ignore=shutil.ignore_patterns("__pycache__", "build"),
     )
     for rel in ("native/keymap.cpp", "native/wire_server.cpp", "README.md",
-                *wire_surface.FUZZERS.values()):
+                *PORT_FUZZERS):
         (tmp_path / rel).parent.mkdir(parents=True, exist_ok=True)
         shutil.copy(REPO / rel, tmp_path / rel)
     return tmp_path
@@ -359,6 +362,12 @@ MUTATIONS = {
         "wire", "tests/test_torch_cluster_codec.py",
         "    OP_RING: \"ring\",\n", "",
         "wire-fuzz", "OP_RING"),
+    "op-without-campaign-arm": (
+        "wire", wire_surface.CAMPAIGN, "        OP_RING: mk_ring,\n", "",
+        "wire-fuzz", "OP_RING"),
+    "trace-kind-without-campaign-arm": (
+        "wire", wire_surface.CAMPAIGN, "sorted(_DECODERS.items())",
+        "sorted({}.items())", "wire-fuzz", "REC_WINDOW"),
     "untyped-decoder-raise": (
         "harden", PORT_PKG + "parallel/cluster.py",
         '        raise ClusterProtocolError("bad join frame size")',

@@ -3,7 +3,9 @@ decision-window kernel (fused.py), also behind the table's by-id entry
 points and behind the native RESP transport's driver thread, and the row
 gather/scatter (row_ops.py, also through a composed by-id scan and the
 snapshot's save and restore), and the insight tier's device ops
-(kernel.insight_topk / insight_decay) against their CPU runs.
+(kernel.insight_topk / insight_decay) against their CPU runs, and the
+tier-ladder campaign's alternation (tools/fuzz_wire_tiers.py): the kernel
+beside its plain version, both against the scalar oracle.
 
 Needs a CUDA card: the tests carry the `cuda` marker and skip elsewhere
 (decided in a fixture when they run).  The file imports nothing of jax,
@@ -26,6 +28,7 @@ import torch
 
 from throttlecrab_tpu_torch.server import native_redis
 from throttlecrab_tpu_torch.server.metrics import Metrics
+from throttlecrab_tpu_torch.tools import fuzz_wire_tiers as fz
 from throttlecrab_tpu_torch.tpu import fused, kernel, row_ops, snapshot
 from throttlecrab_tpu_torch.tpu.limiter import TorchRateLimiter
 from throttlecrab_tpu_torch.tpu.table import BucketTable
@@ -911,3 +914,19 @@ def test_cluster_on_card_equals_single_device(cuda_device, monkeypatch):
     for step in ("kill", "rejoin", "leave"):
         for name in ("row_gather", "row_scatter"):
             assert rec[step][name] == rec[step][f"expected_{name}"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [3100, 3101])  # edges / hostile (6-wide)
+def test_tier_ladder_alternation_on_card(cuda_device, seed):
+    """The campaign's alternation on the card: each window decided by the
+    kernel and by a device="cpu" twin (the plain version), both held to the
+    scalar oracle, their states equal after every window and handed
+    across on alternate steps, with the mesh as two slices of the card;
+    the window launches equal the windows decided on the card."""
+    before = dict(fz.TOTAL)
+    fz.run_seed(seed, steps=6, sharded_mesh=fz.campaign_mesh("cuda"),
+                alternate=True, insight_single=bool(seed % 2))
+    windows = fz.TOTAL["card_windows"] - before["card_windows"]
+    assert windows > 0
+    assert fz.TOTAL["launches"] - before["launches"] == windows

@@ -10,7 +10,9 @@ the load harness (harness/) are among them and a one-node cluster
 decides, with no jax; the failure domain, the front tier, the insight tier, crash
 durability, record/replay, the control plane and the profiling hook
 (faults/, front/, server/supervisor.py, insight/, persist/, replay/,
-control/, tpu/profiling.py) are among them, and no module touches
+control/, tpu/profiling.py) and the tier-ladder campaign
+(tools/fuzz_wire_tiers.py, which runs a seed) are among them, and no
+module touches
 `torch.cuda` while it is imported; an insight tier polls and a
 checkpoint chain is written and recovered, a recorded trace replays, a
 control plane ticks and ranks policies, and a supervised limiter degrades
@@ -97,9 +99,18 @@ for name in (
     "throttlecrab_tpu_torch.harness.__main__",
     "throttlecrab_tpu_torch.harness.loadgen",
     "throttlecrab_tpu_torch.harness.workload",
+    "throttlecrab_tpu_torch.tools.fuzz_wire_tiers",
 ):
     assert name in names, name
 print("imported", len(names))
+
+from throttlecrab_tpu_torch.tools import fuzz_wire_tiers as fz
+fz.run_seed(3002, 4, fz.campaign_mesh("cpu"), alternate=True, device="cpu")
+assert fz.run_trace_frame_fuzz(6000, 4, device="cpu") == 4
+assert fz.run_cluster_frame_fuzz(5000, 4, device="cpu") == 4
+assert fz.TOTAL["requests"] > 8 and fz.TOTAL["card_windows"] == 0
+assert sys.modules.get("jax") is None
+print("the tier-ladder campaign runs without jax")
 
 from throttlecrab_tpu_torch.parallel.cluster import (
     ClusterLimiter, decode_reply, encode_reply)

@@ -19,20 +19,22 @@ This module makes both contracts mechanical:
     ``encode_*`` function or as an argument to an ``encode_*`` call)
     and dispatch evidence (a compare or membership tuple inside some
     function);
-  * every op has a mutation arm: the op-keyed ``MUTATION_ARMS`` table
-    of the port's own codec mutation cases
+  * every op has a mutation arm in each of the port's fuzzers: the
+    op-keyed ``MUTATION_ARMS`` table of its codec mutation cases
     (``tests/test_torch_cluster_codec.py``: truncations at every
     length, trailing bytes and inflated counts, refused as the JAX
-    package refuses them) covers exactly the declared ops — the JAX
-    package's ``scripts/fuzz_wire_tiers.py`` fuzzes the JAX code, not
-    the port's;
+    package refuses them) and the ``makers`` table of the port's
+    campaign's cluster-frame arm (``tools/fuzz_wire_tiers.py``, as
+    JAX's checker reads ``scripts/fuzz_wire_tiers.py``) each cover
+    exactly the declared ops;
   * membership ops (``OP_JOIN``/``OP_LEAVE``) are recorded as trace
     events in cluster.py AND replayed by the trace player's
     ``apply_event`` arms;
   * the same ladder for trace frame kinds: ``REC_*`` vs ``_DECODERS``,
     encoders, compare dispatch, and mutation coverage by the port's
-    malformed-trace cases (``tests/test_torch_replay.py``: a kind is
-    covered when the cases reach its decoder or the table).
+    malformed-trace cases (``tests/test_torch_replay.py``) and the
+    campaign's trace-frame arm: a kind is covered when each reaches its
+    decoder or the table.
 
 ``check_hardening`` (codes ``harden-*``) — per top-level ``decode_*``
 function, detected structurally from the AST:
@@ -76,10 +78,12 @@ TYPED = "harden-typed"
 CLUSTER = "throttlecrab_tpu_torch/parallel/cluster.py"
 TRACE = "throttlecrab_tpu_torch/replay/trace.py"
 PLAYER = "throttlecrab_tpu_torch/replay/player.py"
-#: frame-family prefix -> the port's mutation cases for that family.
+CAMPAIGN = "throttlecrab_tpu_torch/tools/fuzz_wire_tiers.py"
+#: frame-family prefix -> the port's fuzzers of that family: its mutation
+#: cases and the campaign's frame arm.
 FUZZERS = {
-    "OP_": "tests/test_torch_cluster_codec.py",
-    "REC_": "tests/test_torch_replay.py",
+    "OP_": ("tests/test_torch_cluster_codec.py", CAMPAIGN),
+    "REC_": ("tests/test_torch_replay.py", CAMPAIGN),
 }
 
 #: membership op -> the trace event kind that must be recorded on the
@@ -232,7 +236,7 @@ def _check_frame_family(
     *,
     prefix: str,
     table_name: str,
-    fuzzer: Optional[PyModule],
+    fuzzers: List[PyModule],
     fuzz_table_driven: bool,
     dispatch_mods: List[PyModule],
 ) -> None:
@@ -277,10 +281,8 @@ def _check_frame_family(
     disp_names: Set[str] = set()
     for m in dispatch_mods:
         disp_names |= _dispatch_names(m)
-    fuzz_keys = (
-        _fuzz_op_keys(fuzzer, prefix) if fuzzer is not None else set()
-    )
-    fuzz_names = names_in(fuzzer.tree) if fuzzer is not None else set()
+    fuzz_keys = {f.rel: _fuzz_op_keys(f, prefix) for f in fuzzers}
+    fuzz_names = {f.rel: names_in(f.tree) for f in fuzzers}
 
     for op, line in sorted(ops.items()):
         if op not in entries:
@@ -318,13 +320,13 @@ def _check_frame_family(
                     symbol=op,
                 )
             )
-        if fuzzer is not None:
+        for fuzzer in fuzzers:
             covered = (
-                op in fuzz_keys
+                op in fuzz_keys[fuzzer.rel]
                 if fuzz_table_driven
                 else (
-                    table_name in fuzz_names
-                    or entries.get(op, "") in fuzz_names
+                    table_name in fuzz_names[fuzzer.rel]
+                    or entries.get(op, "") in fuzz_names[fuzzer.rel]
                 )
             )
             if not covered:
@@ -348,8 +350,8 @@ def _check_frame_family(
             )
         )
 
-    if fuzzer is not None and fuzz_table_driven:
-        for bad in sorted(fuzz_keys - set(ops)):
+    for fuzzer in fuzzers if fuzz_table_driven else ():
+        for bad in sorted(fuzz_keys[fuzzer.rel] - set(ops)):
             findings.append(
                 Finding(
                     ORPHAN, fuzzer.rel, 1,
@@ -366,13 +368,16 @@ def check_surface(root) -> List[Finding]:
     cluster = _load(root, CLUSTER, findings)
     trace = _load(root, TRACE, findings)
     player = _load(root, PLAYER, findings)
-    fuzzers = {p: _load(root, rel, findings) for p, rel in FUZZERS.items()}
+    fuzzers = {
+        p: [m for m in (_load(root, rel, findings) for rel in rels) if m]
+        for p, rels in FUZZERS.items()
+    }
 
     if cluster is not None:
         _check_frame_family(
             findings, cluster,
             prefix="OP_", table_name="FRAME_DECODERS",
-            fuzzer=fuzzers["OP_"], fuzz_table_driven=True,
+            fuzzers=fuzzers["OP_"], fuzz_table_driven=True,
             dispatch_mods=[cluster],
         )
         # membership ops must round-trip through the flight recorder:
@@ -407,7 +412,7 @@ def check_surface(root) -> List[Finding]:
         _check_frame_family(
             findings, trace,
             prefix="REC_", table_name="_DECODERS",
-            fuzzer=fuzzers["REC_"], fuzz_table_driven=False,
+            fuzzers=fuzzers["REC_"], fuzz_table_driven=False,
             dispatch_mods=[trace] + ([player] if player is not None else []),
         )
 
