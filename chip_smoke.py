@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Eighteen phases, each printing its results; any failure raises and the
+Nineteen phases, each printing its results; any failure raises and the
 script exits nonzero without its last line:
 
 1. card: the card's name and power limit (nvidia-smi), and the builds of
@@ -293,6 +293,25 @@ script exits nonzero without its last line:
    divergence, a tier never ridden, a window launch count off the windows
    decided, or row launches other than ceil(rows / 65,536) per round
    trip fails the run.
+19. the drivers beside the package (tools/ and examples/): (a)
+   tools/profile_launch.py at its default shape (K = 16 x B = 4096 on a
+   2^21-slot table) with a torch.profiler trace: ping, h2d of the 8
+   request arrays and of the one packed buffer (pageable and pinned),
+   the window's compute (host clock, CUDA events, profiler), d2h of the
+   4-plane output (pageable and pinned), end to end and pipelined; its
+   first window's output and table state must equal a device="cpu" run
+   of the same payload; (b) the transfer probes (probe_async,
+   probe_d2h, probe_duplex) at the JAX probes' sizes; (c) the 1-device
+   mesh probe; (d) the replay gate (24 windows recorded through the
+   BatchingEngine on the card, replayed twice and against the oracle);
+   then, at once, (e) the control gate in a process of its own, (f) the
+   transport driver, tools/run-transport-test.sh -t http and -t redis
+   with --native -T 4 -r 200 --warm 64 (its fixed ports must be free; 0
+   errors), and (g) every example but grpc_client (no grpcio on the
+   card's machine) as a subprocess on the card, http_client against a
+   server booted for it: exit 0 and the decision lines the CPU tests
+   hold equal to the JAX examples'.  fused.LAUNCHES must move by exactly
+   the windows (a)-(d) count themselves.
 
 The line before the last is the {"kernels": [...]} record; the last line
 is {"ok": true, "device": {...}}.
@@ -313,7 +332,7 @@ import tempfile
 import threading
 import time
 import urllib.request
-from concurrent.futures import ProcessPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 NS = 1_000_000_000
 T0 = 1_753_700_000 * NS
@@ -4632,6 +4651,284 @@ def run_campaign(card):
             "oracle_share": oracle_s / seconds, "deny_hits": sum(hits)}
 
 
+# ---- launch cost, gates, transport driver, examples (phase 19) ---------- #
+
+
+TRANSPORT_PORTS = (58080, 58070, 58060)  # run-transport-test.sh's ports
+TRANSPORT_RUNS = ("http", "redis")  # the card's machine has no grpcio
+TRANSPORT_ARGS = ("--native", "-T", "4", "-r", "200", "--warm", "64")
+
+
+def example_lines(device):
+    """{example: fragments its stdout must hold, in order}: the decision
+    lines, which the CPU tests hold equal to the JAX examples' (a line
+    that prints a time or a rate contributes only its decision part)."""
+    return {
+        "basic": [
+            *(f"request {i}: allowed=True remaining={4 - i} "
+              "retry_after=0.000s" for i in range(5)),
+            *(f"request {i}: allowed=False remaining=0 retry_after=0.600s"
+              for i in (5, 6)),
+        ],
+        "batch_tpu": [
+            "batch 1: 4096/4096 allowed",
+            "hot key: 10/64 allowed (burst 10 → first 10: True)",
+            "sweep freed 4097 slots, 0 live",
+            "heterogeneous batch: 1024/1024 allowed",
+        ],
+        "byid_launch": [
+            "decided 4096 requests: 4096 allowed; remaining[0..4] = "
+            "[10, 13, 15, 21]",
+            "hot key: 12/64 allowed (burst 12,",
+            "ids20+w32 (6.5 B/request): 4096 allowed; reset_s[0..4] = "
+            "[4, 1, 8, 0]",
+        ],
+        "capacity_test": [
+            "initial capacity: 1024 slots (16 KiB HBM)",
+            "after 10240 unique keys: capacity=16384, live=10240",
+            "sweep at +1h freed 10240 slots; live=0",
+            "second wave of 10240 keys reused slots: capacity 16384 -> "
+            "16384 (no growth)",
+            "memory model: 256 KiB HBM for 16384 slots (16 B/slot)",
+        ],
+        "access_patterns": [
+            "sequential:", "(65536 allowed, 10000 live keys)",
+            "random:", "(65536 allowed, 9988 live keys)",
+            "hot_key:", "(65536 allowed, 5369 live keys)",
+            "zipfian:", "(31912 allowed, 6236 live keys)",
+        ],
+        "store_comparison": [
+            "periodic:", "23 sweeps, 42570 slots reclaimed, 1933 live",
+            "probabilistic:", "48 sweeps, 44620 slots reclaimed, 996 live",
+            "adaptive:", "47 sweeps, 44620 slots reclaimed, 996 live",
+        ],
+        "performance_demo": ["\n2000 decisions in ",
+                             f"\n{64 * 4096} decisions in "],
+        "sharded_mesh": [
+            "mesh: 1 shard(s) on ['cuda:0']" if device == "cuda"
+            else "mesh: 1 shard(s) on ['cpu']",
+            "8192/8192 allowed", "global allowed=8192 denied=0",
+        ],
+        "http_client": [
+            *(f"request {i + 1:2d}: allowed  remaining={9 - i}"
+              for i in range(10)),
+            "request 11: DENIED (retry after ", "request 12: DENIED (retry",
+            "user:1: allowed=True remaining=2",
+            "user:2: allowed=True remaining=2",
+            "user:1: allowed=True remaining=1",
+            "request 1: allowed=True remaining=5",
+            "request 2: allowed=True remaining=0",
+            "request 3: allowed=False remaining=0",
+            "/health -> OK", "throttlecrab_requests_total 18",
+        ],
+    }
+
+
+def check_fragments(name, out, fragments):
+    at = 0
+    for frag in fragments:
+        i = out.find(frag, at)
+        if i < 0:
+            raise AssertionError(f"example {name}: {frag!r} missing after "
+                                 f"offset {at} of its output:\n{out}")
+        at = i + len(frag)
+
+
+def run_example(name, device, url=None):
+    """`python -m throttlecrab_tpu_torch.examples.<name>` in a process of
+    its own: (stdout, seconds); a nonzero exit fails the run."""
+    args = ["--url", url] if url else []
+    if device == "cpu" and name not in ("basic", "http_client"):
+        args.append("--cpu")
+    t = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", f"throttlecrab_tpu_torch.examples.{name}",
+         *args], capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    if r.returncode != 0:
+        raise AssertionError(f"example {name} exited {r.returncode}:\n"
+                             f"{r.stdout}\n{r.stderr[-3000:]}")
+    return r.stdout, time.perf_counter() - t
+
+
+def run_http_client(device):
+    """The http_client example against a server booted for it."""
+    proc, http_port, _ = boot_server(
+        "python", () if device == "cuda" else ("--device", "cpu"))
+    try:
+        return run_example("http_client", device,
+                           url=f"http://127.0.0.1:{http_port}")
+    finally:
+        stop_server(proc)
+
+
+def check_ports_free(ports):
+    """Raise unless each port can be bound as the servers bind it
+    (SO_REUSEADDR: a closed connection's TIME_WAIT does not count)."""
+    for port in ports:
+        with socket.socket() as s:
+            s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            try:
+                s.bind(("0.0.0.0", port))
+            except OSError:
+                raise AssertionError(
+                    f"port {port} is taken (a server of an earlier phase "
+                    "still running?): the transport driver serves on "
+                    f"{ports}") from None
+
+
+def run_transport_driver(transport, device):
+    """tools/run-transport-test.sh -t `transport` with TRANSPORT_ARGS; its
+    harness summaries (0 errors each) and seconds."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    check_ports_free(TRANSPORT_PORTS)
+    env = dict(os.environ, PATH=os.path.dirname(sys.executable) + os.pathsep
+               + os.environ.get("PATH", ""))
+    t = time.perf_counter()
+    r = subprocess.run(
+        ["bash", os.path.join(root, "throttlecrab_tpu_torch", "tools",
+                              "run-transport-test.sh"), "-t", transport,
+         *TRANSPORT_ARGS, *(["--cpu"] if device == "cpu" else [])],
+        capture_output=True, text=True, timeout=600, env=env, cwd=root)
+    seconds = time.perf_counter() - t
+    lines = r.stdout.strip().splitlines()
+    if r.returncode != 0 or not lines or lines[-1] != "done":
+        raise AssertionError(f"run-transport-test.sh -t {transport} exited "
+                             f"{r.returncode}:\n{r.stdout}\n"
+                             f"{r.stderr[-3000:]}")
+    summaries = [json.loads(line) for line in lines if line.startswith("{")]
+    for summary in summaries:
+        if summary["errors"] or summary["transport"] != transport:
+            raise AssertionError(f"run-transport-test.sh -t {transport}: "
+                                 f"{summary}")
+    if len(summaries) != 1:
+        raise AssertionError(f"run-transport-test.sh -t {transport} printed "
+                             f"{len(summaries)} summaries")
+    return summaries[0], seconds
+
+
+def run_control_gate():
+    r = subprocess.run(
+        [sys.executable, "-m", "throttlecrab_tpu_torch.tools."
+         "control_determinism"], capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    if r.returncode != 0 or not r.stdout.startswith("PASS: "):
+        raise AssertionError(f"control gate exited {r.returncode}:\n"
+                             f"{r.stdout}\n{r.stderr[-3000:]}")
+    return r.stdout.strip()
+
+
+def run_tools(card, device="cuda"):
+    """Phase 19: the launch-cost profile and its probes, the 1-device mesh
+    probe, both determinism gates, the transport driver and every example,
+    on `device`.  Returns the phase's record for the kernels line."""
+    import torch
+
+    from throttlecrab_tpu_torch.tools import (
+        probe_async,
+        probe_d2h,
+        probe_duplex,
+        probe_sharded_1dev,
+        replay_determinism,
+    )
+    from throttlecrab_tpu_torch.tools import profile_launch as pl
+    from throttlecrab_tpu_torch.tpu import fused
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    rec = {"launches": {}, "counted": {}}
+
+    def say(line):
+        print(f"  {line}", flush=True)
+
+    # (a) the launch-cost profile at its full default shape, with a trace.
+    with tempfile.TemporaryDirectory() as tmp:
+        before = fused.LAUNCHES
+        t = time.perf_counter()
+        report, (out, state) = pl.profile(dev, trace_dir=tmp, log=say)
+        rec["launches"]["profile_launch"] = fused.LAUNCHES - before
+        rec["counted"]["profile_launch"] = report["launches_counted"]
+        if not os.path.getsize(report["trace_path"]):
+            raise AssertionError("profile_launch wrote an empty trace")
+        report["seconds"] = time.perf_counter() - t
+    t = time.perf_counter()
+    want_out, want_state = pl.first_window("cpu")
+    if not (torch.equal(out, want_out) and torch.equal(state, want_state)):
+        raise AssertionError("profile_launch step 3's first window differs "
+                             "from the device='cpu' run")
+    say(f"step 3's first window (K=16 x B=4096, 2^21 slots): output and "
+        f"state equal the device='cpu' run ({time.perf_counter() - t:.1f} s "
+        f"on the host); {rec['launches']['profile_launch']} window launches "
+        f"= {report['launches_counted']} counted ({card})")
+    rec["profile_launch"] = report
+
+    # (b) the transfer probes at JAX's default sizes.
+    before = fused.LAUNCHES
+    counts = probe_async.run(dev, out=say)
+    rec["launches"]["probe_async"] = fused.LAUNCHES - before
+    rec["counted"]["probe_async"] = counts["launches"]
+    rec["probe_d2h_ms"] = {k: v * 1e3 for k, v in
+                           probe_d2h.run(dev, out=say).items()}
+    rec["probe_duplex"] = probe_duplex.run(dev, out=say)
+
+    # (c) the 1-device mesh probe.
+    before = fused.LAUNCHES
+    report1, counts = probe_sharded_1dev.run(dev)
+    rec["launches"]["probe_sharded_1dev"] = fused.LAUNCHES - before
+    rec["counted"]["probe_sharded_1dev"] = counts["windows"]
+    say(f"probe_sharded_1dev: {json.dumps(report1)}")
+    if not (report1["sharded_1dev_ok"] and report1["plain_ok"]):
+        raise AssertionError("probe_sharded_1dev would exit 1")
+
+    # (d) the replay gate on the device.
+    before = fused.LAUNCHES
+    t = time.perf_counter()
+    rc, counts, line = replay_determinism.run(24, dev)
+    if rc:
+        raise AssertionError(f"replay gate: {line}")
+    rec["launches"]["replay_determinism"] = counts["launches"]
+    rec["counted"]["replay_determinism"] = counts["expected_launches"]
+    rec["replay_gate_all_launches"] = fused.LAUNCHES - before
+    say(f"replay gate: {line}; {counts['launches']} window launches in the "
+        f"3 replays for {counts['expected_launches']} conflict rounds "
+        f"({rec['replay_gate_all_launches']} with the recording), "
+        f"{time.perf_counter() - t:.1f} s")
+    if device == "cuda" and rec["launches"] != rec["counted"]:
+        raise AssertionError(f"window launches {rec['launches']} differ from "
+                             f"the counts {rec['counted']}")
+
+    # (e)-(g) the control gate and every example, in processes of their
+    # own while the transport driver runs its two servers in turn.
+    t = time.perf_counter()
+    with ThreadPoolExecutor(6) as pool:
+        control = pool.submit(run_control_gate)
+        examples = {name: pool.submit(run_example, name, device)
+                    for name in example_lines(device) if name != "http_client"}
+        examples["http_client"] = pool.submit(run_http_client, device)
+        rec["transport_driver"] = {}
+        for transport in TRANSPORT_RUNS:
+            summary, seconds = run_transport_driver(transport, device)
+            rec["transport_driver"][transport] = {**summary,
+                                                  "seconds": seconds}
+            say(f"run-transport-test.sh -t {transport} "
+                f"{' '.join(TRANSPORT_ARGS)}: {summary['requests']} requests,"
+                f" 0 errors, {summary['rps']} replies/s, p50 "
+                f"{summary['p50_ms']} ms, p99 {summary['p99_ms']} ms, "
+                f"{seconds:.1f} s with the boot")
+        say(f"control gate: {control.result()}")
+        rec["example_s"] = {}
+        for name, fragments in example_lines(device).items():
+            stdout, seconds = examples[name].result()
+            check_fragments(name, stdout, fragments)
+            rec["example_s"][name] = seconds
+    say("examples exit 0 with their decision lines: "
+        + ", ".join(f"{n} {s:.1f} s" for n, s in rec["example_s"].items())
+        + f"; (e)-(g) wall {time.perf_counter() - t:.1f} s")
+    rec["seconds"] = time.perf_counter() - t_phase
+    say(f"phase {rec['seconds']:.1f} s ({card})")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -4985,6 +5282,16 @@ def main() -> int:
                      for name in ("row_gather", "row_scatter", "rows_gathered",
                                   "rows_scattered")}
 
+    print(f"[19] launch cost, gates, transport driver and examples: "
+          f"tools/profile_launch.py at K={K} x B={B} on 2^21 slots with a "
+          f"trace, the three transfer probes, the 1-device mesh probe, the "
+          f"replay gate on cuda and the control gate, "
+          f"run-transport-test.sh -t {' / '.join(TRANSPORT_RUNS)} "
+          f"{' '.join(TRANSPORT_ARGS)}, the ten examples but grpc_client "
+          f"({card})")
+    tools = run_tools(card)
+    prof = tools["profile_launch"]
+
     print(f"card: {card_line()}")
     kernels = [{
         "name": "fused_window",
@@ -5061,6 +5368,20 @@ def main() -> int:
         "campaign_tiers": campaign["tiers"],
         "campaign_s": campaign["seconds"],
         "campaign_oracle_share": campaign["oracle_share"],
+        "tools_window_launches": tools["launches"],
+        "tools_counted_windows": tools["counted"],
+        "launch_cost": {key: prof[key] for key in (
+            "ping_ms", "ping_noblockfetch_ms", "h2d_bytes", "h2d_ms",
+            "h2d_pinned_ms", "h2d_fused_bytes", "h2d_fused_ms",
+            "h2d_fused_pinned_ms", "compute_ms", "compute_p99_ms",
+            "compute_event_ms", "compute_device_ms",
+            "compute_kernels_per_call", "d2h_bytes", "d2h_ms",
+            "d2h_pinned_ms", "e2e_ms", "e2e_p99_ms", "e2e_decisions_per_s",
+            "pipelined_ms", "pipelined_decisions_per_s")},
+        "duplex": tools["probe_duplex"],
+        "d2h_probe_ms": tools["probe_d2h_ms"],
+        "transport_driver": tools["transport_driver"],
+        "tools_phase_s": tools["seconds"],
         "card": card,
     }]
     for name, replaces in (("row_gather", "pallas_ops.py:128"),

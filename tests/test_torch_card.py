@@ -5,7 +5,10 @@ gather/scatter (row_ops.py, also through a composed by-id scan and the
 snapshot's save and restore), and the insight tier's device ops
 (kernel.insight_topk / insight_decay) against their CPU runs, and the
 tier-ladder campaign's alternation (tools/fuzz_wire_tiers.py): the kernel
-beside its plain version, both against the scalar oracle.
+beside its plain version, both against the scalar oracle; and the
+launch-cost profile (tools/profile_launch.py: its first window against
+the cpu run, its launches against its own count) and the replay gate
+(tools/replay_determinism.py) on the card.
 
 Needs a CUDA card: the tests carry the `cuda` marker and skip elsewhere
 (decided in a fixture when they run).  The file imports nothing of jax,
@@ -930,3 +933,34 @@ def test_tier_ladder_alternation_on_card(cuda_device, seed):
     windows = fz.TOTAL["card_windows"] - before["card_windows"]
     assert windows > 0
     assert fz.TOTAL["launches"] - before["launches"] == windows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,B,cap", [(4, 64, 4096), (16, 4096, 1 << 21)])
+def test_profile_launch_on_card_equals_cpu(cuda_device, tmp_path, K, B, cap):
+    """tools/profile_launch.py on the card: step 3's first window (output
+    and table state) equals the device="cpu" run of the same payload, and
+    fused.LAUNCHES moves by exactly the windows the profile counted."""
+    from throttlecrab_tpu_torch.tools import profile_launch as pl
+
+    before = fused.LAUNCHES
+    report, (out, state) = pl.profile(cuda_device, B=B, K=K, cap=cap,
+                                      trace_dir=str(tmp_path),
+                                      log=lambda line: None)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES - before == report["launches_counted"] > 0
+    assert report["compute_kernels_per_call"] in (None, 1)
+    want_out, want_state = pl.first_window("cpu", B=B, K=K, cap=cap)
+    assert torch.equal(out, want_out)
+    assert torch.equal(state, want_state)
+
+
+@pytest.mark.cuda
+def test_replay_gate_passes_on_card(cuda_device):
+    """tools/replay_determinism.py on the card: the three contracts hold
+    and the three replays launch one window per conflict round."""
+    from throttlecrab_tpu_torch.tools import replay_determinism as rd
+
+    rc, counts, line = rd.run(24, cuda_device)
+    assert rc == 0, line
+    assert counts["launches"] == counts["expected_launches"] == 3 * 24

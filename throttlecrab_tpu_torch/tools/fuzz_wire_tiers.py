@@ -53,7 +53,6 @@ import os
 import struct
 import sys
 import tempfile
-import threading
 import time
 
 import numpy as np
@@ -96,6 +95,7 @@ from throttlecrab_tpu_torch.replay.trace import (
 )
 from throttlecrab_tpu_torch.server.engine import BatchingEngine
 from throttlecrab_tpu_torch.server.types import ThrottleRequest
+from throttlecrab_tpu_torch.tools.card import WindowCount
 from throttlecrab_tpu_torch.tpu import fused, row_ops
 from throttlecrab_tpu_torch.tpu.limiter import TorchRateLimiter
 from throttlecrab_tpu_torch.tpu.snapshot import load_snapshot, save_snapshot
@@ -114,11 +114,6 @@ TOTAL = {
     "card_windows": 0, "launches": 0, "row_gather": 0, "row_scatter": 0,
     "rows_gathered": 0, "rows_scattered": 0, "oracle_s": 0.0,
 }
-
-# Serialises the counted launches of limiters that decide on executor
-# threads (the hot-key arm's two engines), so each launch and its count
-# move together.
-_LAUNCH_LOCK = threading.Lock()
 
 # The wide arm's quantity-0 probes, per request on hostile seeds: a probe
 # beside a plain request of the same key in one batch is a mid-batch
@@ -255,29 +250,23 @@ def tier_of(handle):
 # what the card did
 
 
-def watch(limiter):
-    """Count in TOTAL["card_windows"] every window `limiter` hands its
-    table on the card: the table's launch entry point, wrapped on this
-    instance (BucketTable.check_many_packed, one window; a mesh's
-    ShardedBucketTable._launch, one window per shard).  A table on the
-    CPU is left alone: its windows run the plain version.  Returns
-    `limiter`."""
-    table = limiter.table
-    if table.device.type != "cuda":
-        return limiter
-    if hasattr(table, "shards"):
-        name, per_call = "_launch", len(table.shards)
-    else:
-        name, per_call = "check_many_packed", 1
-    inner = getattr(table, name)
+class _CardWindows(WindowCount):
+    """A WindowCount whose count is TOTAL["card_windows"]; its lock also
+    serialises the counted launches of limiters that decide on executor
+    threads (the hot-key arm's two engines)."""
 
-    def counted(*args, **kwargs):
-        with _LAUNCH_LOCK:
-            TOTAL["card_windows"] += per_call
-            return inner(*args, **kwargs)
+    @property
+    def windows(self) -> int:
+        return TOTAL["card_windows"]
 
-    setattr(table, name, counted)
-    return limiter
+    @windows.setter
+    def windows(self, value: int) -> None:
+        TOTAL["card_windows"] = value
+
+
+#: watch(limiter): count in TOTAL["card_windows"] every window `limiter`
+#: hands its table on the card (WindowCount.watch); returns `limiter`.
+watch = _CardWindows().watch
 
 
 class _Launches:
