@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Nineteen phases, each printing its results; any failure raises and the
+Twenty phases, each printing its results; any failure raises and the
 script exits nonzero without its last line:
 
 1. card: the card's name and power limit (nvidia-smi), and the builds of
@@ -295,7 +295,9 @@ script exits nonzero without its last line:
    trip fails the run.
 19. the drivers beside the package (tools/ and examples/): (a)
    tools/profile_launch.py at its default shape (K = 16 x B = 4096 on a
-   2^21-slot table) with a torch.profiler trace: ping, h2d of the 8
+   2^21-slot table) with a torch.profiler trace, in a process of its own
+   (a fresh CUDA context and profiler; its step-3 device time must not
+   be null): ping, h2d of the 8
    request arrays and of the one packed buffer (pageable and pinned),
    the window's compute (host clock, CUDA events, profiler), d2h of the
    4-plane output (pageable and pinned), end to end and pipelined; its
@@ -312,6 +314,24 @@ script exits nonzero without its last line:
    server booted for it: exit 0 and the decision lines the CPU tests
    hold equal to the JAX examples'.  fused.LAUNCHES must move by exactly
    the windows (a)-(d) count themselves.
+20. the ablation probes at the JAX scripts' sizes, each `python -m
+   throttlecrab_tpu_torch.tools.<probe>` in a process of its own: probe_kernel_ablation (the body's four modes at cap 2^21, K = 64,
+   B = 4096; capacity 2^16-2^21; K = 16-256; first fetches of 1-16 MB,
+   pageable and pinned; the output-size pair; the window kernel in the
+   w32 and 4-plane tiers), probe_byid_ablation (five modes and id rows 8
+   and 5 wide at K = 256 x B = 4096 over 1M id rows and 2^21 slots, then
+   the by-id front end and the window kernel), once on the plain row
+   route and once with --row-kernels, and probe_packed_layout (row-major,
+   field-major, unpacked and the window kernel at K = 64).  Each must
+   exit 0 and print every JAX label with the card's device time beside
+   it (none null; one profiler session a process, every call's records
+   counted between marker kernels); with --check-cpu each arm's first
+   scan (output and table state) must equal the same scan on
+   device="cpu"; fused.LAUNCHES must move by
+   exactly the windows the probe counts (18, 8, 8, 18); on the row-kernel
+   run row_gather and row_scatter must each move by K = 256 per scan of
+   full, noidrow and both widths and by 0 elsewhere (0 everywhere on the
+   plain run), and its first scans must equal the plain run's.
 
 The line before the last is the {"kernels": [...]} record; the last line
 is {"ok": true, "device": {...}}.
@@ -4818,6 +4838,34 @@ def run_control_gate():
     return r.stdout.strip()
 
 
+def profile_launch_child(device):
+    """Phase 19a: tools/profile_launch.py at its default shape with a
+    trace on `device`, then step 3's first window again on the CPU.
+    Returns (report, fused.LAUNCHES moved, first window equal, seconds of
+    the cpu window)."""
+    import torch
+
+    from throttlecrab_tpu_torch.tools import profile_launch as pl
+    from throttlecrab_tpu_torch.tpu import fused
+
+    def say(line):
+        print(f"  {line}", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        before = fused.LAUNCHES
+        t = time.perf_counter()
+        report, (out, state) = pl.profile(torch.device(device),
+                                          trace_dir=tmp, log=say)
+        moved = fused.LAUNCHES - before
+        if not os.path.getsize(report["trace_path"]):
+            raise AssertionError("profile_launch wrote an empty trace")
+        report["seconds"] = time.perf_counter() - t
+    t = time.perf_counter()
+    want_out, want_state = pl.first_window("cpu")
+    equal = torch.equal(out, want_out) and torch.equal(state, want_state)
+    return report, moved, equal, time.perf_counter() - t
+
+
 def run_tools(card, device="cuda"):
     """Phase 19: the launch-cost profile and its probes, the 1-device mesh
     probe, both determinism gates, the transport driver and every example,
@@ -4831,7 +4879,6 @@ def run_tools(card, device="cuda"):
         probe_sharded_1dev,
         replay_determinism,
     )
-    from throttlecrab_tpu_torch.tools import profile_launch as pl
     from throttlecrab_tpu_torch.tpu import fused
 
     t_phase = time.perf_counter()
@@ -4841,25 +4888,28 @@ def run_tools(card, device="cuda"):
     def say(line):
         print(f"  {line}", flush=True)
 
-    # (a) the launch-cost profile at its full default shape, with a trace.
-    with tempfile.TemporaryDirectory() as tmp:
-        before = fused.LAUNCHES
-        t = time.perf_counter()
-        report, (out, state) = pl.profile(dev, trace_dir=tmp, log=say)
-        rec["launches"]["profile_launch"] = fused.LAUNCHES - before
-        rec["counted"]["profile_launch"] = report["launches_counted"]
-        if not os.path.getsize(report["trace_path"]):
-            raise AssertionError("profile_launch wrote an empty trace")
-        report["seconds"] = time.perf_counter() - t
-    t = time.perf_counter()
-    want_out, want_state = pl.first_window("cpu")
-    if not (torch.equal(out, want_out) and torch.equal(state, want_state)):
+    # (a) the launch-cost profile at its full default shape, with a trace,
+    # in a process of its own: a fresh CUDA context and profiler, where
+    # late in this process the profiler recorded no kernel for step 3.
+    if device == "cuda":
+        with ProcessPoolExecutor(
+                1, mp_context=multiprocessing.get_context("spawn")) as pool:
+            report, moved, equal, cpu_s = pool.submit(
+                profile_launch_child, device).result()
+    else:
+        report, moved, equal, cpu_s = profile_launch_child(device)
+    rec["launches"]["profile_launch"] = moved
+    rec["counted"]["profile_launch"] = report["launches_counted"]
+    if not equal:
         raise AssertionError("profile_launch step 3's first window differs "
                              "from the device='cpu' run")
+    if device == "cuda" and report["compute_device_ms"] is None:
+        raise AssertionError("profile_launch step 3's device time is null")
     say(f"step 3's first window (K=16 x B=4096, 2^21 slots): output and "
-        f"state equal the device='cpu' run ({time.perf_counter() - t:.1f} s "
-        f"on the host); {rec['launches']['profile_launch']} window launches "
-        f"= {report['launches_counted']} counted ({card})")
+        f"state equal the device='cpu' run ({cpu_s:.1f} s on the host); "
+        f"{moved} window launches = {report['launches_counted']} counted; "
+        f"device {report['compute_device_ms']} ms a window, in a process of "
+        f"its own ({card})")
     rec["profile_launch"] = report
 
     # (b) the transfer probes at JAX's default sizes.
@@ -4926,6 +4976,157 @@ def run_tools(card, device="cuda"):
         + f"; (e)-(g) wall {time.perf_counter() - t:.1f} s")
     rec["seconds"] = time.perf_counter() - t_phase
     say(f"phase {rec['seconds']:.1f} s ({card})")
+    return rec
+
+
+# Phase 20: each probe in a process of its own, the by-id probe once on
+# the plain row route and once on the row kernels.  The row-kernel run's
+# first scans are held to the plain run's, which --check-cpu holds to
+# the cpu's.
+ABLATION_RUNS = (
+    ("probe_kernel_ablation", ("--check-cpu",)),
+    ("probe_byid_ablation", ("--check-cpu",)),
+    ("probe_byid_ablation", ("--row-kernels",)),
+    ("probe_packed_layout", ("--check-cpu",)),
+)
+# JAX's label lines, one regex per line each probe must print.
+ABLATION_LABELS = {
+    "probe_kernel_ablation": [
+        rf"cap=2\^21 K=  64 {m:11s}: +\d+\.\d\d ms/launch  \( *\d+\.\d\d M "
+        r"dec/s\)  device +\d+\.\d+ ms/scan"
+        for m in ("full", "noscatter", "nogather", "elementwise")
+    ] + [
+        rf"cap=2\^{c} K=  64 full       : " for c in (16, 18, 21)
+    ] + [
+        rf"cap=2\^21 K={k:4d} full       : " for k in (16, 64, 256)
+    ] + [
+        rf"d\) d2h +{mb} MB (first|pinned) fetch: +\d+\.\d\d ms"
+        for mb in (1, 4, 16)
+    ] + [
+        r"e\) i32 full compact out= +\d+\.\d MB: .*device +\d",
+        r"e\) i8 allowed-only  out= +\d+\.\d MB: .*device +\d",
+        r"k\) w32 wire words   out= +\d+\.\d MB: .*device +\d",
+        r"k\) i32 4-plane      out= +\d+\.\d MB: .*device +\d",
+    ],
+    "probe_byid_ablation": [
+        rf"{m:12s}: +\d+\.\d\d ms/launch  \( *\d+\.\d{{3}} ms/batch, *"
+        r"\d+\.\d\d M dec/s\)  device +\d+\.\d+ ms/scan"
+        for m in ("full", "noidrow", "nostate", "noscatter", "elementwise",
+                  "width 8", "width 5", "fused_window")
+    ],
+    "probe_packed_layout": [
+        rf"{re.escape(label)}: fetched +\d+\.\d\d ms  queued +\d+\.\d\d ms"
+        r"  \( *\d+\.\d\d M dec/s queued\)  device +\d+\.\d+ ms/call"
+        for label in ("row-major  [K,B,9] numpy arg ",
+                      "field-major [K,9,B] numpy arg",
+                      "unpacked 8-array, resident   ",
+                      "fused_window [K,B,9] numpy arg")
+    ],
+}
+# Window launches each probe makes (what it must count itself): per
+# timed arm the first scan, the untimed and timed ones, then the
+# profiler's warm call and its profiled calls.
+ABLATION_WINDOWS = {
+    "probe_kernel_ablation": 2 * (1 + 1 + 4 + 1 + 2),  # two tiers
+    "probe_byid_ablation": 1 + 4 + 1 + 2,  # first, R = 4, profiler
+    "probe_packed_layout": 1 + 2 + 6 + 6 + 1 + 2,
+}
+BYID_SCANS = 1 + 4 + 1 + 2  # every by-id arm's scans
+BYID_DEPTH = 256
+BYID_ROW_ARMS = ("mode/full", "mode/noidrow", "width/8", "width/5")
+
+
+def ablation_device_times(name, report):
+    """{arm: device ms} of every composed mode and kernel arm a report
+    carries."""
+    sections = {
+        "probe_kernel_ablation": ("ablation", "capacity", "depth",
+                                  "outsize", "kernel"),
+        "probe_byid_ablation": ("mode", "width", "kernel"),
+        "probe_packed_layout": ("arms",),
+    }[name]
+    return {f"{sec}/{arm}": rec["device_ms"] for sec in sections
+            for arm, rec in report[sec].items()}
+
+
+def run_ablation_probe(name, args):
+    """One probe in a process of its own; returns (its report, its stdout
+    lines, seconds)."""
+    t = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", f"throttlecrab_tpu_torch.tools.{name}",
+         *args], capture_output=True, text=True, timeout=900,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    seconds = time.perf_counter() - t
+    if r.returncode != 0:
+        raise AssertionError(f"{name} {' '.join(args)} exited "
+                             f"{r.returncode}:\n{r.stdout[-3000:]}\n"
+                             f"{r.stderr[-3000:]}")
+    lines = r.stdout.strip().splitlines()
+    for line in r.stderr.strip().splitlines()[-2:] + lines[:-1]:
+        print(f"    {line}", flush=True)
+    return json.loads(lines[-1]), lines[:-1], seconds
+
+
+def run_ablation(card):
+    """Phase 20: the three ablation probes at the JAX scripts' sizes, each
+    in a process of its own.  Returns the phase's record."""
+    rec = {"reports": {}, "seconds": {}, "fused_launches": {},
+           "row_launches": {}}
+    t_phase = time.perf_counter()
+    for name, args in ABLATION_RUNS:
+        tag = " ".join((name,) + args)
+        print(f"  {tag}", flush=True)
+        report, lines, seconds = run_ablation_probe(name, args)
+        for pattern in ABLATION_LABELS[name]:
+            if not any(re.match(pattern, line) for line in lines):
+                raise AssertionError(f"{tag}: no line matches {pattern!r}")
+        if ("--check-cpu" in args
+                and report.get("first_equals_cpu") is not True):
+            raise AssertionError(f"{tag}: first scans not held to the cpu")
+        moved = (report["fused_launches_after"]
+                 - report["fused_launches_before"])
+        want = ABLATION_WINDOWS[name]
+        if not moved == report["launches_counted"] == want:
+            raise AssertionError(
+                f"{tag}: fused.LAUNCHES moved by {moved}, the probe counted "
+                f"{report['launches_counted']} windows, expected {want}")
+        nulls = [arm for arm, ms in ablation_device_times(name, report).items()
+                 if ms is None]
+        if nulls:
+            raise AssertionError(f"{tag}: no device time for {nulls}")
+        if name == "probe_byid_ablation":
+            rows = "--row-kernels" in args
+            for arm, moves in report["row_launches"].items():
+                if report["scans"][arm] != BYID_SCANS:
+                    raise AssertionError(f"{tag}: {arm} made "
+                                         f"{report['scans'][arm]} scans")
+                want_rows = (BYID_DEPTH * BYID_SCANS
+                             if rows and arm in BYID_ROW_ARMS else 0)
+                if set(moves.values()) != {want_rows}:
+                    raise AssertionError(f"{tag}: {arm} row launches {moves},"
+                                         f" expected {want_rows} each")
+            rec["row_launches"][tag] = {
+                kind: sum(m[kind] for m in report["row_launches"].values())
+                for kind in ("row_gather", "row_scatter")}
+        rec["reports"][tag] = report
+        rec["seconds"][tag] = seconds
+        rec["fused_launches"][tag] = moved
+        print(f"  {tag}: exit 0 in {seconds:.1f} s, every label, {moved} "
+              f"window launches = "
+              f"{report['launches_counted']} counted, no null device time "
+              f"({card})", flush=True)
+    plain = rec["reports"]["probe_byid_ablation --check-cpu"]["first"]
+    kern = rec["reports"]["probe_byid_ablation --row-kernels"]["first"]
+    differ = [arm for arm in BYID_ROW_ARMS if plain[arm] != kern[arm]]
+    if differ:
+        raise AssertionError(f"the row kernels' first scans differ from the "
+                             f"plain row route's in {differ}")
+    print(f"  the row-kernel arm's first scans ({', '.join(BYID_ROW_ARMS)}) "
+          f"equal the plain route's on the card; row launches "
+          f"{rec['row_launches']}", flush=True)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase {rec['phase_s']:.1f} s ({card})", flush=True)
     return rec
 
 
@@ -5141,8 +5342,9 @@ def main() -> int:
                 snap_err[name] = max(snap_err[name], err[name])
             snap_ms[keymap] = split
     snap_b = row_ops.MAX_BATCH
+    # 5 rounds, as row_ab.py: a cold median of 3 read two outlier records
     snap_times = time_row_kernels(device, np.random.default_rng(10), b=snap_b,
-                                  n=CAPACITY + (1 << 16))
+                                  n=CAPACITY + (1 << 16), rounds=5)
     for (name, w), t in snap_times.items():
         print(f"  {name} W={w}: {row_times_line(t, snap_b, w, snap_b)}")
 
@@ -5292,6 +5494,15 @@ def main() -> int:
     tools = run_tools(card)
     prof = tools["profile_launch"]
 
+    print(f"[20] the ablation probes at the JAX scripts' sizes, each in a "
+          f"process of its own: probe_kernel_ablation (cap 2^21, K=64), "
+          f"probe_byid_ablation (K={BYID_DEPTH} x B={B}, 1M id rows; plain "
+          f"rows, then the row kernels), probe_packed_layout (K=64 x B={B})"
+          f" ({card})")
+    ablation = run_ablation(card)
+    abl_fused = ablation["fused_launches"]
+    abl_rows = ablation["row_launches"]["probe_byid_ablation --row-kernels"]
+
     print(f"card: {card_line()}")
     kernels = [{
         "name": "fused_window",
@@ -5382,6 +5593,14 @@ def main() -> int:
         "d2h_probe_ms": tools["probe_d2h_ms"],
         "transport_driver": tools["transport_driver"],
         "tools_phase_s": tools["seconds"],
+        "ablation_path": "phase 20: each ablation probe's kernel arm, one "
+                         "window a scan (probe_byid_ablation twice: plain "
+                         "rows, then --row-kernels)",
+        "ablation_launches": abl_fused,
+        "ablation_device_ms": {
+            tag: ablation_device_times(tag.split()[0], report)
+            for tag, report in ablation["reports"].items()},
+        "ablation_s": ablation["seconds"],
         "card": card,
     }]
     for name, replaces in (("row_gather", "pallas_ops.py:128"),
@@ -5466,6 +5685,10 @@ def main() -> int:
             "campaign_launches": campaign_rows[name],
             "campaign_rows": campaign_rows[
                 "rows_gathered" if name == "row_gather" else "rows_scattered"],
+            "ablation_path": "phase 20: probe_byid_ablation --row-kernels, "
+                             f"K={BYID_DEPTH} launches per scan of full, "
+                             "noidrow and both widths",
+            "ablation_launches": abl_rows[name],
             "b4096": {
                 "ms": b4["kernel"], "plain_ms": b4["plain"],
                 "library_ms": b4["library"],

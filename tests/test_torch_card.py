@@ -7,8 +7,11 @@ snapshot's save and restore), and the insight tier's device ops
 tier-ladder campaign's alternation (tools/fuzz_wire_tiers.py): the kernel
 beside its plain version, both against the scalar oracle; and the
 launch-cost profile (tools/profile_launch.py: its first window against
-the cpu run, its launches against its own count) and the replay gate
-(tools/replay_determinism.py) on the card.
+the cpu run, its launches against its own count), the replay gate
+(tools/replay_determinism.py), and the ablation probes' kernel arms and
+row-kernel arm (tools/probe_*_ablation.py, probe_packed_layout.py:
+their first scans against the cpu's and the plain row route's, their
+launches against their own counts) on the card.
 
 Needs a CUDA card: the tests carry the `cuda` marker and skip elsewhere
 (decided in a fixture when they run).  The file imports nothing of jax,
@@ -964,3 +967,71 @@ def test_replay_gate_passes_on_card(cuda_device):
     rc, counts, line = rd.run(24, cuda_device)
     assert rc == 0, line
     assert counts["launches"] == counts["expected_launches"] == 3 * 24
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,B,cap", [(4, 64, 4096), (3, 64, 64)])
+def test_kernel_ablation_kernel_arms_on_card_equal_cpu(cuda_device, K, B,
+                                                       cap):
+    """tools/probe_kernel_ablation.py: every arm's first scan on the card
+    (the window kernel's two tiers among them) equals the device="cpu"
+    scan, and the probe's run counts every window it launches."""
+    from throttlecrab_tpu_torch.tools import card
+    from throttlecrab_tpu_torch.tools import probe_kernel_ablation as ka
+
+    sizes = dict(cap=cap, K=K, B=B, caps=(cap,), depths=(K,))
+    card.check_first(ka.first_scans(cuda_device, **sizes),
+                     ka.first_scans(torch.device("cpu"), **sizes), "card")
+    before = fused.LAUNCHES
+    report = ka.run(cuda_device, d2h_mb=(1,), out=lambda line: None,
+                    **sizes)
+    assert fused.LAUNCHES - before == report["launches_counted"] == 18
+    assert all(r["device_ms"] is not None
+               for r in report["kernel"].values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,B,n_ids,cap", [(4, 64, 1000, 4096),
+                                           (3, 128, 8, 256)])
+def test_byid_ablation_kernel_and_row_kernels_on_card(cuda_device, K, B,
+                                                      n_ids, cap):
+    """tools/probe_byid_ablation.py: the kernel arm on the card equals the
+    device="cpu" scan; the row-kernel arm (full, noidrow, both widths
+    through the CUDA row kernels) equals the plain row route on the card,
+    launching K row gathers and K row scatters per scan."""
+    from throttlecrab_tpu_torch.tools import card
+    from throttlecrab_tpu_torch.tools import probe_byid_ablation as ba
+
+    sizes = dict(n_ids=n_ids, K=K, B=B, cap=cap, r=2)
+    plain = ba.first_scans(cuda_device, False, **sizes)
+    card.check_first(plain, ba.first_scans(torch.device("cpu"), **sizes),
+                     "card")
+    g0, s0 = row_ops.GATHER_LAUNCHES, row_ops.SCATTER_LAUNCHES
+    card.check_first(ba.first_scans(cuda_device, True, **sizes), plain,
+                     "row kernels")
+    # one first scan each of full, noidrow and the two widths
+    assert row_ops.GATHER_LAUNCHES - g0 == row_ops.SCATTER_LAUNCHES - s0 \
+        == 4 * K
+    before = fused.LAUNCHES
+    report = ba.run(cuda_device, row_kernels=True, out=lambda line: None,
+                    **sizes)
+    assert fused.LAUNCHES - before == report["launches_counted"] == 1 + 2 + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,B,cap", [(4, 64, 4096), (3, 128, 64)])
+def test_packed_layout_kernel_arm_on_card_equals_cpu(cuda_device, K, B,
+                                                     cap):
+    """tools/probe_packed_layout.py: every arm's first call on the card
+    (the window kernel on the row-major buffer among them) equals the
+    device="cpu" call."""
+    from throttlecrab_tpu_torch.tools import card
+    from throttlecrab_tpu_torch.tools import probe_packed_layout as pl
+
+    card.check_first(pl.first_scans(cuda_device, K=K, B=B, cap=cap),
+                     pl.first_scans(torch.device("cpu"), K=K, B=B, cap=cap),
+                     "card")
+    before = fused.LAUNCHES
+    report = pl.run(cuda_device, K=K, B=B, cap=cap, n=2,
+                    out=lambda line: None)
+    assert fused.LAUNCHES - before == report["launches_counted"] == 10

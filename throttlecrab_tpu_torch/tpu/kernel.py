@@ -639,11 +639,14 @@ def insight_decay(state):
 IDROW_WIDTH = 8
 
 
-def pack_id_rows(slots, emission, tolerance):
+def pack_id_rows(slots, emission, tolerance, width=IDROW_WIDTH):
     """Host-side build of the resident by-id parameter rows (numpy):
-    i32[n, IDROW_WIDTH] = [slot, em_lo, em_hi, tol_lo, tol_hi, pad...]
-    (the scans read columns 0-4)."""
-    rows = np.zeros((len(slots), IDROW_WIDTH), np.int32)
+    i32[n, width] = [slot, em_lo, em_hi, tol_lo, tol_hi, pad...].  The
+    scans read columns 0-4, so any width >= 5 decides alike
+    (tools/probe_byid_ablation.py times 8 against 5)."""
+    if width < 5:
+        raise ValueError("id rows need at least 5 columns")
+    rows = np.zeros((len(slots), width), np.int32)
     rows[:, 0] = slots
     for base, arr in ((1, emission), (3, tolerance)):
         a = np.asarray(arr, np.int64)
