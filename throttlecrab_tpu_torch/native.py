@@ -24,6 +24,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from .spans import span
+
 _PKG = Path(__file__).resolve().parent
 _SRC = _PKG.parent / "native" / "keymap.cpp"
 BUILD_DIR = _PKG / "build"
@@ -481,44 +483,45 @@ class NativeKeyMap:
         """tk_finish for the raw-ids path (gcra_scan_ids): the request
         stream is bare i32 ids (negative = padding).  Returns i32[n, 4]
         (allowed, remaining, reset_after_secs, retry_after_secs)."""
-        ids = np.ascontiguousarray(ids, np.int32).reshape(-1)
-        cur2 = np.ascontiguousarray(cur2, np.int64).reshape(-1)
-        n = len(cur2)
-        if len(ids) != n:
-            raise ValueError("ids and cur2 row counts differ")
-        em_by_id = np.ascontiguousarray(em_by_id, np.int64)
-        tol_by_id = np.ascontiguousarray(tol_by_id, np.int64)
-        n_ids = self._n_ids
-        if len(em_by_id) < n_ids or len(tol_by_id) < n_ids:
-            raise ValueError(
-                f"parameter tables must cover all {n_ids} interned ids"
+        with span("tc.finish.raw"):
+            ids = np.ascontiguousarray(ids, np.int32).reshape(-1)
+            cur2 = np.ascontiguousarray(cur2, np.int64).reshape(-1)
+            n = len(cur2)
+            if len(ids) != n:
+                raise ValueError("ids and cur2 row counts differ")
+            em_by_id = np.ascontiguousarray(em_by_id, np.int64)
+            tol_by_id = np.ascontiguousarray(tol_by_id, np.int64)
+            n_ids = self._n_ids
+            if len(em_by_id) < n_ids or len(tol_by_id) < n_ids:
+                raise ValueError(
+                    f"parameter tables must cover all {n_ids} interned ids"
+                )
+            # Raw ids carry no assembler guarantee — bound-check before the
+            # C loop indexes the tables (the kernel marks such lanes invalid
+            # and their cur words are don't-care, but C must not read OOB).
+            if n and int(ids.max()) >= min(len(em_by_id), len(tol_by_id)):
+                raise ValueError(
+                    "ids contain values beyond the parameter tables"
+                )
+            if out is None:
+                out = np.empty((n, 4), np.int32)
+            elif (
+                out.shape != (n, 4)
+                or out.dtype != np.int32
+                or not out.flags.c_contiguous
+            ):
+                raise ValueError("out must be a C-contiguous i32[n, 4] buffer")
+            self._lib.tk_finish_raw(
+                ids.ctypes.data_as(ctypes.c_void_p),
+                em_by_id.ctypes.data_as(ctypes.c_void_p),
+                tol_by_id.ctypes.data_as(ctypes.c_void_p),
+                quantity,
+                cur2.ctypes.data_as(ctypes.c_void_p),
+                n,
+                now_ns,
+                out.ctypes.data_as(ctypes.c_void_p),
             )
-        # Raw ids carry no assembler guarantee — bound-check before the
-        # C loop indexes the tables (the kernel marks such lanes invalid
-        # and their cur words are don't-care, but C must not read OOB).
-        if n and int(ids.max()) >= min(len(em_by_id), len(tol_by_id)):
-            raise ValueError(
-                "ids contain values beyond the parameter tables"
-            )
-        if out is None:
-            out = np.empty((n, 4), np.int32)
-        elif (
-            out.shape != (n, 4)
-            or out.dtype != np.int32
-            or not out.flags.c_contiguous
-        ):
-            raise ValueError("out must be a C-contiguous i32[n, 4] buffer")
-        self._lib.tk_finish_raw(
-            ids.ctypes.data_as(ctypes.c_void_p),
-            em_by_id.ctypes.data_as(ctypes.c_void_p),
-            tol_by_id.ctypes.data_as(ctypes.c_void_p),
-            quantity,
-            cur2.ctypes.data_as(ctypes.c_void_p),
-            n,
-            now_ns,
-            out.ctypes.data_as(ctypes.c_void_p),
-        )
-        return out
+            return out
 
     def finish(
         self,

@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from . import row_ops
+from .profiling import span
 from .sat import (
     I64_MAX,
     div_trunc,
@@ -221,13 +222,14 @@ def fits_w32_wire_agg(
 def finish_w32(words):
     """Host-side unpack of the compact="w32" output: i32 words ->
     (allowed, remaining, reset_after_secs, retry_after_secs), all i32."""
-    u = np.ascontiguousarray(words, np.int32).view(np.uint32)
-    return (
-        (u & 1).astype(np.int32),
-        ((u >> 1) & np.uint32(W32_REM_MAX)).astype(np.int32),
-        ((u >> 11) & np.uint32(W32_RESET_MAX)).astype(np.int32),
-        ((u >> 22) & np.uint32(W32_RETRY_MAX)).astype(np.int32),
-    )
+    with span("tc.finish.w32"):
+        u = np.ascontiguousarray(words, np.int32).view(np.uint32)
+        return (
+            (u & 1).astype(np.int32),
+            ((u >> 1) & np.uint32(W32_REM_MAX)).astype(np.int32),
+            ((u >> 11) & np.uint32(W32_RESET_MAX)).astype(np.int32),
+            ((u >> 22) & np.uint32(W32_RETRY_MAX)).astype(np.int32),
+        )
 
 
 def cur_wire_safe(valid, tolerance, now_ns) -> bool:
@@ -682,13 +684,15 @@ def _byid_fields(w, id_rows):
     IDROW_WIDTH], rank i64, is_last, valid), lane for lane.  The id is
     clamped into the resident rows and keeps its valid bit."""
     n_ids = id_rows.shape[0]
-    rows = _id_rows_at(id_rows, torch.clamp(_to_i32(w & _U32), 0, n_ids - 1))
-    meta = w >> 32
-    # An unresolved id row (resolve_all on a full table) carries slot -1,
-    # which would otherwise clip to slot 0 and decide against another
-    # key's bucket.
-    valid = ((meta & (1 << 15)) != 0) & (rows[..., 0] >= 0)
-    return rows, meta & 0x3FFF, (meta & (1 << 14)) != 0, valid
+    with span("tc.ids.front.gather"):
+        rows = _id_rows_at(
+            id_rows, torch.clamp(_to_i32(w & _U32), 0, n_ids - 1))
+        meta = w >> 32
+        # An unresolved id row (resolve_all on a full table) carries slot
+        # -1, which would otherwise clip to slot 0 and decide against
+        # another key's bucket.
+        valid = ((meta & (1 << 15)) != 0) & (rows[..., 0] >= 0)
+        return rows, meta & 0x3FFF, (meta & (1 << 14)) != 0, valid
 
 
 def _byid_batch(w, now_k, id_rows, quantity):
@@ -726,15 +730,17 @@ def _ids_fields(w, id_rows):
     invalid lane gets its own key beyond any real slot, so it can
     neither join nor split a real segment."""
     n_ids = id_rows.shape[0]
-    # An id beyond the resident rows (interned after upload, or corrupt)
-    # is invalid, never clipped onto another key.
-    valid = (w >= 0) & (w < n_ids)
-    rows = _id_rows_at(id_rows, torch.clamp(w, 0, n_ids - 1))
-    slots = rows[..., 0]
-    valid = valid & (slots >= 0)
-    pos = torch.arange(w.shape[-1], dtype=torch.int32, device=w.device)
-    segkey = torch.where(valid, slots, _I32_MAX - pos)
-    rank, is_last = _device_segments(segkey)
+    with span("tc.ids.front.gather"):
+        # An id beyond the resident rows (interned after upload, or
+        # corrupt) is invalid, never clipped onto another key.
+        valid = (w >= 0) & (w < n_ids)
+        rows = _id_rows_at(id_rows, torch.clamp(w, 0, n_ids - 1))
+        slots = rows[..., 0]
+        valid = valid & (slots >= 0)
+    with span("tc.ids.front.segments"):
+        pos = torch.arange(w.shape[-1], dtype=torch.int32, device=w.device)
+        segkey = torch.where(valid, slots, _I32_MAX - pos)
+        rank, is_last = _device_segments(segkey)
     return rows, rank, is_last, valid
 
 
@@ -802,16 +808,17 @@ def _pack_window(rows, rank, is_last, valid, quantity):
     pack_requests' layout: the id row's slot, the rank (up to B - 1, so
     a whole i32 column), the flags, the id row's emission and tolerance
     words verbatim, and the launch-uniform quantity."""
-    flags = (is_last.to(torch.int32) * PACK_FLAG_IS_LAST
-             + valid.to(torch.int32) * PACK_FLAG_VALID)
-    q = rows.new_empty(rank.shape + (2,))
-    q[..., 0] = ((quantity & _U32) ^ (1 << 31)) - (1 << 31)
-    q[..., 1] = quantity >> 32
-    return torch.cat(
-        [rows[..., :1], rank.to(torch.int32)[..., None], flags[..., None],
-         rows[..., 1:5], q],
-        dim=-1,
-    )
+    with span("tc.ids.front.pack"):
+        flags = (is_last.to(torch.int32) * PACK_FLAG_IS_LAST
+                 + valid.to(torch.int32) * PACK_FLAG_VALID)
+        q = rows.new_empty(rank.shape + (2,))
+        q[..., 0] = ((quantity & _U32) ^ (1 << 31)) - (1 << 31)
+        q[..., 1] = quantity >> 32
+        return torch.cat(
+            [rows[..., :1], rank.to(torch.int32)[..., None],
+             flags[..., None], rows[..., 1:5], q],
+            dim=-1,
+        )
 
 
 def byid_window(id_rows, words, quantity):

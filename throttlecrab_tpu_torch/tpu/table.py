@@ -40,6 +40,7 @@ from .kernel import (
     sweep_expired,
     unpack_state,
 )
+from .profiling import span
 from .sat import I64_MAX
 
 
@@ -90,6 +91,14 @@ def _host_max_now(now_ns):
         return None
     a = np.asarray(now_ns, np.int64)
     return int(a.max(initial=0)) if a.ndim else int(a)
+
+
+def _uploaded(x, t) -> bool:
+    """Whether `t`, a launch's conversion of its input `x`, was copied
+    onto a device from elsewhere (on a card, an upload that waits for
+    the stream)."""
+    return t.device.type != "cpu" and not (
+        isinstance(x, torch.Tensor) and x.device == t.device)
 
 
 def _host_max_tol(valid, tolerance):
@@ -180,6 +189,9 @@ class BucketTable(HwmMarksMixin):
         # TAT is <= its writing launch's now + tol <= now_hwm + tol_hwm.
         self.tol_hwm = 0
         self.now_hwm = 0
+        # Sequence number of the by-id launches begun (one that raises
+        # uses its number up): the launch id of their recorded spans.
+        self.launch_seq = 0
 
     def _alloc(self, rows: int) -> torch.Tensor:
         return pack_state(
@@ -362,24 +374,31 @@ class BucketTable(HwmMarksMixin):
         packed window.  An insight table takes the `_acc` window too: the
         by-id entry points leave `ins_counts` alone, as the JAX package's
         do."""
-        if isinstance(id_rows, ResidentIdRows):
-            id_rows = id_rows.rows_checked()
-        if batch > self.SCRATCH:
-            raise ValueError("batch exceeds scratch region")
-        track_cur_safety(self, compact, params_cur_safe)
-        self.note_launch_now(_host_max_now(now_ns))
-        packed = front(
-            id_rows, torch.as_tensor(stream, dtype=dtype).to(self.device),
-            int(quantity),
-        )
-        self.state, self.exp_acc, out = fused.gcra_scan_packed_fused_acc(
-            self.state,
-            self.exp_acc,
-            packed,
-            torch.as_tensor(now_ns, dtype=torch.int64).to(self.device),
-            with_degen=with_degen,
-            compact=compact,
-        )
+        self.launch_seq += 1
+        with span("tc.ids.launch", self.launch_seq):
+            with span("tc.ids.prepare") as sp:
+                if isinstance(id_rows, ResidentIdRows):
+                    id_rows = id_rows.rows_checked()
+                if batch > self.SCRATCH:
+                    raise ValueError("batch exceeds scratch region")
+                track_cur_safety(self, compact, params_cur_safe)
+                self.note_launch_now(_host_max_now(now_ns))
+                ids = torch.as_tensor(stream, dtype=dtype).to(self.device)
+                now = torch.as_tensor(now_ns, dtype=torch.int64).to(
+                    self.device)
+                if sp is not None:
+                    sp.attrs.update(
+                        K=len(stream), B=batch,
+                        upload=_uploaded(stream, ids)
+                        or _uploaded(now_ns, now))
+            with span("tc.ids.front"):
+                packed = front(id_rows, ids, int(quantity))
+            with span("tc.ids.window"):
+                self.state, self.exp_acc, out = \
+                    fused.gcra_scan_packed_fused_acc(
+                        self.state, self.exp_acc, packed, now,
+                        with_degen=with_degen, compact=compact,
+                    )
         return out
 
     def check_many_byid(
