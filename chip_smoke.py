@@ -16,9 +16,14 @@ script exits nonzero without its last line:
    consecutive hostile windows — duplicates, degenerate lanes, invalid
    lanes, edge-valued tolerances — then on cross-block windows at B =
    4096, 1, 4097 and 65536 (one slot over every lane of every sub-batch;
-   one slot at lanes 0 and B-1 of every sub-batch).  Tolerance: exact
+   one slot at lanes 0 and B-1 of every sub-batch), then on the one-block
+   schedule at K = 64 x B = 256: two hostile windows, and two in which
+   every sub-batch takes the slots of the one before in another order
+   (256 distinct slots; 256 lanes over 128 slots).  Tolerance: exact
    equality (integer math) on valid-lane outputs, real-slot state,
-   expired-hit counts and insight totals;
+   expired-hit counts and insight totals.  fused.BLOCK_LAUNCHES, zeroed
+   just before, must equal the windows of B <= 256, and the device's
+   forwarded-lane count must move by the count the packed rows give;
 3. serving path at full size: TorchRateLimiter(capacity=2^20) on cuda
    under BASELINE config 3 traffic (1M keys, Zipf-1.1, batch 4096,
    per-key heterogeneous params) through dispatch_many(wire=True), K = 16
@@ -87,10 +92,12 @@ script exits nonzero without its last line:
    replay; the decision-window kernel's counter, zeroed just before, must
    have moved;
 8. times, beside the card's name and power limit: the decision-window
-   kernel's and its plain version's time per window at K=16, B=4096,
-   W=4 and W=6 in the w32 tier (CUDA events, the profiler's device time
-   and its kernel records per call, which must all be the window kernel
-   and at most one per call, and the wrapper's host time per call), and
+   kernel's and its plain version's time per window at K=16, B=4096
+   (the cluster schedule) and K=16, B=256 (the one-block schedule), W=4
+   and W=6 in the w32 tier (CUDA events, the profiler's device time and
+   its kernel records per call, which must all be the window kernel of
+   the batch's schedule and at most one per call, and the wrapper's host
+   time per call), and
    each row kernel's, its plain version's and the library call's time
    per launch at B=4096 (CUDA events; profiler device time with L2 warm,
    and with L2 cold, 128 MB read before each launch, for kernel and
@@ -365,7 +372,8 @@ BYID_CAPACITY = 1 << 21
 N_KEYS = 1_000_000
 TIERS = [(False, True), (True, True), (False, False), (True, False),
          ("cur", False), ("w32", False)]
-CROSS_BLOCK_B = (4096, 1, 4097, 65536)  # batch widths of the cross-block windows
+CROSS_BLOCK_B = (4096, 1, 4097, 65536)  # widths of the cross-block windows
+BLOCK_K, BLOCK_B = 64, 256  # phase 2's one-block windows
 REGISTERS_PER_SM = 65536
 FUSED_THREADS = 256  # threads per block of the decision-window kernel
 
@@ -378,13 +386,15 @@ def ptxas_summary(log: str) -> dict:
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             mangled = m.group(1)
-            d = re.search(r"window_kernelILi(\d)ELb(\d)ELi(\d)E", mangled)
+            d = re.search(r"(block_)?window_kernelILi(\d)ELb(\d)ELi(\d)E",
+                          mangled)
             s = re.search(r"(scatter|gather)_kernelILi(\d)ELi(\d)ELi(\d)E",
                           mangled)
             tier = ("False", "True", "cur", "w32")
             name = (
-                f"window W={d.group(1)} with_degen={d.group(2) == '1'} "
-                f"tier={tier[int(d.group(3))]}" if d
+                f"{d.group(1) or ''}window W={d.group(2)} "
+                f"with_degen={d.group(3) == '1'} "
+                f"tier={tier[int(d.group(4))]}" if d
                 else f"{s.group(1)} W={s.group(2)} part={s.group(3)} "
                 f"steps={s.group(4)}" if s else mangled
             )
@@ -498,6 +508,45 @@ def cross_block_windows(rng, k, b, cap, degen):
             for s in (np.full((k, b), hot), edge)]
 
 
+def reuse_windows(rng, k, b, cap, degen):
+    """Two windows in which every sub-batch takes the slots of the one
+    before in another order, so most rows the one-block schedule
+    prefetches are stale and come from the previous sub-batch's writes
+    in shared memory: b distinct slots, and b lanes over b // 2 slots
+    (duplicate segments whose is_last lane moves every sub-batch)."""
+    import numpy as np
+
+    windows = []
+    for n_slots in (b, max(1, b // 2)):
+        pool = rng.permutation(cap)[:n_slots]
+        base = np.r_[pool, pool[rng.integers(0, n_slots, b - n_slots)]]
+        slots = np.stack([rng.permutation(base) for _ in range(k)])
+        windows.append(hostile_window(rng, k, b, cap, degen,
+                                      slots=slots.astype(np.int32)))
+    return windows
+
+
+def forwarded_count(packed, n_rows):
+    """Lanes the one-block schedule forwards in a window: those of
+    sub-batch k >= 1 whose row sub-batch k-1 wrote (a valid is_last
+    lane's slot, or lane i's scratch row n_rows - b + i)."""
+    import numpy as np
+
+    from throttlecrab_tpu_torch.tpu.kernel import (
+        PACK_FLAG_IS_LAST,
+        PACK_FLAG_VALID,
+    )
+
+    k, b = packed.shape[:2]
+    slot = np.clip(packed[..., 0].astype(np.int64), 0, n_rows - 1)
+    flags = packed[..., 2]
+    writes_slot = ((flags & PACK_FLAG_IS_LAST) != 0) & (
+        (flags & PACK_FLAG_VALID) != 0)
+    target = np.where(writes_slot, slot, n_rows - b + np.arange(b))
+    return sum(int(np.isin(slot[j], target[j - 1]).sum())
+               for j in range(1, k))
+
+
 def hostile_state(rng, rows, cap, width, device):
     """Table rows to start from: empty, live, expired, immortal (I64_MAX
     expiry), TATs near 2^62, and deny counts in the 6-wide layout."""
@@ -553,20 +602,23 @@ def max_abs_err(a, b, mask):
     return max(abs(int(x) - int(y)) for x, y in zip(a[differ], b[differ]))
 
 
-def compare_kernel_plain(device, k, b, cap, seed=0, cross=False):
-    """Phase 2 at one (k, b): two hostile windows, or the cross-block
-    windows when `cross`; returns the largest valid-lane output
-    difference."""
+def compare_kernel_plain(device, k, b, cap, seed=0, kind="hostile"):
+    """Phase 2 at one (k, b): two windows of `kind` — "hostile",
+    "cross" (cross_block_windows) or "reuse" (reuse_windows).  Returns
+    the largest valid-lane output difference, the kernel windows the
+    one-block schedule took (all of them when b <= 256, else none), and
+    the lanes it forwarded, counted from the packed rows."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(seed)
     n_rows = cap + (1 << 16)
-    windows = {
-        degen: cross_block_windows(rng, k, b, cap, degen) if cross else
-        [hostile_window(rng, k, b, cap, degen) for _ in range(2)]
-        for degen in (True, False)
-    }
+    make = {"hostile": lambda *a: [hostile_window(rng, *a) for _ in range(2)],
+            "cross": lambda *a: cross_block_windows(rng, *a),
+            "reuse": lambda *a: reuse_windows(rng, *a)}[kind]
+    windows = {degen: make(k, b, cap, degen) for degen in (True, False)}
+    block = b <= FUSED_THREADS
+    block_windows = forwarded = 0
     worst = 0
     for width in (4, 6):
         base = hostile_state(rng, n_rows, cap, width, device)
@@ -586,6 +638,9 @@ def compare_kernel_plain(device, k, b, cap, seed=0, cross=False):
                         s, width, st[s], acc[s], ins[s], p, n,
                         with_degen=with_degen, compact=compact,
                     )
+                if block:
+                    block_windows += 1
+                    forwarded += forwarded_count(packed, n_rows)
                 if device.type == "cuda":
                     torch.cuda.synchronize()
                 mask = valid if compact in ("cur", "w32") else valid[:, None]
@@ -605,10 +660,10 @@ def compare_kernel_plain(device, k, b, cap, seed=0, cross=False):
                         f"{with_degen=}): max_abs_err={err}, "
                         f"state/n_exp/ins identical={same}"
                     )
-            print(f"  identical: B={b} {'cross-block ' if cross else ''}"
-                  f"width={width} compact={compact!r} "
-                  f"with_degen={with_degen} n_exp={int(acc['kernel'])}")
-    return worst
+            print(f"  identical: K={k} B={b} {kind} width={width} "
+                  f"compact={compact!r} with_degen={with_degen} "
+                  f"n_exp={int(acc['kernel'])}")
+    return worst, block_windows, forwarded
 
 
 # ---- BASELINE config 3 traffic (phase 3) --------------------------------- #
@@ -1169,8 +1224,8 @@ def byid_bound_ms(ids, width_out_bytes):
     return moved / HBM_BYTES_PER_S * 1e3, distinct
 
 
-def timing_window(device, width, rng):
-    """A certified (w32-tier) window at K x B over a full-size table of
+def timing_window(device, width, rng, b=B):
+    """A certified (w32-tier) window at K x b over a full-size table of
     width `width`: (state, packed, now) on the card."""
     import numpy as np
     import torch
@@ -1179,16 +1234,16 @@ def timing_window(device, width, rng):
     from throttlecrab_tpu_torch.tpu.limiter import derive_params
 
     state = hostile_state(rng, CAPACITY + (1 << 16), CAPACITY, width, device)
-    slots = rng.integers(0, CAPACITY, (K, B)).astype(np.int32)
-    rank = np.zeros((K, B), np.int32)
-    is_last = np.ones((K, B), bool)
+    slots = rng.integers(0, CAPACITY, (K, b)).astype(np.int32)
+    rank = np.zeros((K, b), np.int32)
+    is_last = np.ones((K, b), bool)
     for j in range(K):
-        rank[j], is_last[j], _ = segments(slots[j], np.ones(B, bool))
+        rank[j], is_last[j], _ = segments(slots[j], np.ones(b, bool))
     kid = slots.astype(np.int64)
     em, tol, _ = derive_params(5 + kid % 60, 50 + kid % 1000, 30 + kid % 120)
     packed = torch.from_numpy(kernel.pack_requests(
-        slots, rank, is_last, em, tol, np.ones((K, B), np.int64),
-        np.ones((K, B), bool),
+        slots, rank, is_last, em, tol, np.ones((K, b), np.int64),
+        np.ones((K, b), bool),
     )).to(device)
     now = torch.arange(K, dtype=torch.int64, device=device) * 1000 + T0
     return state, packed, now
@@ -1209,16 +1264,17 @@ def host_us_per_call(fn, n=200):
     return host
 
 
-def time_kernel(device, rng, rounds=3):
+def time_kernel(device, rng, b=B, rounds=3):
     """{width: {"ms", "plain_ms", "device_ms", "plain_device_ms",
-    "kernels_per_call", "host_us"}} per w32 window: CUDA-event medians of
-    `rounds` rounds that alternate the widths, then the profiler's device
-    time and kernel count per call, then the wrapper's host time."""
+    "kernels_per_call", "host_us"}} per w32 window of K x b: CUDA-event
+    medians of `rounds` rounds that alternate the widths, then the
+    profiler's device time and kernel count per call, then the wrapper's
+    host time."""
     import numpy as np
 
     from throttlecrab_tpu_torch.tpu import fused, kernel
 
-    inputs = {w: timing_window(device, w, rng) for w in (4, 6)}
+    inputs = {w: timing_window(device, w, rng, b) for w in (4, 6)}
     calls = {
         w: {side: (lambda fn=fn, st=state, p=packed, n=now: fn(
             st, p, n, with_degen=False, compact="w32"))
@@ -1232,7 +1288,8 @@ def time_kernel(device, rng, rounds=3):
             samples[w][0].append(time_windows(call["kernel"], 5, 50))
             samples[w][1].append(time_windows(call["plain"], 1, 3))
     for w, (k_ms, p_ms) in samples.items():
-        print(f"  W={w} rounds: kernel {[round(x, 4) for x in k_ms]} ms, "
+        print(f"  B={b} W={w} rounds: kernel "
+              f"{[round(x, 4) for x in k_ms]} ms, "
               f"plain {[round(x, 2) for x in p_ms]} ms")
     result = {}
     for w, call in calls.items():
@@ -1240,19 +1297,22 @@ def time_kernel(device, rng, rounds=3):
         _, k_dev, _, k_count, names, api = profile_device(
             call["kernel"], n, detail=True)
         p_dev = profile_device(call["plain"], 2)[1]
-        print(f"  W={w} profiler: {n} fused_window calls, kernel records "
-              f"{names}, {api} kernel-launch API records")
-        # Every record must be the window kernel (no fill, no second
-        # kernel) and there may be no more than one per call.  The
-        # profiler can drop records late in a long run, so fewer than
-        # one per call is reported, not failed.
+        print(f"  B={b} W={w} profiler: {n} fused_window calls, kernel "
+              f"records {names}, {api} kernel-launch API records")
+        # Every record must be the window kernel of the batch's schedule
+        # (no fill, no second kernel) and there may be no more than one
+        # per call.  The profiler can drop records late in a long run, so
+        # fewer than one per call is reported, not failed.
+        want = ("block_window_kernel" if b <= FUSED_THREADS
+                else "window_kernel")
         if k_dev is not None and (
-            len(names) != 1 or "window_kernel" not in next(iter(names))
+            len(names) != 1 or want not in next(iter(names))
+            or (b > FUSED_THREADS and "block_" in next(iter(names)))
             or k_count > 1 or api > n
         ):
-            raise AssertionError(f"fused_window W={w}: kernel records "
-                                 f"{names}, {api} launch records for {n} "
-                                 "calls; expected the window kernel once "
+            raise AssertionError(f"fused_window B={b} W={w}: kernel "
+                                 f"records {names}, {api} launch records "
+                                 f"for {n} calls; expected {want} once "
                                  "per call")
         result[w] = {
             "ms": float(np.median(samples[w][0])),
@@ -5151,9 +5211,10 @@ def main() -> int:
               "had built it already)")
         ptxas[name] = ptxas_summary(lib.with_suffix(".log").read_text())
         check_ptxas(name, ptxas[name], FUSED_THREADS)
-    if len(ptxas["fused_window"]) != 12:
+    # 12 instantiations (2 widths x 6 tiers) of each schedule's kernel
+    if len(ptxas["fused_window"]) != 24:
         raise AssertionError(f"{len(ptxas['fused_window'])} decision-window "
-                             "instantiations built, expected 12")
+                             "instantiations built, expected 24")
     # gather and scatter at (W, part, steps) (4, 4, 1) and (6, 2, 1), and
     # the scatter at (6, 2, 2)
     if len(ptxas["row_ops"]) != 5:
@@ -5162,11 +5223,32 @@ def main() -> int:
 
     print(f"[2] kernel vs plain on the card: K={K} B={B} "
           f"N={CAPACITY + (1 << 16)}, then cross-block windows at "
-          f"B={CROSS_BLOCK_B}")
-    worst = compare_kernel_plain(device, K, B, CAPACITY)
-    for seed, b in enumerate(CROSS_BLOCK_B, 1):
-        worst = max(worst, compare_kernel_plain(device, K, b, CAPACITY,
-                                                seed=seed, cross=True))
+          f"B={CROSS_BLOCK_B}, then the one-block schedule at "
+          f"K={BLOCK_K} B={BLOCK_B}: hostile windows and windows that "
+          "reuse the previous sub-batch's slots")
+    cases = [(K, B, 0, "hostile")]
+    cases += [(K, b, seed, "cross")
+              for seed, b in enumerate(CROSS_BLOCK_B, 1)]
+    cases += [(BLOCK_K, BLOCK_B, 7, "hostile"), (BLOCK_K, BLOCK_B, 8, "reuse")]
+    fused.BLOCK_LAUNCHES = 0
+    fwd_before = fused.forwarded_lanes(device)
+    worst = block_windows = forwarded = 0
+    for k, b, seed, kind in cases:
+        err, n_block, n_fwd = compare_kernel_plain(device, k, b, CAPACITY,
+                                                   seed=seed, kind=kind)
+        worst, block_windows = max(worst, err), block_windows + n_block
+        forwarded += n_fwd
+    block_launches = fused.BLOCK_LAUNCHES
+    block_forwarded = fused.forwarded_lanes(device) - fwd_before
+    if block_launches != block_windows or block_forwarded != forwarded:
+        raise AssertionError(
+            f"{block_launches} one-block launches and {block_forwarded} "
+            f"forwarded lanes; expected the {block_windows} windows of "
+            f"B <= {FUSED_THREADS} and the {forwarded} lanes the packed "
+            "rows give")
+    print(f"  one-block schedule: {block_launches} launches (the windows "
+          f"of B <= {FUSED_THREADS}), {block_forwarded} lanes forwarded, "
+          "as counted from the packed rows")
 
     print("[3] serving path: TorchRateLimiter(capacity=2^20) on cuda, "
           "BASELINE config 3 traffic")
@@ -5310,15 +5392,18 @@ def main() -> int:
 
     print(f"[8] times ({card})")
     times = time_kernel(device, np.random.default_rng(5))
-    for width, t in times.items():
-        print(f"  fused_window W={width}: kernel {t['ms']:.4f} ms, plain "
-              f"{t['plain_ms']:.4f} ms, bound "
-              f"{bound_ms(K, B, 4, t['rows']):.5f} ms "
-              f"per K={K} w32 window (CUDA-event medians); device time "
-              f"(profiler) kernel {t['device_ms']} ms in "
-              f"{t['kernels_per_call']} kernel per call, plain "
-              f"{t['plain_device_ms']} ms; wrapper host time "
-              f"{t['host_us']:.1f} µs per call")
+    block_times = time_kernel(device, np.random.default_rng(11), b=BLOCK_B)
+    for b, schedule, by_width in ((B, "cluster", times),
+                                  (BLOCK_B, "one-block", block_times)):
+        for width, t in by_width.items():
+            print(f"  fused_window {schedule} B={b} W={width}: kernel "
+                  f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+                  f"{bound_ms(K, b, 4, t['rows']):.5f} ms "
+                  f"per K={K} w32 window (CUDA-event medians); device time "
+                  f"(profiler) kernel {t['device_ms']} ms in "
+                  f"{t['kernels_per_call']} kernel per call, plain "
+                  f"{t['plain_device_ms']} ms; wrapper host time "
+                  f"{t['host_us']:.1f} µs per call")
     row_times = time_row_kernels(device, np.random.default_rng(8))
     for (name, w), t in row_times.items():
         print(f"  {name} W={w}: {row_times_line(t, B, w, B)}")
@@ -5530,6 +5615,23 @@ def main() -> int:
         "host_us_per_call": times[4]["host_us"],
         "ptxas": {k: v[0] for k, v in ptxas["fused_window"].items()},
         "cross_block_b": list(CROSS_BLOCK_B),
+        "block": {
+            "kernel": "block_window_kernel",
+            "launches": block_launches,
+            "forwarded_lanes": block_forwarded,
+            "checked_shape": f"K={BLOCK_K} B={BLOCK_B}",
+            "ms": block_times[4]["ms"],
+            "plain_ms": block_times[4]["plain_ms"],
+            "bound_ms": bound_ms(K, BLOCK_B, 4, block_times[4]["rows"]),
+            "device_ms": block_times[4]["device_ms"],
+            "plain_device_ms": block_times[4]["plain_device_ms"],
+            "kernels_per_call": block_times[4]["kernels_per_call"],
+            "host_us_per_call": block_times[4]["host_us"],
+            "w6_ms": block_times[6]["ms"],
+            "w6_bound_ms": bound_ms(K, BLOCK_B, 4, block_times[6]["rows"]),
+            "w6_device_ms": block_times[6]["device_ms"],
+            "shape": f"K={K} B={BLOCK_B} W=4 w32",
+        },
         "main_path_decisions_per_s": rate,
         "wire_window_launches": wire_launches,
         "wire_window_decisions_per_s": wire_rate,

@@ -1,5 +1,7 @@
 """The CUDA kernels against their plain versions, on the card: the
-decision-window kernel (fused.py), also behind the table's by-id entry
+decision-window kernel (fused.py) on both its schedules, its one-block
+schedule also against the host shim (csrc/lane_host.cpp) with its block
+launch and forwarded-lane counts, also behind the table's by-id entry
 points and behind the native RESP transport's driver thread, and the row
 gather/scatter (row_ops.py, also through a composed by-id scan and the
 snapshot's save and restore), and the insight tier's device ops
@@ -43,7 +45,10 @@ from torch_windows import (
     NS,
     byid_words,
     cross_block_windows,
+    forwarded_count,
     fresh_state,
+    host_shim,
+    host_window,
     out_mask,
     rand_window,
 )
@@ -59,18 +64,40 @@ def cuda_device():
 
 # (K, B): batch widths from one lane to the largest the table's scratch
 # tail takes — one partial block (255), a full cluster (4096), one lane
-# past it (4097: two rounds per thread), 65,536 (16 rounds).
+# past it (4097: two rounds per thread), 65,536 (16 rounds) — and the
+# one-block schedule's long windows (64 and 4,096 sub-batches of 256).
 _SHAPES = [(4, 256)] + [(K, B) for B in (1, 255, 4096, 4097, 65536)
-                        for K in (1, 16)]
+                        for K in (1, 16)] + [(64, 256), (4096, 256)]
+# Past this depth the yardstick is the host shim's cluster replay (its
+# rounds ordered by two barriers each, not by the one-block schedule's
+# prefetch and forwarding), which test_torch_lane_header.py holds to the
+# plain version; the plain version would take minutes.
+_PLAIN_MAX_K = 64
+
+
+def _yardstick(request, st, p, n, width, with_degen, compact):
+    """The window decided, on `st` in place, by the plain version, or,
+    past _PLAIN_MAX_K sub-batches, by the host shim's cluster replay."""
+    if p.shape[0] <= _PLAIN_MAX_K:
+        return kernel.decide_window(
+            st, p, n, with_degen=with_degen, compact=compact
+        )
+    st_h = st.cpu().numpy()
+    out, n_exp = host_window(request.getfixturevalue("host_lib"), st_h,
+                             p.cpu().numpy(), n.cpu().numpy(), width,
+                             compact, with_degen, cluster=True)
+    st.copy_(torch.from_numpy(st_h))
+    return torch.from_numpy(out), torch.from_numpy(n_exp)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("K,B", _SHAPES)
-def test_kernel_matches_plain_version_on_card(cuda_device, K, B):
+def test_kernel_matches_plain_version_on_card(request, cuda_device, K, B):
     """Every tier and width: two hostile windows, then the cross-block
     windows (one slot over every lane of every sub-batch; one slot at
     lanes 0 and B-1 of every sub-batch), state carried across all four.
-    Each window is exactly one launch."""
+    Each window is exactly one launch, on the one-block schedule exactly
+    when B <= 256."""
     cap = max(512, 2 * B)
     for width in (4, 6):
         for t, (compact, with_degen) in enumerate(ALL_TIERS):
@@ -86,20 +113,108 @@ def test_kernel_matches_plain_version_on_card(cuda_device, K, B):
                 p = torch.from_numpy(packed).to(cuda_device)
                 n = torch.from_numpy(now).to(cuda_device)
                 before = fused.LAUNCHES
+                block_before = fused.BLOCK_LAUNCHES
                 out_k, ne_k = fused.fused_window(
                     st_k, p, n, with_degen=with_degen, compact=compact
                 )
                 assert fused.LAUNCHES == before + 1
-                out_p, ne_p = kernel.decide_window(
-                    st_p, p, n, with_degen=with_degen, compact=compact
-                )
+                assert fused.BLOCK_LAUNCHES == block_before + (B <= 256)
+                out_p, ne_p = _yardstick(request, st_p, p, n, width,
+                                         with_degen, compact)
                 torch.cuda.synchronize()
                 mask = out_mask(valid, compact)
                 assert not (
                     (out_k.cpu().numpy() != out_p.cpu().numpy()) & mask
                 ).any()
                 assert torch.equal(st_k[:cap], st_p[:cap])
-                assert torch.equal(ne_k, ne_p)
+                assert torch.equal(ne_k.cpu(), ne_p.cpu())
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    """The host build of the window kernel (g++), or a skip."""
+    lib = host_shim(tmp_path_factory.mktemp("lane"))
+    if lib is None:
+        pytest.skip("g++ is not installed: the host shim cannot be built")
+    return lib
+
+
+def _forwarding_window(rng, K, B, cap, with_degen):
+    """Each sub-batch the previous one's B distinct slots in another
+    order, every lane valid: from the second sub-batch on, every lane's
+    row is the one the sub-batch before wrote."""
+    base = rng.permutation(cap)[:B]
+    slots = np.stack([rng.permutation(base) for _ in range(K)])
+    return rand_window(rng, K, B, cap, with_degen, slots=slots,
+                       valid=np.ones((K, B), bool))
+
+
+def _against_host(cuda_device, host_lib, B, windows, width, tier):
+    """Decide `windows` on the card and in the host shim, state carried:
+    valid outputs, expired hits and the whole table (scratch rows
+    included) equal.  Returns the launches, block launches and forwarded
+    lanes the card counted, and the forwarded lanes the shim counted."""
+    compact, with_degen = tier
+    cap = max(512, 2 * B)
+    st_h = fresh_state(cap + B, width)
+    st_k = torch.from_numpy(st_h).to(cuda_device)
+    counts = (fused.LAUNCHES, fused.BLOCK_LAUNCHES,
+              fused.forwarded_lanes(cuda_device))
+    host_fwd = np.zeros(1, np.int64)
+    for packed, now, valid in windows:
+        out_k, ne_k = fused.fused_window(
+            st_k, torch.from_numpy(packed).to(cuda_device),
+            torch.from_numpy(now).to(cuda_device),
+            with_degen=with_degen, compact=compact,
+        )
+        out_h, ne_h = host_window(host_lib, st_h, packed, now, width,
+                                  compact, with_degen, forwarded=host_fwd)
+        mask = out_mask(valid, compact)
+        assert not ((out_k.cpu().numpy() != out_h) & mask).any()
+        assert (st_k.cpu().numpy() == st_h).all()
+        assert (ne_k.cpu().numpy() == ne_h).all()
+    moved = (fused.LAUNCHES - counts[0], fused.BLOCK_LAUNCHES - counts[1],
+             fused.forwarded_lanes(cuda_device) - counts[2])
+    return moved, int(host_fwd[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [256, 200, 16])
+def test_block_schedule_forwards_like_the_host_shim(cuda_device, host_lib, B):
+    """A forwarding-heavy window (every lane from the second sub-batch on
+    takes the previous sub-batch's row from shared memory), then a
+    hostile random one, on both widths and an exact and a certified
+    tier: the card's table, scratch rows included, equal to the host
+    shim's replay; one block launch a window; the device's forwarded-lane
+    count moved by the shim's count, which is (K - 1) * B for the first
+    window plus the random window's own."""
+    K = 64
+    for width in (4, 6):
+        for tier in (ALL_TIERS[0], ALL_TIERS[4]):
+            rng = np.random.default_rng(B * width)
+            cap = max(512, 2 * B)
+            windows = [_forwarding_window(rng, K, B, cap, tier[1]),
+                       rand_window(rng, K, B, cap, tier[1])]
+            moved, host_fwd = _against_host(cuda_device, host_lib, B,
+                                            windows, width, tier)
+            assert moved == (2, 2, host_fwd)
+            assert host_fwd == (K - 1) * B + forwarded_count(
+                windows[1][0], cap + B)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [257, 4096])
+def test_cluster_batches_leave_block_counts_alone(cuda_device, host_lib, B):
+    """Past one block the window takes the cluster schedule: the same
+    table as the host shim's replay, and neither BLOCK_LAUNCHES nor the
+    forwarded-lane count moves, on a window whose every sub-batch
+    rereads the one before's slots."""
+    rng = np.random.default_rng(B)
+    tier = ALL_TIERS[4]
+    windows = [_forwarding_window(rng, 4, B, max(512, 2 * B), tier[1])]
+    moved, host_fwd = _against_host(cuda_device, host_lib, B, windows, 4,
+                                    tier)
+    assert moved == (1, 0, 0) and host_fwd == 0
 
 
 @pytest.mark.cuda

@@ -1,5 +1,7 @@
 """Hostile decision windows shared by the port's kernel tests
-(test_torch_fused.py, test_torch_lane_header.py, test_torch_card.py).
+(test_torch_fused.py, test_torch_lane_header.py, test_torch_card.py),
+and the host build of the window kernel both kernel test files replay
+them on (`host_shim`, `host_window`).
 
 The generator is the shape of test_pallas_fused.py's: duplicate-key
 segments with uniform per-segment params, degenerate params (zero
@@ -8,7 +10,14 @@ invalid lanes, and saturating-scale values.  Inputs are numpy, made from
 a seed, so the JAX package and the port see the same bytes.
 """
 
+import ctypes
+import shutil
+import subprocess
+from pathlib import Path
+
 import numpy as np
+
+_TIER = {False: 0, True: 1, "cur": 2, "w32": 3}  # gcra_lane.cuh TIER_*
 
 NS = 1_000_000_000
 T0 = 1_753_700_000 * NS
@@ -51,9 +60,10 @@ def segments(slots, valid):
     return rank, is_last, first
 
 
-def rand_window(rng, K, B, cap, degen, slots=None):
+def rand_window(rng, K, B, cap, degen, slots=None, valid=None):
     """A hostile packed window: (packed i32[K, B, 9], now i64[K],
-    valid bool[K, B]); `slots` i32[K, B] replaces the uniform draw."""
+    valid bool[K, B]); `slots` i32[K, B] replaces the uniform draw, and
+    `valid` bool[K, B] the 90 % draw."""
     from throttlecrab_tpu_torch.tpu.kernel import pack_requests
 
     drawn = rng.integers(0, cap, (K, B)).astype(np.int32)
@@ -69,7 +79,8 @@ def rand_window(rng, K, B, cap, degen, slots=None):
         em = np.maximum(em % (10 * NS), 1)
         tol = np.abs(tol) % (100 * NS) + 1
         q = np.maximum(q, 1)
-    valid = rng.random((K, B)) < 0.9
+    drawn_valid = rng.random((K, B)) < 0.9
+    valid = drawn_valid if valid is None else np.asarray(valid, bool)
     rank = np.zeros((K, B), np.int32)
     is_last = np.ones((K, B), bool)
     for k in range(K):
@@ -115,3 +126,85 @@ def byid_words(ids, slots):
         meta = rank.astype(np.int64) | (is_last << 14) | (1 << 15)
         words[k] |= np.where(valid, meta << 32, 0)
     return words
+
+
+def host_shim(out_dir):
+    """The host build of the window kernel (csrc/lane_host.cpp over
+    gcra_lane.cuh, g++, seconds) in `out_dir`, bound with ctypes; None
+    where g++ is missing."""
+    from throttlecrab_tpu_torch.tpu.nvcc import CSRC
+
+    gxx = shutil.which("g++")
+    if gxx is None:
+        return None
+    out = Path(out_dir) / "liblane_host.so"
+    subprocess.run(
+        [gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-Wall", "-Werror",
+         "-I", str(CSRC), "-o", str(out), str(CSRC / "lane_host.cpp")],
+        check=True, capture_output=True, text=True,
+    )
+    lib = ctypes.CDLL(str(out))
+    p = ctypes.c_void_p
+    args = [
+        p, ctypes.c_longlong, ctypes.c_int, p, p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, p, p, p, ctypes.c_uint,
+    ]
+    for fn in (lib.tc_host_window, lib.tc_host_window_tiny_owner):
+        fn.argtypes = args + [p]
+        fn.restype = ctypes.c_int
+    lib.tc_host_cluster_window.argtypes = args
+    lib.tc_host_cluster_window.restype = ctypes.c_int
+    lib.tc_host_geometry.argtypes = [ctypes.c_int, ctypes.c_int, p]
+    lib.tc_host_geometry.restype = None
+    lib.tc_host_one_block.argtypes = [ctypes.c_int]
+    lib.tc_host_one_block.restype = ctypes.c_int
+    return lib
+
+
+def host_window(lib, state, packed, now, width, compact, with_degen,
+                visits=None, seed=0, forwarded=None, cluster=False,
+                tiny_owner=False):
+    """Run the C++ window in place on numpy `state`; (out, n_exp).
+    `visits` (i32[K, 2, B] zeros) collects each lane's decides and
+    scatters, `forwarded` (i64[1]) gains the forwarded lanes; `cluster`
+    replays the cluster schedule whatever the width, `tiny_owner` the
+    one-block schedule with 4-bucket owner tables (most lookups scan)."""
+    K, B = packed.shape[:2]
+    if compact in ("cur", "w32"):
+        out = np.zeros((K, B), np.int64 if compact == "cur" else np.int32)
+    else:
+        out = np.zeros((K, 4, B), np.int32 if compact else np.int64)
+    n_exp = np.zeros(K, np.int64)
+    packed = np.ascontiguousarray(packed)
+    now = np.ascontiguousarray(now)
+    args = (
+        state.ctypes.data, state.shape[0], width, packed.ctypes.data,
+        now.ctypes.data, K, B, int(with_degen), _TIER[compact],
+        out.ctypes.data, n_exp.ctypes.data,
+        None if visits is None else visits.ctypes.data, seed,
+    )
+    if cluster:
+        rc = lib.tc_host_cluster_window(*args)
+    else:
+        fn = lib.tc_host_window_tiny_owner if tiny_owner else lib.tc_host_window
+        rc = fn(*args, None if forwarded is None else forwarded.ctypes.data)
+    assert rc == 0
+    return out, n_exp
+
+
+def forwarded_count(packed, N):
+    """Lanes of rounds k >= 1 whose gathered row round k-1 wrote: a valid
+    is_last lane's slot or a lane's scratch row N - B + i (numpy)."""
+    from throttlecrab_tpu_torch.tpu.kernel import (
+        PACK_FLAG_IS_LAST,
+        PACK_FLAG_VALID,
+    )
+
+    K, B = packed.shape[:2]
+    slot = np.clip(packed[..., 0].astype(np.int64), 0, N - 1)
+    flags = packed[..., 2]
+    writes_slot = ((flags & PACK_FLAG_IS_LAST) != 0) & (
+        (flags & PACK_FLAG_VALID) != 0)
+    target = np.where(writes_slot, slot, N - B + np.arange(B))
+    return sum(int(np.isin(slot[k], target[k - 1]).sum())
+               for k in range(1, K))

@@ -45,10 +45,13 @@ constexpr int TIER_CUR = 2;    // "cur":  i64[K, B] cur*2 + allowed
 constexpr int TIER_W32 = 3;    // "w32":  i32[K, B] bit-packed wire word
 
 // ---- launch geometry ----
-// One window is one launch of a single thread block cluster: the grid
-// is the cluster.  Thread t of block b owns lanes lane_of(g, b, t, j),
-// j < g.lanes; the row each lane hands from its gather to its scatter
-// waits in the block's shared memory, column-major [W][lanes * threads].
+// One window is one launch.  A batch wider than one block is one thread
+// block cluster (the grid is the cluster); a batch of at most
+// BLOCK_THREADS lanes is one block, one lane a thread (the one-block
+// schedule, fused_window.cu).  Thread t of block b owns lanes
+// lane_of(g, b, t, j), j < g.lanes; in the cluster schedule the row each
+// lane hands from its gather to its scatter waits in the block's shared
+// memory, column-major [W][lanes * threads].
 constexpr int CLUSTER_BLOCKS = 16;    // Hopper's largest (non-portable)
 constexpr int BLOCK_THREADS = 256;    // 256 x <= 255 registers fit one SM
 constexpr int MAX_BATCH = 1 << 16;    // the table's scratch tail
@@ -75,6 +78,9 @@ TC_HD Geometry window_geometry(int B, int W) {
   g.smem_bytes = g.lanes * BLOCK_THREADS * W * 4;
   return g;
 }
+// Whether a window of B lanes takes the one-block schedule: the one
+// rule the kernel's launch, the host shim and the wrapper's count read.
+TC_HD bool one_block(int B) { return window_geometry(B, 4).blocks == 1; }
 // The lane thread t of block b decides and scatters in round j (>= B:
 // none).  Consecutive threads take consecutive lanes.
 TC_HD int lane_of(const Geometry& g, int b, int t, int j) {
@@ -248,29 +254,30 @@ TC_HD int64_t view_next(int64_t t, const ReqOut& o, int64_t em, int64_t tol,
   return imax(o.new_tat, sat_sub(now, tol));
 }
 
-// Decide lane i of one sub-batch.
+// The table row lane r reads: its slot, clamped into the table.
+TC_HD int64_t gather_index(const Req& r, int64_t N) {
+  const int64_t slot = r.p[0];
+  return slot < 0 ? 0 : (slot > N - 1 ? N - 1 : slot);
+}
+
+// Decide lane i of one sub-batch from the table row it read.
 //   r:      the lane's packed request row
-//   state:  i32[N, W] table (read only here: the gather)
+//   row:    the lane's table row (W words) as the sub-batch starts
 //   ro:     where the row handed to the scatter goes, column c at
 //           ro[c * ro_stride]
 //   out:    this sub-batch's output slice, laid out per TIER
 // Returns whether the lane is an expired hit (kernel._gcra_body n_exp).
 template <int W, bool DEGEN, int TIER>
-TC_HD bool decide_lane(const Req& r, int i, int B, int64_t N,
-                       const int32_t* state, int64_t now, int32_t* ro,
-                       int ro_stride, void* out) {
+TC_HD bool decide_row(const Req& r, const int32_t* row, int i, int B,
+                      int64_t now, int32_t* ro, int ro_stride, void* out) {
   typedef Ops<DEGEN> S;
   const int32_t* p = r.p;
-  const int64_t slot = p[0];
   const int64_t rank = p[1];
   const bool is_last = (p[2] & FLAG_IS_LAST) != 0;
   const bool v = (p[2] & FLAG_VALID) != 0;
   const int64_t em = join(p[3], p[4]);
   const int64_t tol = join(p[5], p[6]);
   const int64_t q = join(p[7], p[8]);
-  const int64_t g = slot < 0 ? 0 : (slot > N - 1 ? N - 1 : slot);
-  int32_t row[W];
-  load_row<W>(state + g * W, row);
   const int64_t stored_tat = join(row[0], row[1]);
   const int64_t stored_exp = join(row[2], row[3]);
   const bool live = v && stored_exp > now;
@@ -408,13 +415,23 @@ TC_HD bool decide_lane(const Req& r, int i, int B, int64_t N,
   return exp_hit;
 }
 
+// Decide lane i of one sub-batch, gathering its row from `state`
+// (i32[N, W], read only here).  Arguments as decide_row's.
+template <int W, bool DEGEN, int TIER>
+TC_HD bool decide_lane(const Req& r, int i, int B, int64_t N,
+                       const int32_t* state, int64_t now, int32_t* ro,
+                       int ro_stride, void* out) {
+  int32_t row[W];
+  load_row<W>(state + gather_index(r, N) * W, row);
+  return decide_row<W, DEGEN, TIER>(r, row, i, B, now, ro, ro_stride, out);
+}
+
 // The scatter target of lane i: its gathered slot when it is the valid
 // is_last lane of its segment (one per slot, so indices are unique),
 // else its own scratch row N - B + i.
 TC_HD int64_t scatter_index(const Req& r, int i, int B, int64_t N) {
   if ((r.p[2] & FLAG_IS_LAST) && (r.p[2] & FLAG_VALID)) {
-    const int64_t slot = r.p[0];
-    return slot < 0 ? 0 : (slot > N - 1 ? N - 1 : slot);
+    return gather_index(r, N);
   }
   return N - B + i;
 }
@@ -427,6 +444,84 @@ TC_HD void scatter_lane(const Req& r, int i, int B, int64_t N,
   TC_UNROLL
   for (int c = 0; c < W; ++c) row[c] = ro[c * ro_stride];
   store_row<W>(state + scatter_index(r, i, B, N) * W, row);
+}
+
+// ---- the one-block schedule's forwarding table ----
+// A one-block window gathers sub-batch k+1's rows while sub-batch k
+// decides, so a row it gathered is stale exactly where round k writes
+// it.  Round k records every row it writes (each lane's scatter index,
+// in `written`) and, in two buckets of an owner table picked by two
+// hashes of the index, the lane that writes it, tagged with the round:
+// plain stores, the last writer of a bucket wins.  Round k + 1 probes
+// its gather index: a bucket of round k whose lane wrote this index is
+// a hit (that lane's hand-off row waits in shared memory); a bucket not
+// of round k proves the index unwritten, since a written index leaves
+// round-k entries in both its buckets; when both buckets hold other
+// indices of round k, the answer is a scan of round k's `written`
+// (about 1 lane in 1,000 with 2^14 buckets; the kernel scans with the
+// whole warp).  So the answer is exact whoever won each bucket, and a
+// round takes no atomics and no probe loop: on this card a retry loop of
+// shared-memory atomics, a probe loop and a one-thread scan each cost
+// microseconds a round.  Two tables alternate by round; tags make
+// clearing unnecessary (a tag that wraps only sends a lane to the scan).
+constexpr int FWD_LOG2 = 14;
+constexpr int FWD_LANE_BITS = 8;
+constexpr uint32_t FWD_LANE_MASK = (1u << FWD_LANE_BITS) - 1;
+constexpr int FWD_SCAN = -2;  // fwd_probe: only a scan can tell
+static_assert(BLOCK_THREADS == 1 << FWD_LANE_BITS, "a lane fits its field");
+
+template <int W, int LOG2>
+struct Forward {
+  int64_t written[2][BLOCK_THREADS];   // the row each lane writes
+  uint32_t owner[2][1 << LOG2];        // round tag | lane
+  int32_t rows[2][W * BLOCK_THREADS];  // hand-off rows, [W][BLOCK_THREADS]
+};
+
+// The tag of round k's entries.
+TC_HD uint32_t fwd_tag(int k) {
+  return (uint32_t)(k + 1) << FWD_LANE_BITS;
+}
+// Bucket h (0 or 1) of row `index`: multiplicative hashes.
+template <int LOG2>
+TC_HD unsigned fwd_bucket(int64_t index, int h) {
+  const uint32_t x =
+      (uint32_t)(uint64_t)index ^ (uint32_t)((uint64_t)index >> 32);
+  return (x * (h == 0 ? 2654435761u : 2246822519u)) >> (32 - LOG2);
+}
+
+// Record that lane `who` of the round tagged `tag` writes row `index`.
+template <int LOG2>
+TC_HD void fwd_record(uint32_t* owner, int64_t* written, int64_t index,
+                      uint32_t tag, int who) {
+  written[who] = index;
+  owner[fwd_bucket<LOG2>(index, 0)] = tag | (uint32_t)who;
+  owner[fwd_bucket<LOG2>(index, 1)] = tag | (uint32_t)who;
+}
+
+// The lane of the round tagged `tag` that wrote row `index`, -1 if none
+// did, or FWD_SCAN when both buckets hold other rows of that round.
+template <int LOG2>
+TC_HD int fwd_probe(const uint32_t* owner, const int64_t* written,
+                    int64_t index, uint32_t tag) {
+  const uint32_t e0 = owner[fwd_bucket<LOG2>(index, 0)];
+  const uint32_t e1 = owner[fwd_bucket<LOG2>(index, 1)];
+  const bool ours0 = (e0 & ~FWD_LANE_MASK) == tag;
+  const bool ours1 = (e1 & ~FWD_LANE_MASK) == tag;
+  if (ours0 && written[e0 & FWD_LANE_MASK] == index) {
+    return (int)(e0 & FWD_LANE_MASK);
+  }
+  if (ours1 && written[e1 & FWD_LANE_MASK] == index) {
+    return (int)(e1 & FWD_LANE_MASK);
+  }
+  return ours0 && ours1 ? FWD_SCAN : -1;
+}
+
+// The lane < `lanes` whose `written` row is `index`, or -1.
+TC_HD int fwd_scan(const int64_t* written, int lanes, int64_t index) {
+  for (int j = 0; j < lanes; ++j) {
+    if (written[j] == index) return j;
+  }
+  return -1;
 }
 
 // The 12 instantiations: W in {4, 6} x {exact: ns, wire; certified: ns,

@@ -9,17 +9,34 @@ launch geometry in `csrc/gcra_lane.cuh`; it is compiled with nvcc into a
 plain-C shared library at first use (into `throttlecrab_tpu_torch/build/`,
 keyed by a hash of the sources) and bound with ctypes.
 
-A window is one CUDA launch: one thread block cluster (up to 16 blocks of
-256 threads) walks the K sub-batches with a cluster barrier between each
-gather and its scatter, and writes the expired-hit counts itself.  The
-wrapper allocates the outputs with `torch.empty` and launches nothing
-else.  Every window of `BucketTable` comes here: the serving path's
-packed windows, and the by-id windows once `kernel.py`'s front end has
-expanded their ids into packed rows.
+A window is one CUDA launch, on one of two schedules that the batch's
+width picks (`gcra_lane.cuh` window_geometry; no knob):
+
+- **block** (B <= 256): one block of 256 threads, one lane a thread,
+  ordered by `__syncthreads` alone: every thread that touches the table
+  is in the block, so block scope makes each round's writes visible to
+  the next, with no release to L2.  Sub-batch k+1's rows are gathered
+  while k decides; such a row is stale exactly where round k wrote it,
+  and round k records every row it writes in a table in shared memory,
+  so round k+1 takes those rows from there instead (the forwarded
+  lanes).  Bound: the lane arithmetic and one barrier a round.
+- **cluster** (B > 256): one thread block cluster (up to 16 blocks of
+  256 threads) with a cluster barrier between each gather and its
+  scatter and between each scatter and the next gather.  Bound: per
+  round, the scatter's drain to L2, the next gather's L2 round trip and
+  two cluster barriers.
+
+Either writes the expired-hit counts itself; the wrapper allocates the
+outputs with `torch.empty` and launches nothing else.  Every window of
+`BucketTable` comes here: the serving path's packed windows, and the
+by-id windows once `kernel.py`'s front end has expanded their ids into
+packed rows.
 
 Each wrapper takes the kernel's plain version (`kernel.decide_window`)
 only for tensors that lie on the CPU; for a CUDA tensor it launches the
-kernel or raises.  `LAUNCHES` counts kernel launches (one per window).
+kernel or raises.  `LAUNCHES` counts kernel launches (one per window),
+`BLOCK_LAUNCHES` those on the block schedule; `forwarded_lanes(device)`
+reads the device's running count of forwarded lanes.
 
 The table is updated in place (the JAX package donates it instead).
 """
@@ -35,6 +52,8 @@ from .kernel import INS_WIDTH, PACK_FLAG_VALID, PACK_WIDTH
 
 #: Kernel windows launched through tc_fused_window since import.
 LAUNCHES = 0
+#: Of those, the windows the one-block schedule took (B <= 256).
+BLOCK_LAUNCHES = 0
 
 MAX_BATCH = 1 << 16  # the table's scratch tail bounds a sub-batch
 
@@ -51,7 +70,7 @@ _TIERS = {"cur": TIER_CUR, "w32": TIER_W32}
 _lib = None
 _launch = None  # the bound tc_fused_window
 _raw_stream = None  # device index -> the current stream's handle
-_prepared = set()  # device indices the kernels were prepared on
+_forwarded = {}  # device index -> u64[1] forwarded-lane count (as i64)
 
 
 def _tier(compact) -> int:
@@ -63,6 +82,20 @@ def _tier(compact) -> int:
     return TIER_WIRE if compact else TIER_NS
 
 
+def forwarded_lanes(device) -> int:
+    """Lanes of the one-block schedule that took the previous round's
+    row from shared memory, on `device` since its kernels were prepared
+    (0 before).  Synchronises the device."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    count = _forwarded.get(index)
+    if count is None:
+        return 0
+    torch.cuda.synchronize(index)
+    return int(count.item())
+
+
 def build():
     """Compile the kernel library unless this source revision is built;
     returns its path (see nvcc.build)."""
@@ -71,7 +104,8 @@ def build():
 
 def _load(index):
     """The bound launch function, with the library built and loaded and
-    the kernels prepared on device `index` (once each)."""
+    the kernels prepared on device `index` (once each; preparing also
+    zeroes the device's forwarded-lane count)."""
     global _lib, _launch, _raw_stream
     if _lib is None:
         lib = nvcc.load(LIB_STEM, SOURCES)
@@ -79,24 +113,28 @@ def _load(index):
         p = ctypes.c_void_p
         fn.argtypes = [
             p, ctypes.c_longlong, ctypes.c_int, p, p, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, p, p, p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, p, p, p, p,
         ]
         fn.restype = ctypes.c_int
         lib.tc_fused_window_prepare.argtypes = []
         lib.tc_fused_window_prepare.restype = ctypes.c_int
+        lib.tc_fused_window_one_block.argtypes = [ctypes.c_int]
+        lib.tc_fused_window_one_block.restype = ctypes.c_int
         _raw_stream = torch._C._cuda_getCurrentRawStream
         _lib, _launch = lib, fn
-    if index not in _prepared:
+    if index not in _forwarded:
         with torch.cuda.device(index):
             rc = _lib.tc_fused_window_prepare()
         if rc == -2:
             raise RuntimeError(
-                "this card cannot hold the decision window's thread block "
-                "cluster (cudaOccupancyMaxActiveClusters is 0)"
+                "this card cannot hold the decision window's schedules "
+                "(256 threads in one block, or one thread block cluster)"
             )
         if rc != 0:
             raise RuntimeError(f"tc_fused_window_prepare failed: error {rc}")
-        _prepared.add(index)
+        _forwarded[index] = torch.zeros(
+            1, dtype=torch.int64, device=torch.device("cuda", index))
+        torch.cuda.synchronize(index)  # zeroed before any stream adds
     return _launch
 
 
@@ -140,7 +178,7 @@ def fused_window(state, packed, now, *, with_degen=True, compact=False):
     False i64[K, 4, B], True i32[K, 4, B], "cur" i64[K, B], "w32"
     i32[K, B].  Invalid lanes' outputs are don't-care.  The launch is
     queued on the current stream; nothing synchronises."""
-    global LAUNCHES
+    global LAUNCHES, BLOCK_LAUNCHES
     if state.device.type == "cpu":
         return kernel.decide_window(
             state, packed, now, with_degen=with_degen, compact=compact
@@ -165,10 +203,11 @@ def fused_window(state, packed, now, *, with_degen=True, compact=False):
     rc = launch(
         state.data_ptr(), N, W, packed.data_ptr(), now.data_ptr(), K, B,
         int(bool(with_degen)), tier, out.data_ptr(), n_exp.data_ptr(),
-        _raw_stream(dev.index),
+        _forwarded[dev.index].data_ptr(), _raw_stream(dev.index),
     )
     if rc != 0:
         raise RuntimeError(f"tc_fused_window failed: error {rc}")
+    BLOCK_LAUNCHES += _lib.tc_fused_window_one_block(B)
     LAUNCHES += 1
     return out, n_exp
 
