@@ -7,8 +7,11 @@ warm-up included, and gives:
 
 - the answer of every lane of a sampled key in one launch in `stride`
   (drawn from the seed), and in every launch the answers of the sampled
-  keys' lanes in sub-batches that hold their key more than once, held
-  to the wire values (allowed, remaining, reset_after, retry_after)
+  keys' lanes in sub-batches that hold their key more than once; for
+  the hot and drawn keys (the distribution's head, hundreds of lanes a
+  sub-batch) only in one sub-batch in `hot_sub_stride`, also drawn from
+  the seed (`SampleIndex.compared` decides, for the loop too); each
+  held to the wire values (allowed, remaining, reset_after, retry_after)
   that the program's timed path finished for that lane;
 - the sampled keys' state (TAT, expiry) after the last launch, held to
   the program's table rows at the keys' slots.
@@ -88,23 +91,17 @@ def key_groups(sched, index, n_keys_sampled, n_launches):
             for s in range(n_keys_sampled)]
 
 
-def _compared_lanes(sched, index, i, whole):
-    """(window, indices into the window's sampled lanes) compared in
-    launch i."""
-    w = sched.window_of(i)
-    return w, index.compared(w, whole)
-
-
-def expected_lanes(sched, index, n_launches, whole, per_key):
+def expected_lanes(sched, index, n_launches, per_key):
     """{launch: i64[lanes, 4]}: the reference's answer of every compared
-    lane of each launch (`SampleIndex.compared`; `whole` the set of
-    launches compared whole), from `per_key[s][pos]` (answers up to the
-    group's first denial; later lanes repeat it)."""
+    lane of each launch (`SampleIndex.compared`), from
+    `per_key[s][pos]` (answers up to the group's first denial; later
+    lanes repeat it)."""
     out = {}
     for i in range(n_launches):
-        w, sel = _compared_lanes(sched, index, i, i in whole)
+        sel = index.compared(i)
         if not len(sel):
             continue
+        w = sched.window_of(i)
         key, sub = index.lane_key[w][sel], index.lane_sub[w][sel]
         rank = index.lane_rank[w][sel]
         gid = key * sched.K + sub
@@ -121,35 +118,30 @@ def expected_lanes(sched, index, n_launches, whole, per_key):
     return out
 
 
-def wanted_positions(sched, index, n_launches, whole, n_keys):
+def wanted_positions(sched, index, n_launches, n_keys):
     """Per sampled key, the sorted positions of its groups whose answers
-    are compared: all of them in a launch compared whole, the groups of
-    two or more requests in every other launch."""
-    keys, pos = [], []
+    are compared: those that hold a lane `SampleIndex.compared` picks."""
+    gids = []
     for i in range(n_launches):
-        key, sub, cnt = index.groups[sched.window_of(i)]
-        if i not in whole:
-            dup = cnt > 1
-            key, sub = key[dup], sub[dup]
-        keys.append(key)
-        pos.append(i * sched.K + sub)
-    keys = np.concatenate(keys) if keys else np.zeros(0, np.int64)
-    pos = np.concatenate(pos) if pos else np.zeros(0, np.int64)
+        sel = index.compared(i)
+        w = sched.window_of(i)
+        gids.append(np.unique(index.lane_key[w][sel] * (n_launches * sched.K)
+                              + i * sched.K + index.lane_sub[w][sel]))
+    gid = np.concatenate(gids) if gids else np.zeros(0, np.int64)
+    keys, pos = np.divmod(gid, n_launches * sched.K)
     order = np.lexsort((pos, keys))
     cuts = np.searchsorted(keys[order], np.arange(n_keys + 1))
     pos = pos[order]
     return [pos[cuts[s]:cuts[s + 1]].tolist() for s in range(n_keys)]
 
 
-def reference_run(sched, keys, index, n_launches, whole, decide=None,
-                  walk=None):
+def reference_run(sched, keys, index, n_launches, decide=None, walk=None):
     """Follow every sampled key (`gcra.follow`, or `walk`, which takes
     (em, tol, groups, compared positions)); returns (expected lanes per
-    launch, final tat i64[S] (None as I64_MIN), final expiry i64[S]).
-    `whole` is the set of launches compared whole."""
+    launch, final tat i64[S] (None as I64_MIN), final expiry i64[S])."""
     burst, count, period = (a[keys] for a in limits(sched.cfg))
     groups = key_groups(sched, index, len(keys), n_launches)
-    wanted = wanted_positions(sched, index, n_launches, whole, len(keys))
+    wanted = wanted_positions(sched, index, n_launches, len(keys))
     per_key, tats, exps = [], [], []
     if walk is None:
         kw = {} if decide is None else {"decide": decide}
@@ -163,15 +155,11 @@ def reference_run(sched, keys, index, n_launches, whole, decide=None,
         per_key.append(ans)
         tats.append(gcra.I64_MIN if tat is None else tat)
         exps.append(gcra.I64_MIN if exp is None else exp)
-    lanes = expected_lanes(sched, index, n_launches, whole, per_key)
+    lanes = expected_lanes(sched, index, n_launches, per_key)
     return lanes, np.asarray(tats, np.int64), np.asarray(exps, np.int64)
 
 
-def whole_launches(n_launches, rule) -> set:
-    return {i for i in range(n_launches) if is_compared(i, rule)}
-
-
-def compare(sched, keys, index, rule, result) -> dict:
+def compare(sched, keys, index, result) -> dict:
     """The numbers that decide `correct`, each with its limit, from a
     run's `result`: the launches it made, its finished answers of the
     compared lanes of each launch (`kept`), and its final rows of the
@@ -179,12 +167,12 @@ def compare(sched, keys, index, rule, result) -> dict:
     traffic, not from what the run kept: a launch it did not keep counts
     every compared lane of it wrong."""
     t = time.perf_counter()
-    whole = whole_launches(result["launches"], rule)
-    lanes, tats, exps = reference_run(sched, keys, index,
-                                      result["launches"], whole)
-    lanes_wrong = lanes_checked = 0
+    n = result["launches"]
+    lanes, tats, exps = reference_run(sched, keys, index, n)
+    lanes_wrong = lanes_checked = hot_checked = 0
     for i, want in lanes.items():
         lanes_checked += len(want)
+        hot_checked += index.strided_lanes(i, index.compared(i))
         got = result["kept"].get(i)
         if got is None or np.shape(got) != want.shape:
             lanes_wrong += len(want)
@@ -199,7 +187,9 @@ def compare(sched, keys, index, rule, result) -> dict:
             ["rows_wrong", rows_wrong, 0],
         ],
         "lanes_checked": lanes_checked,
-        "launches_compared": len(whole),
+        "hot_lanes_checked": hot_checked,
+        "launches_compared": sum(is_compared(i, index.rule)
+                                 for i in range(n)),
         "keys_checked": len(keys),
         "reference_s": time.perf_counter() - t,
     }

@@ -36,10 +36,9 @@ from .reference import gcra
 from .registry import Spec
 
 
-def control_result(sched, keys, index, rule, launches, control):
+def control_result(sched, keys, index, launches, control):
     """What `check.compare` reads from a run, made by the `control` walk
     in the program's place over `launches` launches."""
-    whole = check.whole_launches(launches, rule)
     if control == "subbatch":
         kw = {"decide": gcra.group_independent}
     elif control == "launch":
@@ -48,7 +47,7 @@ def control_result(sched, keys, index, rule, launches, control):
     else:
         raise ValueError(f"unknown control {control!r}")
     lanes, tats, exps = check.reference_run(sched, keys, index, launches,
-                                            whole, **kw)
+                                            **kw)
     return {"launches": launches, "kept": lanes, "rows": (tats, exps)}
 
 
@@ -57,9 +56,9 @@ def run_control(root, workload, seed, launches, control) -> dict:
     cell = spec.cell(workload)
     sched = generate.Schedule(spec.config(cell), spec.mix(cell), seed)
     keys, rule = generate.check_sample(sched)
-    index = generate.SampleIndex.build(sched, keys)
-    result = control_result(sched, keys, index, rule, launches, control)
-    return check.compare(sched, keys, index, rule, result)
+    index = generate.SampleIndex.build(sched, keys, rule)
+    result = control_result(sched, keys, index, launches, control)
+    return check.compare(sched, keys, index, result)
 
 
 def main(argv=None) -> int:

@@ -43,8 +43,8 @@ def _annotate(traced: bool, name: str):
 class Loop:
     """Set up the limiter for one cell, then run launches through it."""
 
-    def __init__(self, sched, keys, index, rule, device) -> None:
-        self.sched, self.keys, self.index, self.rule = sched, keys, index, rule
+    def __init__(self, sched, keys, index, device) -> None:
+        self.sched, self.keys, self.index = sched, keys, index
         self.device = device
         self.mix = sched.mix
         self.tier = sched.cfg["tier"]
@@ -128,9 +128,8 @@ class Loop:
                     ids[k], self.em, self.tol, 1, words[k], int(now[k]))
                 for k in range(len(now))]).T
         t2 = time.perf_counter()
-        w = self.sched.window_of(i)
-        sel = self.index.lanes[w][self.index.compared(
-            w, generate.is_compared(i, self.rule))]
+        sel = self.index.lanes[self.sched.window_of(i)][
+            self.index.compared(i)]
         if len(sel):
             kept = np.stack([np.asarray(p, np.int32)[sel] for p in planes], 1)
             with self._lock:

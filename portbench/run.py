@@ -59,10 +59,13 @@ class Run:
     def __init__(self, sched, setup_s, win, first, trace, tier) -> None:
         self.sched, self.setup_s, self.win = sched, setup_s, win
         self.first, self.trace, self.tier = first, trace, tier
-        self._bounds = {}
+        self._bounds, self._lanes = {}, {}
 
     def lanes(self, i: int) -> int:
-        return int((self.sched.ids(i) >= 0).sum())
+        w = self.sched.window_of(i)
+        if w not in self._lanes:
+            self._lanes[w] = int((self.sched.windows[w] >= 0).sum())
+        return self._lanes[w]
 
     def launches(self):
         return range(self.first, self.first + len(self.win["starts"]))
@@ -92,8 +95,8 @@ def _per_second(sec, values) -> list:
 
 
 def _diagnostics(win, red, seconds) -> dict:
-    """Per-second launches done and dispatch ms (and, traced, window
-    kernel ms): where in the window the pace moved."""
+    """Per-second launches done, dispatch ms and host finish ms (and,
+    traced, window kernel ms): where in the window the pace moved."""
     import numpy as np
 
     done = win["ends"] <= win["t_end"]
@@ -107,6 +110,11 @@ def _diagnostics(win, red, seconds) -> dict:
             minlength=int(seconds)).tolist(),
         "dispatch_ms_each_second": _per_second(sec, disp),
     }
+    fin = win["finish"]
+    if len(fin):
+        out["finish_ms_each_second"] = _per_second(
+            (fin[:, 1] - win["t_start"]).astype(int),
+            (fin[:, 2] - fin[:, 1]) * 1e3)
     if red is not None:
         out["kernels_a_launch"] = red["kernels_a_launch"]
         out["window_ms_each_second"] = _per_second(sec, red["window_ms"])
@@ -135,10 +143,10 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
     cfg, mix = spec.config(cell), spec.mix(cell)
     sched = generate.Schedule(cfg, mix, seed)
     keys, rule = generate.check_sample(sched)
-    index = generate.SampleIndex.build(sched, keys)
+    index = generate.SampleIndex.build(sched, keys, rule)
     stage("inputs")
     loops = importlib.import_module(f"portbench.loops.{mix['loop']}")
-    loop = loops.Loop(sched, keys, index, rule, device)
+    loop = loops.Loop(sched, keys, index, device)
     loop.setup()
     stage("limiter")
     loop.populate()
@@ -188,7 +196,7 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
         value = spec.reader(m["name"])(run)
         if value is not None:
             metrics[m["name"]] = {"value": float(value), "unit": m["unit"]}
-    report = check.compare(sched, keys, index, rule, result)
+    report = check.compare(sched, keys, index, result)
     numbers = report["numbers"] + [
         # the plain version on the CPU counts no launch
         ["fused_launches_off", abs(fused1 - fused0 - (n_timed if cuda else 0)),
@@ -212,8 +220,9 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
         }
     out["info"] = dict(
         _diagnostics(win, red, seconds), seed=seed, setup_parts_s=parts,
-        **{k: report[k] for k in ("lanes_checked", "launches_compared",
-                                  "keys_checked", "reference_s")})
+        **{k: report[k] for k in ("lanes_checked", "hot_lanes_checked",
+                                  "launches_compared", "keys_checked",
+                                  "reference_s")})
     out["compared"] = {n: {"value": v, "limit": lim} for n, v, lim in numbers}
     for n, v, lim in numbers:
         log(f"{n} {v} limit {lim}", file=sys.stderr)

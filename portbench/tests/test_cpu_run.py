@@ -8,17 +8,26 @@ import numpy as np
 import pytest
 
 from portbench import control, run
-from portbench.tests.tiny import BENCH, TINY_CONFIG, TINY_MIX, make_root
+from portbench.tests.tiny import (
+    BENCH,
+    TINY_CONFIG,
+    TINY_MIX,
+    TINY_STRIDED_MIX,
+    make_root,
+)
 
 SECONDS = 0.6
+# Each fault on the plain mix and on config 3's (strided check).
+MIXES = pytest.mark.parametrize("mix", [TINY_MIX, TINY_STRIDED_MIX],
+                                ids=["plain", "strided"])
 
 
 def quiet(*_a, **_k):
     pass
 
 
-def tiny_run(tmp_path, seed=3, traced=False, config=None):
-    root = make_root(tmp_path, config=config)
+def tiny_run(tmp_path, seed=3, traced=False, config=None, mix=None):
+    root = make_root(tmp_path, config=config, mix=mix)
     return run.run_cell(root, "tiny", seed, SECONDS, traced, device="cpu",
                         log=quiet)
 
@@ -66,7 +75,8 @@ def test_same_seed_same_inputs(tmp_path):
 # ---- the timed path broken underneath ------------------------------------
 
 
-def test_a_launch_that_leaves_the_state_unchanged_fails(tmp_path,
+@MIXES
+def test_a_launch_that_leaves_the_state_unchanged_fails(tmp_path, mix,
                                                         monkeypatch):
     from throttlecrab_tpu_torch.tpu.table import BucketTable
 
@@ -79,12 +89,13 @@ def test_a_launch_that_leaves_the_state_unchanged_fails(tmp_path,
         return out
 
     monkeypatch.setattr(BucketTable, "_byid_launch", stale)
-    out = tiny_run(tmp_path)
+    out = tiny_run(tmp_path, mix=mix)
     assert not out["correct"]
     assert numbers(out)["lanes_wrong"] > 0 and numbers(out)["rows_wrong"] > 0
 
 
-def test_half_of_each_batch_left_out_fails(tmp_path, monkeypatch):
+@MIXES
+def test_half_of_each_batch_left_out_fails(tmp_path, mix, monkeypatch):
     from throttlecrab_tpu_torch.tpu.table import BucketTable
 
     inner = BucketTable.check_many_ids
@@ -95,12 +106,14 @@ def test_half_of_each_batch_left_out_fails(tmp_path, monkeypatch):
         return inner(self, id_rows, ids, *a, **k)
 
     monkeypatch.setattr(BucketTable, "check_many_ids", half)
-    out = tiny_run(tmp_path)
+    out = tiny_run(tmp_path, mix=mix)
     assert not out["correct"]
     assert numbers(out)["lanes_wrong"] > 0
 
 
-def test_an_answer_altered_where_it_is_produced_fails(tmp_path, monkeypatch):
+@MIXES
+def test_an_answer_altered_where_it_is_produced_fails(tmp_path, mix,
+                                                      monkeypatch):
     from throttlecrab_tpu_torch.tpu import fused
 
     inner = fused.gcra_scan_packed_fused_acc
@@ -115,7 +128,7 @@ def test_an_answer_altered_where_it_is_produced_fails(tmp_path, monkeypatch):
         return state, acc, out
 
     monkeypatch.setattr(fused, "gcra_scan_packed_fused_acc", altered)
-    out = tiny_run(tmp_path)
+    out = tiny_run(tmp_path, mix=mix)
     assert calls and not out["correct"]
     assert numbers(out)["lanes_wrong"] > 0
 

@@ -1,6 +1,6 @@
 """A tiny benchmark root for the CPU tests: BENCHMARK.json, a small
-configuration of config 3's shape and a small mix, beside copies of the
-real metric readers."""
+configuration of config 3's shape and a small mix (or the strided one),
+beside copies of the real metric readers."""
 
 from __future__ import annotations
 
@@ -25,6 +25,10 @@ TINY_MIX = {
     "warm_launches": 2,
     "check": {"hot": 4, "drawn": 40, "uniform": 40, "stride": 2},
 }
+# Config 3's mix at a tiny size: deeper launches, the hot and drawn keys'
+# lanes compared in one sub-batch in 4.
+TINY_STRIDED_MIX = dict(TINY_MIX, depth=16, check=dict(
+    TINY_MIX["check"], hot_sub_stride=4))
 
 
 def write(path: Path, obj) -> None:
