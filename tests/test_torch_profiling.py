@@ -14,7 +14,9 @@ the shared no-op that takes no timestamp, calls no `record_function`
 and allocates nothing, and `annotate` outside a capture is that no-op
 too; a recording of a `device="cpu"` by-id launch holds its seven
 spans once each, nested as the launch runs them; a host finish on
-another thread is recorded with that thread and its CPU time; under a
+another thread is recorded with that thread and its CPU time; the w32
+finish notes its words and whether the native pass decoded them, and
+moves `kernel.FINISH_W32_NATIVE_WORDS` by as many; under a
 profiler the recording thread's spans have twins, and every span lands
 on the profiler's clock.
 """
@@ -33,10 +35,10 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from throttlecrab_tpu_torch import spans
+from throttlecrab_tpu_torch import native, spans
 from throttlecrab_tpu_torch.server.engine import BatchingEngine
 from throttlecrab_tpu_torch.server.types import ThrottleRequest
-from throttlecrab_tpu_torch.tpu import profiling
+from throttlecrab_tpu_torch.tpu import kernel, profiling
 from throttlecrab_tpu_torch.tpu.kernel import finish_w32
 from throttlecrab_tpu_torch.tpu.limiter import TorchRateLimiter, derive_params
 from throttlecrab_tpu_torch.tpu.table import BucketTable, _uploaded
@@ -290,6 +292,20 @@ def test_a_finish_on_another_thread_is_its_own(tier):
     assert s.name == f"tc.finish.{tier}" and s.thread == seen["thread"]
     assert s.parent is None and s.launch is None
     assert 0 <= s.cpu <= s.end - s.start
+
+
+def test_the_w32_finish_notes_its_words_and_path():
+    table, rows, ids, now = _byid_table()
+    words = _launch(table, rows, ids, now).numpy().reshape(-1)
+    before = kernel.FINISH_W32_NATIVE_WORDS
+    with profiling.recording() as rec:
+        finish_w32(words)
+    (s,) = rec.spans
+    assert s.name == "tc.finish.w32"
+    lib = native.get_finish_lib()
+    assert s.attrs == {"words": words.size, "native": lib is not None}
+    moved = words.size if lib is not None else 0
+    assert kernel.FINISH_W32_NATIVE_WORDS - before == moved
 
 
 def test_one_recording_at_a_time():

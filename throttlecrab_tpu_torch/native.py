@@ -1,11 +1,12 @@
-"""ctypes bridges to the C++ keymap (`native/keymap.cpp`) and the C++
-wire server (`native/wire_server.cpp`).
+"""ctypes bridges to the C++ keymap (`native/keymap.cpp`), the C++
+wire server (`native/wire_server.cpp`) and the port's own host finish of
+the w32 tier (`csrc/finish_w32.cpp`).
 
-The counterpart of `throttlecrab_tpu/native.py`.  The unmodified sources
-are compiled with g++ at first use into `throttlecrab_tpu_torch/build/`,
-under names keyed by a hash of the source and flags; each build is
-renamed into place, so concurrent builds never load a half-written
-file.  Without a toolchain the limiter's "auto" keymap falls back to the
+The counterpart of `throttlecrab_tpu/native.py`.  The sources (the
+reference's two unmodified) are compiled with g++ at first use into
+`throttlecrab_tpu_torch/build/`, under names keyed by a hash of the
+source and flags; each build is renamed into place, so concurrent
+builds never load a half-written file.  Without a toolchain the limiter's "auto" keymap falls back to the
 pure-Python one, and the native transports are unavailable.  No
 pybind11: the ABIs are small C surfaces and the batch arrays travel as
 numpy pointers.
@@ -229,6 +230,43 @@ def wire_build_error() -> Optional[str]:
     """The wire-server build failure (with compiler stderr), or None."""
     get_wire_lib()
     return _ws_error
+
+
+# Host finish of the w32 tier (csrc/finish_w32.cpp, the port's own):
+# one pass from output words to the four planes, for tpu/kernel.py
+# finish_w32.
+
+_FIN_SRC = _PKG / "csrc" / "finish_w32.cpp"
+_fin_lib: Optional[ctypes.CDLL] = None
+_fin_error: Optional[str] = None
+
+
+def _build_finish() -> Optional[ctypes.CDLL]:
+    global _fin_error
+    path, _fin_error = _compile(_FIN_SRC, "libtkfinish")
+    if path is None:
+        return None
+    lib = ctypes.CDLL(str(path))
+    lib.tk_finish_w32.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32, ctypes.c_uint32,
+        ctypes.c_uint32, ctypes.c_void_p,
+    ]
+    lib.tk_finish_w32.restype = None
+    return lib
+
+
+def get_finish_lib() -> Optional[ctypes.CDLL]:
+    global _fin_lib
+    with _lock:
+        if _fin_lib is None and _fin_error is None:
+            _fin_lib = _build_finish()
+        return _fin_lib
+
+
+def finish_build_error() -> Optional[str]:
+    """The host finish's build failure (with compiler stderr), or None."""
+    get_finish_lib()
+    return _fin_error
 
 
 # Flag bits returned by NativeKeyMap.prepare_batch (keymap.cpp TK_PREP_*).

@@ -47,9 +47,13 @@ composed scans pass `row_ops`, `decide_window` the plain `row_ops.PLAIN`.
 
 from __future__ import annotations
 
+import threading
+import weakref
+
 import numpy as np
 import torch
 
+from .. import native
 from . import row_ops
 from .profiling import span
 from .sat import (
@@ -219,17 +223,86 @@ def fits_w32_wire_agg(
     return retry_bound // _NS_PER_SEC <= W32_RETRY_MAX
 
 
+#: Words decoded by the native pass (csrc/finish_w32.cpp) since import,
+#: over every thread (counted under `_w32_lock`).
+FINISH_W32_NATIVE_WORDS = 0
+
+# finish_w32's free (4, n) i32 buffers by size n, the least recently
+# returned size first; each list non-empty.  A by-id launch's 4M words
+# would otherwise map 64 MB of planes afresh.  Only windows of at least
+# _W32_POOL_MIN words take part: a served sub-batch's planes are small
+# and of many sizes, and come from the heap cheaply.
+_W32_KEEP = 16  # buffers kept, all sizes together
+_W32_POOL_MIN = 1 << 16
+_w32_free = {}
+# Reentrant: a buffer may come back (its finalizer) from a garbage
+# collection that runs inside this very lock on the same thread.
+_w32_lock = threading.RLock()
+
+
+def _w32_planes(shape):
+    """An i32 array of shape (4, *shape) for finish_w32's planes, its
+    memory from the free list when it is large.  The memory goes back to
+    the list only when no array views it: the array is a view of `held`,
+    whose base is a memoryview, so numpy chains every later view's base
+    to `held` and `held` dies with the last of them."""
+    n = int(np.prod(shape))
+    if n < _W32_POOL_MIN:
+        return np.empty((4,) + tuple(shape), np.int32)
+    raw = None
+    with _w32_lock:
+        free = _w32_free.get(n)
+        if free:
+            raw = free.pop()
+            if not free:
+                del _w32_free[n]
+    if raw is None:
+        raw = np.empty(4 * n, np.int32)
+    held = np.frombuffer(memoryview(raw), np.int32)
+    weakref.finalize(held, _w32_give_back, n, raw).atexit = False
+    return held.reshape((4,) + tuple(shape))
+
+
+def _w32_give_back(n, raw):
+    with _w32_lock:
+        free = _w32_free.pop(n, [])
+        free.append(raw)
+        _w32_free[n] = free
+        while sum(map(len, _w32_free.values())) > _W32_KEEP:
+            oldest = next(iter(_w32_free))
+            _w32_free[oldest].pop()
+            if not _w32_free[oldest]:
+                del _w32_free[oldest]
+
+
 def finish_w32(words):
     """Host-side unpack of the compact="w32" output: i32 words ->
-    (allowed, remaining, reset_after_secs, retry_after_secs), all i32."""
-    with span("tc.finish.w32"):
-        u = np.ascontiguousarray(words, np.int32).view(np.uint32)
-        return (
-            (u & 1).astype(np.int32),
-            ((u >> 1) & np.uint32(W32_REM_MAX)).astype(np.int32),
-            ((u >> 11) & np.uint32(W32_RESET_MAX)).astype(np.int32),
-            ((u >> 22) & np.uint32(W32_RETRY_MAX)).astype(np.int32),
-        )
+    (allowed, remaining, reset_after_secs, retry_after_secs), all i32.
+
+    One native pass (csrc/finish_w32.cpp, outside the GIL) writes the
+    four planes as the rows of one (4, ...) buffer, pooled for a large
+    window; without the native library, numpy's shifts and masks.  The
+    span notes the words and which path decoded them."""
+    global FINISH_W32_NATIVE_WORDS
+    with span("tc.finish.w32") as sp:
+        w = np.ascontiguousarray(words, np.int32)
+        lib = native.get_finish_lib()
+        if sp is not None:
+            sp.attrs.update(words=w.size, native=lib is not None)
+        if lib is None:
+            u = w.view(np.uint32)
+            return (
+                (u & 1).astype(np.int32),
+                ((u >> 1) & np.uint32(W32_REM_MAX)).astype(np.int32),
+                ((u >> 11) & np.uint32(W32_RESET_MAX)).astype(np.int32),
+                ((u >> 22) & np.uint32(W32_RETRY_MAX)).astype(np.int32),
+            )
+        out = _w32_planes(w.shape)
+        lib.tk_finish_w32(w.ctypes.data, w.size, W32_REM_MAX, W32_RESET_MAX,
+                          W32_RETRY_MAX, out.ctypes.data)
+        with _w32_lock:
+            FINISH_W32_NATIVE_WORDS += w.size
+        return tuple(out)
 
 
 def cur_wire_safe(valid, tolerance, now_ns) -> bool:
