@@ -8,7 +8,8 @@ script exits nonzero without its last line:
 
 1. card: the card's name and power limit (nvidia-smi), and the builds of
    the kernel libraries from csrc/ (one nvcc per source, started
-   together, timed), with ptxas's registers/stack/spills per kernel;
+   together, timed: the decision window, the row kernels and the by-id
+   front end), with ptxas's registers/stack/spills per kernel;
 2. kernel vs plain: the decision-window kernel (tpu/fused.py) against its
    plain torch version (tpu/kernel.py) on the card, at the serving N
    (2^20 + 2^16 rows) for all 12 kernel instantiations (row widths 4
@@ -79,7 +80,9 @@ script exits nonzero without its last line:
    B = 4096 through check_many_byid (host words + finish_ids),
    check_many_ids (finish_raw) and check_many_ids20 (w32 + finish_w32);
    the counters, zeroed just before, must count exactly one
-   decision-window launch per window and no row-kernel launch, and the
+   decision-window launch per window and no row-kernel launch, and one
+   front-end kernel launch (tpu/ids_front.py) per window of raw ids
+   (populate, ids, ids20) and no window of plain front-end ops, and the
    same traffic on device="cpu" must give identical wire values,
    real-slot state and expired hits.  Then one more ids window through
    the composed scan kernel.gcra_scan_ids_acc on a copy of the table,
@@ -102,8 +105,15 @@ script exits nonzero without its last line:
    per launch at B=4096 (CUDA events; profiler device time with L2 warm,
    and with L2 cold, 128 MB read before each launch, for kernel and
    library call; host time per call), each beside its share of
-   row_bound_ms and the sector-counted bound; phases 3, 6 and 7's
-   decisions/s come from the host clock;
+   row_bound_ms and the sector-counted bound; then the by-id front end
+   (tools/probe_ids_front.py) at both benchmark cells' shapes (c2: K=4,096
+   x B=256 over 10,000 uniform keys; c3: K=1,024 x B=4,096 over 1M
+   Zipf-1.1 keys), the kernel and its plain version (kernel.ids_window's
+   torch ops) on the card in alternating processes of their own (kernel,
+   plain, plain, kernel a shape): device ms a window (profiler) and CUDA
+   events, beside the bound (ids, id-row sectors and packed rows at the
+   HBM rate), each kernel run's first window equal to the plain one's;
+   phases 3, 6 and 7's decisions/s come from the host clock;
 9. native RESP server at full width: a NativeRedisTransport in process
    over TorchRateLimiter(capacity=2^20, keymap="native") on cuda, batch
    4096, max_scan_depth 16, answers phase 3's traffic (1M keys,
@@ -376,6 +386,7 @@ CROSS_BLOCK_B = (4096, 1, 4097, 65536)  # widths of the cross-block windows
 BLOCK_K, BLOCK_B = 64, 256  # phase 2's one-block windows
 REGISTERS_PER_SM = 65536
 FUSED_THREADS = 256  # threads per block of the decision-window kernel
+FRONT_THREADS = 512  # the largest block of the by-id front-end kernel
 
 
 def ptxas_summary(log: str) -> dict:
@@ -390,13 +401,16 @@ def ptxas_summary(log: str) -> dict:
                           mangled)
             s = re.search(r"(scatter|gather)_kernelILi(\d)ELi(\d)ELi(\d)E",
                           mangled)
+            f = re.search(r"ids_front_kernelILi(\d+)ELi(\d+)E", mangled)
             tier = ("False", "True", "cur", "w32")
             name = (
                 f"{d.group(1) or ''}window W={d.group(2)} "
                 f"with_degen={d.group(3) == '1'} "
                 f"tier={tier[int(d.group(4))]}" if d
                 else f"{s.group(1)} W={s.group(2)} part={s.group(3)} "
-                f"steps={s.group(4)}" if s else mangled
+                f"steps={s.group(4)}" if s
+                else f"ids_front threads={f.group(1)} items={f.group(2)}"
+                if f else mangled
             )
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
@@ -1848,6 +1862,67 @@ def byid_rates(plan, seconds):
         v: sum(n for n, _ in runs[1:]) / sum(s for _, s in runs[1:])
         for v, runs in per_variant.items() if len(runs) > 1
     }
+
+
+# ---- the by-id front end's times (phase 8) ------------------------------- #
+
+
+FRONT_SHAPES = ("c2", "c3")  # tools/probe_ids_front.py SHAPES
+
+
+def front_probe(arm, shape):
+    """One run of tools/probe_ids_front.py in a process of its own: its
+    JSON record."""
+    r = subprocess.run(
+        [sys.executable, "-m", "throttlecrab_tpu_torch.tools.probe_ids_front",
+         "--arm", arm, "--shape", shape], capture_output=True, text=True,
+        timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
+    if r.returncode != 0:
+        raise AssertionError(f"probe_ids_front --arm {arm} --shape {shape} "
+                             f"exited {r.returncode}:\n{r.stdout[-3000:]}\n"
+                             f"{r.stderr[-3000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def time_front(card):
+    """The front-end kernel and its plain version at both cells'
+    shapes, alternating in fresh processes (kernel, plain, plain,
+    kernel a shape): {shape: {arm: [records]}}.  Each kernel run's first
+    window must equal the plain version's."""
+    out = {}
+    for shape in FRONT_SHAPES:
+        runs = {"kernel": [], "plain": []}
+        for arm in ("kernel", "plain", "plain", "kernel"):
+            rec = front_probe(arm, shape)
+            if not rec["same_as_plain"]:
+                raise AssertionError(f"front-end {arm} run at {shape}: the "
+                                     "packed window differs from the plain "
+                                     "version's")
+            runs[arm].append(rec)
+            print(f"  ids_front {arm} {shape} K={rec['K']} B={rec['B']}: "
+                  f"device {rec['device_ms']:.4f} ms in "
+                  f"{rec['records_a_call']} records a window, events "
+                  f"{rec['event_ms']:.4f} ms, bound {rec['bound_ms']:.5f} ms "
+                  f"({card})", flush=True)
+        out[shape] = runs
+    return out
+
+
+def front_summary(runs):
+    """Medians of a shape's kernel and plain runs."""
+    import statistics
+
+    def med(arm, key):
+        return statistics.median(r[key] for r in runs[arm])
+
+    return {"device_ms": med("kernel", "device_ms"),
+            "plain_device_ms": med("plain", "device_ms"),
+            "ms": med("kernel", "event_ms"),
+            "plain_ms": med("plain", "event_ms"),
+            "bound_ms": runs["kernel"][0]["bound_ms"],
+            "records_a_call": runs["kernel"][0]["records_a_call"],
+            "plain_records_a_call": runs["plain"][0]["records_a_call"],
+            "shape": f"K={runs['kernel'][0]['K']} B={runs['kernel'][0]['B']}"}
 
 
 # ---- dispatch_wire_window (phase 7) -------------------------------------- #
@@ -3961,7 +4036,7 @@ def run_checkpoint(source, frame_windows, tmp, now0):
 def build_kernels():
     """Phase 1's builds: one nvcc per kernel source, all started together
     (threads wait on the compilers); {library: (path, seconds)}."""
-    from throttlecrab_tpu_torch.tpu import fused, row_ops
+    from throttlecrab_tpu_torch.tpu import fused, ids_front, row_ops
 
     built, errors = {}, []
 
@@ -3973,7 +4048,8 @@ def build_kernels():
             errors.append(e)
 
     threads = [threading.Thread(target=run, args=a) for a in (
-        ("fused_window", fused.build), ("row_ops", row_ops.build))]
+        ("fused_window", fused.build), ("row_ops", row_ops.build),
+        ("ids_front", ids_front.build))]
     for t in threads:
         t.start()
     for t in threads:
@@ -5199,7 +5275,7 @@ def main() -> int:
         return 2
     import numpy as np
 
-    from throttlecrab_tpu_torch.tpu import fused, row_ops
+    from throttlecrab_tpu_torch.tpu import fused, ids_front, row_ops
     from throttlecrab_tpu_torch.tpu.limiter import TorchRateLimiter
 
     device = torch.device("cuda")
@@ -5210,7 +5286,8 @@ def main() -> int:
         print(f"[1] built {lib.name} in {sec:.1f} s (0 when this checkout "
               "had built it already)")
         ptxas[name] = ptxas_summary(lib.with_suffix(".log").read_text())
-        check_ptxas(name, ptxas[name], FUSED_THREADS)
+        check_ptxas(name, ptxas[name],
+                    FRONT_THREADS if name == "ids_front" else FUSED_THREADS)
     # 12 instantiations (2 widths x 6 tiers) of each schedule's kernel
     if len(ptxas["fused_window"]) != 24:
         raise AssertionError(f"{len(ptxas['fused_window'])} decision-window "
@@ -5220,6 +5297,10 @@ def main() -> int:
     if len(ptxas["row_ops"]) != 5:
         raise AssertionError(f"{len(ptxas['row_ops'])} row-kernel "
                              "instantiations built, expected 5")
+    # the front end's blocks (ids_front.cuh front_geometry)
+    if len(ptxas["ids_front"]) != 4:
+        raise AssertionError(f"{len(ptxas['ids_front'])} front-end "
+                             "instantiations built, expected 4")
 
     print(f"[2] kernel vs plain on the card: K={K} B={B} "
           f"N={CAPACITY + (1 << 16)}, then cross-block windows at "
@@ -5307,10 +5388,18 @@ def main() -> int:
     plan = byid_plan(np.random.default_rng(6), N_KEYS)
     fused.LAUNCHES = 0
     row_ops.GATHER_LAUNCHES = row_ops.SCATTER_LAUNCHES = 0
+    ids_front.LAUNCHES = ids_front.PLAIN_WINDOWS = 0
     lim_g, rows_g, wires_g, valids, sec_g, split_g = run_byid(
         device, keys, em, tol, plan)
     torch.cuda.synchronize()
     byid_launches = fused.LAUNCHES
+    front_launches = (ids_front.LAUNCHES, ids_front.PLAIN_WINDOWS)
+    raw_windows = sum(1 for v, _ in plan if v != "byid")
+    if front_launches != (raw_windows, 0):
+        raise AssertionError(
+            f"front-end kernel launches and plain windows {front_launches} "
+            f"for {raw_windows} windows of raw ids; expected one launch a "
+            "window and no plain window")
     byid_row_launches = {"row_gather": row_ops.GATHER_LAUNCHES,
                          "row_scatter": row_ops.SCATTER_LAUNCHES}
     if byid_launches != len(plan) or any(byid_row_launches.values()):
@@ -5322,7 +5411,8 @@ def main() -> int:
         raise AssertionError("the by-id table left the card")
     print(f"  {len(plan)} windows ({[v for v, _ in plan]}): "
           f"{byid_launches} decision-window launches, row launches "
-          f"{byid_row_launches}")
+          f"{byid_row_launches}, front-end kernel launches "
+          f"{front_launches[0]} (plain windows {front_launches[1]})")
     print("  seconds per window: " + ", ".join(f"{x:.3f}" for x in sec_g))
     print("  ms per window, prep+launch+fetch+finish: " + ", ".join(
         "+".join(f"{x * 1e3:.1f}" for x in sp) for sp in split_g))
@@ -5407,6 +5497,7 @@ def main() -> int:
     row_times = time_row_kernels(device, np.random.default_rng(8))
     for (name, w), t in row_times.items():
         print(f"  {name} W={w}: {row_times_line(t, B, w, B)}")
+    front_times = time_front(card)
 
     print(f"[9] native RESP server: NativeRedisTransport over "
           f"TorchRateLimiter(capacity=2^20, keymap='native') on cuda, "
@@ -5645,6 +5736,8 @@ def main() -> int:
         "byid_decisions_per_s": byid_rate,
         "byid_window_ms": byid_split,
         "byid_window_profile": byid_profile,
+        "byid_front_launches": front_launches[0],
+        "byid_front_plain_windows": front_launches[1],
         **resp,
         "supervisor_probe_launches": drill["probe_window_launches"],
         "supervisor_drill": drill,
@@ -5705,6 +5798,22 @@ def main() -> int:
         "ablation_s": ablation["seconds"],
         "card": card,
     }]
+    kernels.append({
+        "name": "ids_front",
+        "route": "cuda",
+        "source": "throttlecrab_tpu_torch/csrc/ids_front.cu",
+        "replaces": None,
+        "why": "the by-id front end, composed ops in the JAX package",
+        "launches": front_launches[0],
+        "identical": all(r["same_as_plain"] for runs in front_times.values()
+                         for r in runs["kernel"]),
+        "bound_by": "bytes",
+        "library_ms": None,
+        "ptxas": {k: v[0] for k, v in ptxas["ids_front"].items()},
+        "shapes": {shape: front_summary(runs)
+                   for shape, runs in front_times.items()},
+        "card": card,
+    })
     for name, replaces in (("row_gather", "pallas_ops.py:128"),
                            ("row_scatter", "pallas_ops.py:162")):
         t4, t6 = snap_times[(name, 4)], snap_times[(name, 6)]

@@ -2,7 +2,10 @@
 decision-window kernel (fused.py) on both its schedules, its one-block
 schedule also against the host shim (csrc/lane_host.cpp) with its block
 launch and forwarded-lane counts, also behind the table's by-id entry
-points and behind the native RESP transport's driver thread, and the row
+points and behind the native RESP transport's driver thread, the by-id
+front-end kernel (ids_front.py) against its plain version (at both
+benchmark cells' shapes and on edge windows, and behind the table, with
+its launch counts), and the row
 gather/scatter (row_ops.py, also through a composed by-id scan and the
 snapshot's save and restore), and the insight tier's device ops
 (kernel.insight_topk / insight_decay) against their CPU runs, and the
@@ -502,6 +505,178 @@ def test_byid_table_raises_when_the_window_kernel_cannot_launch(
                              np.array([1_753_700_000 * NS]), 1,
                              with_degen=False, compact="cur")
     assert (row_ops.GATHER_LAUNCHES, row_ops.SCATTER_LAUNCHES) == before
+    assert torch.equal(table.state, state)
+
+
+# ---- the by-id front-end kernel (tpu/ids_front.py) ---------------------- #
+
+
+def _front_rows(rng, n_ids, cap, width=8, slots=None):
+    """Resident id rows: ids 2 and 3 share a slot, one in ten unresolved
+    (slot -1) unless `slots` is given."""
+    if slots is None:
+        slots = rng.choice(cap, n_ids, replace=False).astype(np.int32)
+        slots[3] = slots[2] = max(slots[2], 0)
+        slots[4 + np.flatnonzero(rng.random(n_ids - 4) < 0.1)] = -1
+    em = rng.choice([0, 1, 1000, NS, 7 * NS, 1 << 62, -5], n_ids)
+    return kernel.pack_id_rows(slots, em, em * 5 + 3, width)
+
+
+def _zipf_ids(rng, n, shape, s=1.1):
+    p = 1.0 / np.arange(1, n + 1) ** s
+    cdf = np.cumsum(p / p.sum())
+    return np.minimum(np.searchsorted(cdf, rng.random(shape)),
+                      n - 1).astype(np.int32)
+
+
+def _front_case(name):
+    """(id rows, ids i32[K, B]) of a named case: both cells' shapes, and
+    edge windows (padding, ids at and past n_ids, slot -1 rows, two ids
+    on one slot, one key over a whole sub-batch, slots within B of
+    2^31 - 1, 5-wide rows)."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    if name == "c2":  # 10k uniform keys over 16,384 slots, K=4096 x B=256
+        rows = _front_rows(rng, 10_000, 1 << 14,
+                           slots=rng.permutation(1 << 14)[:10_000])
+        return rows, rng.integers(0, 10_000, (4096, 256)).astype(np.int32)
+    if name == "c3":  # 1M Zipf-1.1 keys, per-key rows, K=1024 x B=4096
+        rows = _front_rows(rng, 1_000_000, 1 << 20,
+                           slots=rng.permutation(1 << 20)[:1_000_000])
+        return rows, _zipf_ids(rng, 1_000_000, (1024, 4096))
+    kind, B = name.split("-")
+    B = int(B)
+    n_ids = 300
+    rows = _front_rows(rng, n_ids, 1 << 20, width=5 if kind == "w5" else 8)
+    ids = np.where(rng.random((6, B)) < 0.5, rng.integers(0, 6, (6, B)),
+                   rng.integers(0, n_ids, (6, B)))
+    ids[rng.random((6, B)) < 0.08] = -1
+    ids[rng.random((6, B)) < 0.03] = n_ids
+    ids[rng.random((6, B)) < 0.03] = n_ids + 9
+    ids[1] = 2 + (rng.random(B) < 0.5)  # ids 2 and 3: one slot
+    ids[2] = int(rng.integers(0, n_ids))  # one key over the sub-batch
+    ids[3] = -1
+    if kind == "near_max":
+        slots = (2**31 - 1 - np.arange(0, 2 * n_ids, 2)).astype(np.int32)
+        rows = _front_rows(rng, n_ids, 0, slots=slots)
+        ids[:, :16:2] = -1
+    return rows, ids.astype(np.int32)
+
+
+_FRONT_CASES = ["c2", "c3"] + [f"{kind}-{b}" for kind in ("mixed",)
+                               for b in (1, 16, 255, 256, 257, 1000, 2049,
+                                         4096)] + [
+    "near_max-16", "near_max-4096", "w5-256", "w5-4096"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _FRONT_CASES)
+def test_ids_front_kernel_packs_as_ids_window_on_card(cuda_device, case):
+    """The kernel's packed window equals the plain version's on the card,
+    bit for bit, padding and invalid lanes included; one launch a
+    window.  Id rows 8 bytes off 16 take the scalar row loads."""
+    from throttlecrab_tpu_torch.tpu import ids_front
+
+    rows_h, ids_h = _front_case(case)
+    ids = torch.from_numpy(ids_h).to(cuda_device)
+    for offset in (0, 2):
+        raw = torch.zeros(rows_h.size + offset, dtype=torch.int32,
+                          device=cuda_device)
+        rows = raw[offset:].view(rows_h.shape)
+        rows.copy_(torch.from_numpy(rows_h))
+        for q in (1, (1 << 33) + 5):
+            before = (ids_front.LAUNCHES, ids_front.PLAIN_WINDOWS)
+            got = ids_front.ids_window(rows, ids, q)
+            assert (ids_front.LAUNCHES, ids_front.PLAIN_WINDOWS) == (
+                before[0] + 1, before[1])
+            want = kernel.ids_window(rows, ids, q)
+            assert torch.equal(got, want), case
+        if case in ("c2", "c3"):
+            break  # the cells' rows are whole allocations
+
+
+@pytest.mark.cuda
+def test_ids_front_wider_windows_take_the_plain_ops(cuda_device):
+    from throttlecrab_tpu_torch.tpu import ids_front
+
+    rng = np.random.default_rng(4097)
+    rows = torch.from_numpy(_front_rows(rng, 300, 1 << 16)).to(cuda_device)
+    ids = torch.from_numpy(
+        rng.integers(-1, 310, (2, 4097)).astype(np.int32)).to(cuda_device)
+    before = (ids_front.LAUNCHES, ids_front.PLAIN_WINDOWS)
+    got = ids_front.ids_window(rows, ids, 1)
+    assert (ids_front.LAUNCHES, ids_front.PLAIN_WINDOWS) == (
+        before[0], before[1] + 1)
+    assert torch.equal(got, kernel.ids_window(rows, ids, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["ids", "ids20"])
+def test_byid_table_front_kernel_decides_as_the_plain_ops(
+    cuda_device, monkeypatch, variant
+):
+    """Windows decided through the front-end kernel and through the plain
+    ops on the card (a limit of 0 sends every window to them) leave the
+    same outputs and table; ids_front.LAUNCHES moves by the windows sent
+    through the kernel, PLAIN_WINDOWS by those sent through the ops."""
+    from throttlecrab_tpu_torch.tpu import ids_front
+
+    rng = np.random.default_rng(31)
+    n_ids, cap, K, B = 3000, 1 << 14, 8, 4096
+    slots = rng.choice(cap, n_ids, replace=False).astype(np.int32)
+    em = rng.choice([1000, NS, 7 * NS], n_ids).astype(np.int64)
+    windows = [_zipf_ids(rng, n_ids, (K, B)) for _ in range(3)]
+    windows[1][:, ::7] = -1
+    results = {}
+    for route in ("kernel", "plain"):
+        if route == "plain":
+            monkeypatch.setattr(ids_front, "MAX_BATCH", 0)
+        table = BucketTable(cap, device=cuda_device)
+        rows = table.upload_id_rows(slots, em, em * 5)
+        before = (ids_front.LAUNCHES, ids_front.PLAIN_WINDOWS)
+        outs = []
+        for j, ids in enumerate(windows):
+            now = 1_753_700_000 * NS + (j * K + np.arange(K)) * NS // 4
+            stream = _byid_stream(variant, ids, slots)
+            outs.append(getattr(table, "check_many_" + variant)(
+                rows, stream, now, 1, with_degen=False,
+                compact="w32").cpu())
+        sent = (ids_front.LAUNCHES - before[0],
+                ids_front.PLAIN_WINDOWS - before[1])
+        assert sent == ((len(windows), 0) if route == "kernel"
+                        else (0, len(windows)))
+        results[route] = (outs, table.state[:cap].cpu(),
+                          table.expired_hits())
+    (ok, sk, hk), (op, sp, hp) = results["kernel"], results["plain"]
+    for a, b, ids in zip(ok, op, windows):
+        valid = torch.from_numpy(ids >= 0)
+        assert torch.equal(a[valid], b[valid])
+    assert torch.equal(sk, sp) and hk == hp
+
+
+@pytest.mark.cuda
+def test_byid_table_raises_when_the_front_kernel_cannot_launch(
+    cuda_device, monkeypatch
+):
+    """No fallback: a by-id window whose front-end kernel cannot be
+    loaded raises, and the table is left as it was."""
+    from throttlecrab_tpu_torch.tpu import ids_front
+
+    table = BucketTable(64, device=cuda_device)
+    rows = table.upload_id_rows(np.arange(8, dtype=np.int32),
+                                np.full(8, NS, np.int64),
+                                np.full(8, 4 * NS, np.int64))
+    state = table.state.clone()
+
+    def broken():
+        raise RuntimeError("front-end kernel unavailable")
+
+    monkeypatch.setattr(ids_front, "_load", broken)
+    before = fused.LAUNCHES
+    with pytest.raises(RuntimeError, match="unavailable"):
+        table.check_many_ids(rows, np.arange(8, dtype=np.int32)[None],
+                             np.array([1_753_700_000 * NS]), 1,
+                             with_degen=False, compact="cur")
+    assert fused.LAUNCHES == before
     assert torch.equal(table.state, state)
 
 

@@ -12,5 +12,8 @@ asked for the CPU:
 - `run-transport-test.sh`: the server and the load harness per transport;
 - `fuzz_wire_tiers`: the tier-ladder differential campaign;
 - `byid_cpu_replay`: the by-id route's decisions/s on the CPU, in a
-  fresh process.
+  fresh process;
+- with no JAX counterpart: `probe_ids_front` (the by-id front-end
+  kernel against its plain version at a benchmark cell's shape) and
+  `front_counters` (the front end's counters over one run of a cell).
 """

@@ -37,7 +37,9 @@ package's `gcra_scan_byid` says it may: a front end (`byid_window` /
 `ids_window` / `ids20_window`, torch ops batched over the whole window)
 turns the window's ids into the packed request rows, which then go
 through the decision window like any other (`BucketTable.check_many_*`
-hand them to `fused.py`).  The composed scans `gcra_scan_byid` /
+hand them to `fused.py`).  On CUDA tensors the raw-id front ends run as
+one hand-written kernel instead (`ids_front.py`), which `ids_window`
+is the plain version of.  The composed scans `gcra_scan_byid` /
 `gcra_scan_ids` / `gcra_scan_ids20` and their `_acc` twins stay the
 counterparts of the JAX functions: one sub-batch at a time, their state
 rows moved by the `row_ops` kernels on a CUDA table (the port of

@@ -10,11 +10,14 @@ Every decision window goes through `fused.gcra_scan_packed_fused_*`:
 on `cuda` that is one launch of the hand-written kernel, on `cpu` the
 plain version.  The by-id launch path (`upload_id_rows`,
 `check_many_byid` / `_ids` / `_ids20`) first expands the window's ids
-into packed request rows with the front end of `kernel.py`
-(`byid_window` / `ids_window` / `ids20_window`), so a by-id window too
-is one launch, and the row kernels (`row_ops.py`) are not on it.  The
-state is updated in place; outputs are returned as device tensors so
-the caller decides when to fetch.
+into packed request rows with a front end: for raw ids the front-end
+kernel of `ids_front.py` (on `cpu` its plain version, `kernel.py`
+`ids_window` / `ids20_window`), for host-ranked words `kernel.py`
+`byid_window`.  So a by-id window of raw ids is the front-end kernel
+and the window kernel, and the row kernels (`row_ops.py`) are not on
+it.  The state is updated in
+place; outputs are returned as device tensors so the caller decides
+when to fetch.
 """
 
 from __future__ import annotations
@@ -24,14 +27,12 @@ from contextlib import nullcontext
 import numpy as np
 import torch
 
-from . import fused
+from . import fused, ids_front
 from .kernel import (
     EMPTY_EXPIRY,
     IDS20_SENTINEL,
     INS_WIDTH,
     byid_window,
-    ids20_window,
-    ids_window,
     insight_decay,
     insight_topk,
     pack_id_rows,
@@ -391,8 +392,11 @@ class BucketTable(HwmMarksMixin):
                         K=len(stream), B=batch,
                         upload=_uploaded(stream, ids)
                         or _uploaded(now_ns, now))
-            with span("tc.ids.front"):
+            with span("tc.ids.front") as sp:
+                expanded = ids_front.LAUNCHES
                 packed = front(id_rows, ids, int(quantity))
+                if sp is not None:
+                    sp.attrs.update(kernel=ids_front.LAUNCHES != expanded)
             with span("tc.ids.window"):
                 self.state, self.exp_acc, out = \
                     fused.gcra_scan_packed_fused_acc(
@@ -426,7 +430,7 @@ class BucketTable(HwmMarksMixin):
         duplicate-segment structure derived on the device.  Otherwise as
         check_many_byid."""
         return self._byid_launch(
-            ids_window, id_rows, ids, torch.int32, ids.shape[1],
+            ids_front.ids_window, id_rows, ids, torch.int32, ids.shape[1],
             now_ns, quantity, with_degen, compact, params_cur_safe,
         )
 
@@ -455,7 +459,7 @@ class BucketTable(HwmMarksMixin):
                 f"[..., {packed.shape[1]}])"
             )
         return self._byid_launch(
-            ids20_window, id_rows, packed, torch.uint16,
+            ids_front.ids20_window, id_rows, packed, torch.uint16,
             packed.shape[1] * 4 // 5, now_ns, quantity, with_degen, compact,
             params_cur_safe,
         )
